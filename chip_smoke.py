@@ -1,0 +1,346 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+At the paper's own workload (``m = n = 3840``, ``k = 180`` waves,
+float32) it builds both CUDA kernels from ``src/repro_torch/csrc`` and
+holds each against its plain PyTorch version on the card; it then runs
+the main path ``seq.plan(like=A).apply(A)`` with ``method="auto"``, a
+ragged signed problem through both kernels and a gradient, counting the
+kernel launches of that run.  Every phase prints one JSON line and
+raises on failure.  The line before the last holds the card's name and
+power limit, the last ``{"ok": true, "device": {...}}``.  Exits non-zero,
+with no result, when there is no CUDA device or no ``src/repro_torch``
+beside this script.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+SEED = 0
+
+# H100 SXM peaks (NVIDIA data sheet): float32 off the tensor cores, HBM3
+PEAK_F32 = 67e12
+PEAK_BW = 3.35e12
+
+M = N = 3840
+K = 180
+WAVE_TILES = dict(n_b=64, k_b=16)
+MXU_TILES = dict(n_b=128, k_b=128)
+MXU_TOL = 1e-5     # relative Frobenius error, kernel vs plain version
+GRAD_TOL = 1e-4    # relative Frobenius error of plan.apply(grad) vs W
+
+
+def emit(**row):
+    print(json.dumps(row), flush=True)
+
+
+def rel_err(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def max_abs(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def check(cond: bool, what: str):
+    if not cond:
+        raise AssertionError(what)
+
+
+def time_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean milliseconds of ``fn`` on the card, by CUDA events."""
+    import torch
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float):
+    f, b = flops / PEAK_F32 * 1e3, nbytes / PEAK_BW * 1e3
+    return (f, "operations") if f >= b else (b, "bytes")
+
+
+def wave_phase(ctx, tiles: dict, label: str) -> dict:
+    """Hold ``rotseq_wave`` against its plain version at ``tiles``, time it."""
+    import torch
+    from repro_torch.core.blocked import (band_inputs, num_tiles,
+                                          pack_sheared, rot_sequence_blocked)
+    from repro_torch.kernels.rotseq import kernel as wave_k
+    from repro_torch.kernels.rotseq.ops import rot_sequence_wave
+    from repro_torch.kernels.rotseq.ref import rotseq_wave_ref
+    A, C, S = ctx["A"], ctx["C"], ctx["S"]
+    n_b, k_b = tiles["n_b"], tiles["k_b"]
+    T = num_tiles(N, n_b, k_b)
+    band = pack_sheared(C, S, 0, k_b, n_b, T)
+    init, fresh = band_inputs(A.t().contiguous(), k_b, n_b, T)
+    fresh = fresh.contiguous()
+    o_k = wave_k.rotseq_wave(fresh, *band, init)
+    o_p = rotseq_wave_ref(fresh, *band, init)
+    torch.cuda.synchronize()
+    check(torch.equal(o_k, o_p), "rotseq_wave band != plain version")
+    bands = -(-K // k_b)
+    # the kernel's time does not depend on the data, so one application's
+    # launches are timed as `bands` launches on the first band's inputs
+    ms = time_ms(lambda: [wave_k.rotseq_wave(fresh, *band, init)
+                          for _ in range(bands)], 5)
+    plain_ms = bands * time_ms(lambda: rotseq_wave_ref(fresh, *band, init),
+                               1)
+
+    before = wave_k.LAUNCHES
+    out_w = rot_sequence_wave(A, C, S, **tiles)
+    torch.cuda.synchronize()
+    launches = wave_k.LAUNCHES - before
+    check(launches == bands, f"rotseq_wave launches {launches}")
+    plain_w = rot_sequence_blocked(A, C, S, **tiles)
+    err_w = max_abs(out_w, plain_w)
+    err_wf = max_abs(out_w, ctx["ref"])
+    check(bool(torch.isfinite(out_w).all()), "rotseq_wave: non-finite")
+    check(err_w == 0.0 and err_wf == 0.0,
+          f"rotseq_wave max|d| {err_w} vs blocked, {err_wf} vs wavefront")
+    apply_ms = time_ms(lambda: rot_sequence_wave(A, C, S, **tiles), 5)
+    apply_plain_ms = time_ms(
+        lambda: rot_sequence_blocked(A, C, S, **tiles), 1, warm=False)
+    b_ms, b_by = bound(6.0 * M * (N - 1) * K, ctx["io_bytes"])
+    emit(phase="rotseq_wave", tiles_of=label, m=M, n=N, k=K, **tiles,
+         launches=launches, max_abs_err_vs_plain=err_w,
+         max_abs_err_vs_wavefront=err_wf, ms=ms, plain_ms=plain_ms,
+         apply_ms=apply_ms, apply_plain_ms=apply_plain_ms,
+         matmul_ms=ctx["lib_ms"], bound_ms=b_ms, bound_by=b_by)
+    return dict(
+        name="rotseq_wave", route="cuda",
+        source="src/repro_torch/csrc/rotseq_wave.cu",
+        replaces="src/repro/kernels/rotseq/kernel.py:72",
+        max_abs_err=err_w, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=ctx["lib_ms"], tiles=tiles)
+
+
+def mxu_phase(ctx, tiles: dict, label: str) -> dict:
+    """Hold ``rotseq_mxu`` against its plain version at ``tiles``, time it."""
+    import torch
+    from repro_torch.core.accumulate import (accumulate_tile_factors,
+                                             rot_sequence_accumulated)
+    from repro_torch.core.blocked import band_inputs, num_tiles, pack_sheared
+    from repro_torch.kernels.rotseq_mxu import kernel as mxu_k
+    from repro_torch.kernels.rotseq_mxu.ops import rot_sequence_mxu
+    from repro_torch.kernels.rotseq_mxu.ref import rotseq_mxu_ref
+    A, C, S = ctx["A"], ctx["C"], ctx["S"]
+    n_b, k_b = tiles["n_b"], tiles["k_b"]
+    T = num_tiles(N, n_b, k_b)
+    bands = -(-K // k_b)
+    before = mxu_k.LAUNCHES
+    out_m = rot_sequence_mxu(A, C, S, **tiles)
+    torch.cuda.synchronize()
+    launches = mxu_k.LAUNCHES - before
+    check(launches == bands, f"rotseq_mxu launches {launches}")
+    plain_m = rot_sequence_accumulated(A, C, S, **tiles)
+    check(bool(torch.isfinite(out_m).all()), "rotseq_mxu: non-finite")
+    err_m = rel_err(out_m, plain_m)
+    err_m_ref = rel_err(out_m, ctx["ref"])
+    check(err_m <= MXU_TOL, f"rotseq_mxu rel err {err_m} > {MXU_TOL}")
+    check(err_m_ref <= MXU_TOL, f"rotseq_mxu vs wavefront {err_m_ref}")
+    band = pack_sheared(C, S, 0, k_b, n_b, T)
+    Q0 = accumulate_tile_factors(*band)
+    init, fresh = band_inputs(A.t(), k_b, n_b, T)
+    init, fresh = init.t().contiguous(), fresh.t().contiguous()
+    check(rel_err(mxu_k.rotseq_mxu(fresh, Q0, init),
+                  rotseq_mxu_ref(fresh, Q0, init)) <= MXU_TOL,
+          "rotseq_mxu band vs plain version")
+    ms = time_ms(lambda: [mxu_k.rotseq_mxu(fresh, Q0, init)
+                          for _ in range(bands)], 5)
+    plain_ms = bands * time_ms(lambda: rotseq_mxu_ref(fresh, Q0, init), 3)
+    factors_ms = bands * time_ms(lambda: accumulate_tile_factors(*band), 3)
+    apply_ms = time_ms(lambda: rot_sequence_mxu(A, C, S, **tiles), 5)
+    apply_plain_ms = time_ms(
+        lambda: rot_sequence_accumulated(A, C, S, **tiles), 2)
+    w = n_b + k_b
+    b_ms, b_by = bound(2.0 * M * w * w * T * bands, ctx["io_bytes"])
+    err_abs = max_abs(out_m, plain_m)
+    emit(phase="rotseq_mxu", tiles_of=label, m=M, n=N, k=K, **tiles,
+         launches=launches, rel_err_vs_plain=err_m,
+         rel_err_vs_wavefront=err_m_ref, tol=MXU_TOL,
+         max_abs_err_vs_plain=err_abs, ms=ms, plain_ms=plain_ms,
+         factors_ms=factors_ms, apply_ms=apply_ms,
+         apply_plain_ms=apply_plain_ms, matmul_ms=ctx["lib_ms"],
+         bound_ms=b_ms, bound_by=b_by)
+    return dict(
+        name="rotseq_mxu", route="cuda",
+        source="src/repro_torch/csrc/rotseq_mxu.cu",
+        replaces="src/repro/kernels/rotseq_mxu/kernel.py:52",
+        max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=ctx["lib_ms"], tiles=tiles)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: no port package under {SRC}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch import RotationSequence, random_sequence
+    from repro_torch.core.accumulate import rot_sequence_accumulated
+    from repro_torch.core.blocked import rot_sequence_blocked
+    from repro_torch.core.ref import (rot_sequence_numpy,
+                                      rot_sequence_wavefront)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rotseq import kernel as wave_k
+    from repro_torch.kernels.rotseq.ops import rot_sequence_wave
+    from repro_torch.kernels.rotseq_mxu import kernel as mxu_k
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    emit(phase="device", name=kind, nvidia_smi=smi,
+         torch=torch.__version__, cuda=torch.version.cuda)
+
+    # -- build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    log = _build.build()
+    report = [ln.strip() for ln in (log or "").splitlines()
+              if "entry function" in ln or "registers" in ln
+              or "spill" in ln or "error" in ln.lower()]
+    emit(phase="build", built=log is not None,
+         seconds=time.perf_counter() - t0, ptxas=report)
+
+    gen = torch.Generator().manual_seed(SEED)
+    A = torch.randn((M, N), generator=gen).to(dev)
+    seq = random_sequence(N, K, generator=gen, device=dev)
+    C, S = seq.cos, seq.sin
+    ref = rot_sequence_wavefront(A, C, S)
+    # yardstick: the dense product with Q formed beforehand (not timed)
+    Q = rot_sequence_wave(torch.eye(N, device=dev), C, S, **WAVE_TILES)
+    lib_ms = time_ms(lambda: torch.matmul(A, Q), 10)
+    emit(phase="matmul", ms=lib_ms, rel_err_vs_wavefront=rel_err(
+        torch.matmul(A, Q), ref))
+    ctx = dict(A=A, C=C, S=S, ref=ref, lib_ms=lib_ms,
+               io_bytes=4.0 * (2 * M * N + 2 * (N - 1) * K))
+
+    # -- the two kernels at the tiles of the paper's configuration -------
+    entries = {"rotseq_wave": wave_phase(ctx, WAVE_TILES, "paper"),
+               "rotseq_mxu": mxu_phase(ctx, MXU_TILES, "paper")}
+
+    # -- main path: plan(like=A).apply(A), auto and both kernels ----------
+    gen_r = torch.Generator().manual_seed(SEED + 1)
+    mr, nr, kr = 3000, 1000, 37
+    Ar = torch.randn((mr, nr), generator=gen_r).to(dev)
+    sr = random_sequence(nr, kr, generator=gen_r, device=dev)
+    sign = torch.where(torch.rand((nr - 1, kr), generator=gen_r) < 0.5,
+                       1.0, -1.0)
+    seq_r = RotationSequence.from_waves(sr.cos, sr.sin, sign.to(dev))
+    small = RotationSequence.from_waves(sr.cos[:63, :7], sr.sin[:63, :7],
+                                        sign[:63, :7].to(dev))
+    As = Ar[:40, :64].contiguous()
+    oracle = torch.from_numpy(rot_sequence_numpy(
+        As.cpu().numpy(), small.cos.cpu().numpy(), small.sin.cpu().numpy(),
+        G=small.sign.cpu().numpy()))
+
+    wave_k.LAUNCHES = 0
+    mxu_k.LAUNCHES = 0
+    t0 = time.perf_counter()
+    plan = seq.plan(like=A)
+    out = plan.apply(A)
+    rplans = {meth: seq_r.plan(like=Ar, method=meth)
+              for meth in ("cuda_wave", "cuda_mxu")}
+    ragged = {meth: rp.apply(Ar) for meth, rp in rplans.items()}
+    smalls = {meth: small.plan(like=As, method=meth, n_b=8, k_b=4).apply(As)
+              for meth in ("cuda_wave", "cuda_mxu")}
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts = {"rotseq_wave": wave_k.LAUNCHES, "rotseq_mxu": mxu_k.LAUNCHES}
+
+    check(plan.method in ("cuda_wave", "cuda_mxu"),
+          f"auto planned {plan.method} on the card")
+    kw = dict(plan.kwargs)
+    if plan.method == "cuda_wave":
+        err_auto = max_abs(out, rot_sequence_blocked(A, C, S, **kw))
+        check(err_auto == 0.0, f"auto cuda_wave max|d| {err_auto}")
+    else:
+        err_auto = rel_err(out, rot_sequence_accumulated(A, C, S, **kw))
+        check(err_auto <= MXU_TOL, f"auto cuda_mxu rel err {err_auto}")
+    rag_w = max_abs(ragged["cuda_wave"], rot_sequence_blocked(
+        Ar, seq_r.cos, seq_r.sin, G=seq_r.sign,
+        **dict(rplans["cuda_wave"].kwargs)))
+    rag_m = rel_err(ragged["cuda_mxu"], rot_sequence_accumulated(
+        Ar, seq_r.cos, seq_r.sin, G=seq_r.sign,
+        **dict(rplans["cuda_mxu"].kwargs)))
+    check(rag_w == 0.0, f"ragged cuda_wave max|d| {rag_w}")
+    check(rag_m <= MXU_TOL, f"ragged cuda_mxu rel err {rag_m}")
+    small_err = {meth: float((o.cpu().double() - oracle).abs().max())
+                 for meth, o in smalls.items()}
+    check(max(small_err.values()) <= 5e-5 * 7,
+          f"small problem vs numpy oracle {small_err}")
+    for name, n_launch in counts.items():
+        check(n_launch > 0, f"{name} never launched on the main path")
+    # the planned application against the other kernel's best plan, on
+    # the same inputs: what the planner's pick costs end to end
+    other = "cuda_mxu" if plan.method == "cuda_wave" else "cuda_wave"
+    alt = seq.plan(like=A, method=other)
+    apply_ms = {plan.method: time_ms(lambda: plan.apply(A), 3),
+                other: time_ms(lambda: alt.apply(A), 3)}
+    emit(phase="main_path", auto_method=plan.method, auto_kwargs=kw,
+         auto_err=err_auto, other_method=other,
+         other_kwargs=dict(alt.kwargs), apply_ms=apply_ms,
+         ragged_shape=[mr, nr, kr], ragged_wave_max_abs_err=rag_w,
+         ragged_mxu_rel_err=rag_m, small_vs_numpy_oracle=small_err,
+         launches=counts, seconds=main_s)
+
+    # -- the planned kernel again at the tiles the main path ran ---------
+    name = "rotseq_wave" if plan.method == "cuda_wave" else "rotseq_mxu"
+    if entries[name]["tiles"] != kw:
+        phase = wave_phase if name == "rotseq_wave" else mxu_phase
+        entries[name] = phase(ctx, kw, "auto plan")
+    for name, entry in entries.items():
+        entry["launches"] = counts[name]
+
+    # -- gradient ------------------------------------------------------------
+    Ag = A.clone().requires_grad_(True)
+    W = torch.randn((M, N), generator=gen).to(dev)
+    t0 = time.perf_counter()
+    (grad,) = torch.autograd.grad((plan.apply(Ag) * W).sum(), Ag)
+    back = plan.apply(grad)
+    torch.cuda.synchronize()
+    g_err = rel_err(back, W)
+    check(bool(torch.isfinite(grad).all()), "gradient: non-finite")
+    check(g_err <= GRAD_TOL, f"plan.apply(grad) vs W rel err {g_err}")
+    emit(phase="gradient", method=plan.method, rel_err=g_err, tol=GRAD_TOL,
+         seconds=time.perf_counter() - t0)
+
+    # the planned kernel's numbers are taken at the auto plan's tiles, the
+    # other kernel's at the paper configuration's
+    order = ["name", "route", "source", "replaces", "launches",
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms"]
+    print(json.dumps({"kernels": [{key: e[key] for key in order}
+                                  for e in entries.values()]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

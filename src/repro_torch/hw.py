@@ -1,0 +1,35 @@
+"""Per-device peak rates used by the registry's cost model.
+
+Mirror of :mod:`repro.hw` for the PyTorch/CUDA port.  The ``"cuda"`` row
+is an NVIDIA H100 SXM from NVIDIA's data sheet: 67 TFLOP/s of float32
+outside the tensor cores, 3.35 TB/s of HBM3 and 450 GB/s of NVLink each
+way.  Both ``vpu_flops`` and ``mxu_flops`` carry the float32 CUDA-core
+rate, because the port's GEMM kernel (``rotseq_mxu``) is IEEE float32
+on the CUDA cores, not TF32 on the tensor cores.  The ``"cpu"`` row is
+the reference's own, copied unchanged so that host costs agree with the
+reference bit for bit.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+__all__ = ["Hardware", "PLATFORMS"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Hardware:
+    """Per-device peak rates used by the cost model and the roofline."""
+    name: str
+    mxu_flops: float   # dense-matmul peak FLOP/s
+    vpu_flops: float   # elementwise peak FLOP/s
+    hbm_bw: float      # main-memory bandwidth B/s
+    link_bw: float     # interconnect B/s per link
+
+
+PLATFORMS: Dict[str, Hardware] = {
+    "cuda": Hardware("h100-sxm", mxu_flops=67e12, vpu_flops=67e12,
+                     hbm_bw=3.35e12, link_bw=450e9),
+    "cpu": Hardware("cpu-host", mxu_flops=1.5e12, vpu_flops=0.4e12,
+                    hbm_bw=100e9, link_bw=25e9),
+}

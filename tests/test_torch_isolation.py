@@ -1,0 +1,92 @@
+"""The port stands alone: no JAX, nothing of ``repro``, the card by default.
+
+``repro_torch`` and ``chip_smoke.py`` import ``torch`` and ``numpy``,
+never ``jax`` and nothing of the reference package (not even its
+JAX-free modules).  Constructors that build tensors default to the card
+and refuse to fall back to the host silently.
+"""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import RotationSequence, random_sequence
+from repro_torch.core import identity_sequence
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _banned(name):
+    root = name.split(".")[0]
+    return root in ("jax", "jaxlib", "repro")
+
+
+def test_no_jax_or_reference_imports_in_the_port():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [(str(f.relative_to(ROOT)), name) for f in files
+           for name in _imports(f) if _banned(name)]
+    assert bad == []
+    assert list((PORT / "csrc").glob("*.cu"))
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch, repro_torch.convert, "
+            "repro_torch.kernels.rotseq.ops, repro_torch.kernels.rotseq_mxu"
+            ".ops; print(sorted(m for m in sys.modules if m.split('.')[0] "
+            "in ('jax', 'jaxlib', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    assert repro_torch.__name__ == "repro_torch"
+
+
+def test_constructors_default_to_the_card():
+    if torch.cuda.is_available():
+        assert random_sequence(5, 2).device.type == "cuda"
+        return
+    for build in (lambda: random_sequence(5, 2),
+                  lambda: identity_sequence(5, 2),
+                  lambda: RotationSequence.identity(5, 2),
+                  lambda: RotationSequence.from_waves([[1.0]], [[0.0]])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    seq = random_sequence(5, 2, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    assert seq.device.type == "cpu" and seq.shape == (4, 2)
+    # tensors stay where they are
+    moved = RotationSequence.from_waves(seq.cos, seq.sin)
+    assert moved.device.type == "cpu"
+    assert torch.equal(moved.cos, seq.cos)
+
+
+def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("the refusal is what a host without a card sees")
+    runs = [(ROOT / "chip_smoke.py", ROOT)]
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    runs.append((alone, tmp_path))
+    for script, cwd in runs:
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
