@@ -4,15 +4,23 @@
     python3 chip_smoke.py
 
 At the paper's own workload (``m = n = 3840``, ``k = 180`` waves,
-float32) it builds both CUDA kernels from ``src/repro_torch/csrc`` and
-holds each against its plain PyTorch version on the card; it then runs
-the main path ``seq.plan(like=A).apply(A)`` with ``method="auto"``, a
-ragged signed problem through both kernels and a gradient, counting the
-kernel launches of that run.  Every phase prints one JSON line and
-raises on failure.  The line before the last holds the card's name and
-power limit, the last ``{"ok": true, "device": {...}}``.  Exits non-zero,
-with no result, when there is no CUDA device or no ``src/repro_torch``
-beside this script.
+float32) it builds the CUDA kernels from ``src/repro_torch/csrc`` and
+holds the wavefront and accumulated kernels against their plain PyTorch
+versions on the card; it then runs the main path
+``seq.plan(like=A).apply(A)`` with ``method="auto"``, a ragged signed
+problem through both kernels and a gradient, counting the kernel
+launches of that run.  Then the serving path at a realistic bucket: 16
+requests of ``m = n = 1024`` float32 targets, each with its own
+sequence of 33-64 waves padded to 64.  The fused batched kernel is held
+against its plain version and against per-request ``cuda_wave``; then
+``RotationService`` (with the reference's mixed demo stream of plain,
+signed and reflector requests), ``apply_batched`` on the ``seq.T``
+staircases, a gradient through ``apply_batched`` and ``StreamEngine``
+run with the launch counts set to 0 just before and read just after.
+Every phase prints one JSON line and raises on failure.  The line before
+the last holds the card's name and power limit, the last ``{"ok": true,
+"device": {...}}``.  Exits non-zero, with no result, when there is no
+CUDA device or no ``src/repro_torch`` beside this script.
 """
 from __future__ import annotations
 
@@ -34,8 +42,16 @@ M = N = 3840
 K = 180
 WAVE_TILES = dict(n_b=64, k_b=16)
 MXU_TILES = dict(n_b=128, k_b=128)
+# each kernel's fastest measured application at this shape (PERF.md)
+BEST_TILES = {"cuda_wave": WAVE_TILES, "cuda_mxu": dict(n_b=64, k_b=64)}
 MXU_TOL = 1e-5     # relative Frobenius error, kernel vs plain version
 GRAD_TOL = 1e-4    # relative Frobenius error of plan.apply(grad) vs W
+
+# the serving bucket: B requests of (MB, NB) targets, KMIN..KMAX waves
+# each, padded to KB
+B, MB, NB, KB = 16, 1024, 1024, 64
+KMIN, KMAX = 33, 64
+STREAM_REQUESTS = 64
 
 
 def emit(**row):
@@ -186,6 +202,203 @@ def mxu_phase(ctx, tiles: dict, label: str) -> dict:
         bound_by=b_by, library_ms=ctx["lib_ms"], tiles=tiles)
 
 
+def batched_phase(bctx) -> dict:
+    """Hold ``rotseq_batched`` against its plain version and against
+    per-request ``cuda_wave`` at the serving bucket, and time it."""
+    import torch
+    from repro_torch.core.ref import sign_grid
+    from repro_torch.kernels.rotseq_batched import kernel as batched_k
+    from repro_torch.kernels.rotseq_batched.ops import (rot_sequence_batched,
+                                                        wave_windows)
+    from repro_torch.kernels.rotseq_batched.ref import rotseq_batched_ref
+    A, seqs, padded = bctx["A"], bctx["seqs"], bctx["padded"]
+    C = torch.stack([s.cos for s in padded])
+    S = torch.stack([s.sin for s in padded])
+    G = sign_grid(C, False, None)
+    starts, counts = wave_windows(C, S, G)
+    AT = A.transpose(1, 2).contiguous()
+    Cw, Sw, Gw = (x.transpose(1, 2).contiguous() for x in (C, S, G))
+    args = (AT, Cw, Sw, Gw, starts, counts)
+    o_k, p_k = batched_k.rotseq_batched(*args)
+    o_p, p_p = rotseq_batched_ref(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(o_k, o_p), "rotseq_batched out != plain version")
+    check(torch.equal(p_k, p_p), "rotseq_batched planes != plain version")
+    live = [(NB - 1) * s.k for s in seqs]
+    want = torch.tensor(live, dtype=torch.int32, device=A.device)[:, None]
+    check(bool((p_k == want).all()),
+          f"plane counts {p_k[:, 0].tolist()} != live planes {live}")
+    err = max_abs(o_k, o_p)
+    out = o_k.transpose(1, 2)
+    per = torch.stack([s.plan(like=A[i], method="cuda_wave").apply(A[i])
+                       for i, s in enumerate(seqs)])
+    err_wave = max_abs(out, per)
+    check(bool(torch.isfinite(out).all()), "rotseq_batched: non-finite")
+    check(err_wave == 0.0, f"rotseq_batched vs per-request cuda_wave "
+          f"max|d| {err_wave}")
+    ms = time_ms(lambda: batched_k.rotseq_batched(*args), 10)
+    plain_ms = time_ms(lambda: rotseq_batched_ref(*args), 1)
+    # yardstick: one batched product with every request's Q formed
+    # beforehand (not timed), TF32 off
+    eye = torch.eye(NB, device=A.device).expand(B, NB, NB)
+    Q = rot_sequence_batched(eye, C, S)
+    lib_ms = time_ms(lambda: torch.bmm(A, Q), 10)
+    lib_err = rel_err(torch.bmm(A, Q), out)
+    del Q
+    b_ms, b_by = bound(6.0 * MB * sum(live),
+                       4.0 * (2 * B * MB * NB + 3 * B * (NB - 1) * KB))
+    emit(phase="rotseq_batched", b=B, m=MB, n=NB, k_pad=KB,
+         k=[s.k for s in seqs], max_abs_err_vs_plain=err,
+         planes_equal_live=True, max_abs_err_vs_cuda_wave=err_wave,
+         ms=ms, plain_ms=plain_ms, bmm_ms=lib_ms,
+         bmm_rel_err=lib_err, bound_ms=b_ms, bound_by=b_by)
+    return dict(
+        name="rotseq_batched", route="cuda",
+        source="src/repro_torch/csrc/rotseq_batched.cu",
+        replaces="src/repro/kernels/rotseq_batched/kernel.py:83",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms)
+
+
+def mixed_requests(dev):
+    """The reference's mixed demo stream, a third of it signed and a
+    third all-reflector (partial buckets, so pad slots run too)."""
+    import torch
+    from repro_torch import RotationSequence
+    from repro_torch.serve import synthetic_stream
+    gen = torch.Generator().manual_seed(SEED + 3)
+    out = []
+    for i, (seq, A) in enumerate(synthetic_stream(21, seed=SEED,
+                                                  device=dev)):
+        # the stream cycles through the 3 shapes; vary the structure on
+        # another period so every shape gets all three
+        if (i // 3) % 3 == 1:
+            sign = torch.where(torch.rand(seq.shape, generator=gen) < 0.5,
+                               1.0, -1.0).to(dev)
+            seq = RotationSequence(seq.cos, seq.sin, sign)
+        elif (i // 3) % 3 == 2:
+            seq = RotationSequence(seq.cos, seq.sin, None, True)
+        out.append((seq, A))
+    return out
+
+
+def serving_phase(bctx, kernels) -> dict:
+    """The serving path: RotationService, seq.T staircases through
+    apply_batched, a gradient and StreamEngine, with launches counted."""
+    import torch
+    from repro_torch.kernels.rotseq_batched.ops import rot_sequence_batched
+    from repro_torch.serve import RotationService, StreamEngine
+    A, seqs, padded = bctx["A"], bctx["seqs"], bctx["padded"]
+    dev = A.device
+    bucket = [(s, A[i]) for i, s in enumerate(seqs)]
+    mixed = mixed_requests(dev)
+    stairs = [s.T for s in padded]
+    gen = torch.Generator().manual_seed(SEED + 4)
+    W = torch.randn((B, MB, NB), generator=gen).to(dev)
+    stream_pairs = bucket * (STREAM_REQUESTS // B)
+    # what each request gives alone, through another kernel (cuda_wave)
+    # and through its own auto plan
+    alone = [s.plan(like=X, method="cuda_wave").apply(X)
+             for s, X in bucket + mixed]
+    alone_auto = [s.plan(like=X).apply(X) for s, X in bucket + mixed]
+
+    for k in kernels.values():
+        k.LAUNCHES = 0
+    t0 = time.perf_counter()
+    svc = RotationService(slots=B, method="auto", store=False)
+    outs = svc.apply_many(bucket + mixed)
+    plan_t = stairs[0].plan(like=A, batch=B, shared_sequence=False)
+    out_t = plan_t.apply_batched(A, sequences=stairs)
+    plan_b = svc._plans[svc._bucket_key(*bucket[0])]
+    Ag = A.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(
+        (plan_b.apply_batched(Ag, sequences=padded) * W).sum(), Ag)
+    back = plan_b.apply_batched(grad, sequences=padded)
+    eng = StreamEngine(slots=B, method="auto", store=False)
+    tickets = [eng.submit(s, X) for s, X in stream_pairs]
+    eng.close(drain=True)
+    streamed = [t.result(timeout=600) for t in tickets]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {name: k.LAUNCHES for name, k in kernels.items()}
+
+    methods = {"x".join(map(str, key.as_list()[:2])) + f"/k{key.k_pad}"
+               + ("/signed" if key.signed else ""): p.method
+               for key, p in svc._plans.items()}
+    check(plan_b.method == "cuda_batched",
+          f"auto planned {plan_b.method} for the {MB}x{NB} bucket")
+    check(plan_t.method == "cuda_batched",
+          f"auto planned {plan_t.method} for the staircase bucket")
+    for i, (o, a, b) in enumerate(zip(outs, alone, alone_auto)):
+        check(torch.equal(o, a) and torch.equal(o, b),
+              f"request {i}: bucketed != per-request")
+    # the staircases: planes applied are the live planes, and the result
+    # equals each staircase through cuda_wave alone
+    C_t = torch.stack([s.cos for s in stairs])
+    S_t = torch.stack([s.sin for s in stairs])
+    o_t, planes_t = rot_sequence_batched(A, C_t, S_t, return_planes=True)
+    live = torch.tensor([s.k_live for s in stairs], dtype=torch.int32,
+                        device=dev)[:, None]
+    check(bool((planes_t == live).all()), "staircase planes != live planes")
+    check(torch.equal(o_t, out_t), "staircase apply_batched != kernel")
+    stair_loop = lambda: [s.plan(like=A[i], method="cuda_wave").apply(A[i])
+                          for i, s in enumerate(stairs)]
+    per_t = torch.stack(stair_loop())
+    err_t = max_abs(out_t, per_t)
+    check(err_t == 0.0, f"staircase vs per-request cuda_wave max|d| {err_t}")
+    g_err = rel_err(back, W)
+    check(bool(torch.isfinite(grad).all()), "batched gradient: non-finite")
+    check(g_err <= GRAD_TOL, f"apply_batched(grad) vs W rel err {g_err}")
+    sync_ref = outs[:B] * (STREAM_REQUESTS // B)
+    check(all(torch.equal(a, b) for a, b in zip(streamed, sync_ref)),
+          "streamed != synchronous drain")
+    check(eng.stats["completed"] == STREAM_REQUESTS,
+          f"stream completed {eng.stats['completed']}")
+    check(counts["rotseq_batched"] > 0,
+          "rotseq_batched never launched on the serving path")
+
+    stair_ms = time_ms(lambda: plan_t.apply_batched(A, sequences=stairs), 3)
+    stair_loop_ms = time_ms(stair_loop, 1)
+    # one request alone: what auto plans for a single target of the
+    # bucket's shape, against cuda_wave
+    one = seqs[0].plan(like=A[0])
+    one_wave = seqs[0].plan(like=A[0], method="cuda_wave")
+    single_ms = {one.method: time_ms(lambda: one.apply(A[0]), 3),
+                 "cuda_wave": time_ms(lambda: one_wave.apply(A[0]), 3)}
+
+    def run_sync():
+        svc.apply_many(stream_pairs)
+        torch.cuda.synchronize()
+
+    def run_stream():
+        with StreamEngine(service=RotationService(
+                slots=B, method="auto", store=False)) as e:
+            ts = [e.submit(s, X) for s, X in stream_pairs]
+        for t in ts:
+            t.result(timeout=600)
+
+    rates = {}
+    for name, fn in (("sync", run_sync), ("stream", run_stream)):
+        fn()
+        t1 = time.perf_counter()
+        fn()
+        rates[name] = STREAM_REQUESTS / (time.perf_counter() - t1)
+    emit(phase="serving", bucket_methods=methods,
+         requests=len(bucket) + len(mixed), service_stats=svc.stats,
+         bitwise_vs_per_request=True, staircase_waves=stairs[0].k,
+         staircase_live_share=float(stairs[0].k_live
+                                    / ((NB - 1) * stairs[0].k)),
+         staircase_ms=stair_ms, staircase_cuda_wave_loop_ms=stair_loop_ms,
+         staircase_max_abs_err_vs_cuda_wave=err_t,
+         single_request_auto=one.method, single_request_ms=single_ms,
+         grad_rel_err=g_err, tol=GRAD_TOL,
+         stream_requests=STREAM_REQUESTS, stream_stats=eng.stats,
+         stream_bitwise_vs_sync=True, sync_requests_per_s=rates["sync"],
+         stream_requests_per_s=rates["stream"], launches=counts,
+         seconds=seconds)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -203,6 +416,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.rotseq import kernel as wave_k
     from repro_torch.kernels.rotseq.ops import rot_sequence_wave
+    from repro_torch.kernels.rotseq_batched import kernel as batched_k
     from repro_torch.kernels.rotseq_mxu import kernel as mxu_k
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -259,6 +473,7 @@ def main() -> int:
 
     wave_k.LAUNCHES = 0
     mxu_k.LAUNCHES = 0
+    batched_k.LAUNCHES = 0
     t0 = time.perf_counter()
     plan = seq.plan(like=A)
     out = plan.apply(A)
@@ -297,7 +512,7 @@ def main() -> int:
     # the planned application against the other kernel's best plan, on
     # the same inputs: what the planner's pick costs end to end
     other = "cuda_mxu" if plan.method == "cuda_wave" else "cuda_wave"
-    alt = seq.plan(like=A, method=other)
+    alt = seq.plan(like=A, method=other, **BEST_TILES[other])
     apply_ms = {plan.method: time_ms(lambda: plan.apply(A), 3),
                 other: time_ms(lambda: alt.apply(A), 3)}
     emit(phase="main_path", auto_method=plan.method, auto_kwargs=kw,
@@ -327,6 +542,17 @@ def main() -> int:
     check(g_err <= GRAD_TOL, f"plan.apply(grad) vs W rel err {g_err}")
     emit(phase="gradient", method=plan.method, rel_err=g_err, tol=GRAD_TOL,
          seconds=time.perf_counter() - t0)
+
+    # -- the serving path at a realistic bucket ----------------------------
+    gen_b = torch.Generator().manual_seed(SEED + 2)
+    ks = torch.randint(KMIN, KMAX + 1, (B,), generator=gen_b).tolist()
+    seqs = [random_sequence(NB, k, generator=gen_b, device=dev) for k in ks]
+    bctx = dict(A=torch.randn((B, MB, NB), generator=gen_b).to(dev),
+                seqs=seqs, padded=[s.pad_to(KB) for s in seqs])
+    entries["rotseq_batched"] = batched_phase(bctx)
+    served = serving_phase(bctx, {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
+                                  "rotseq_batched": batched_k})
+    entries["rotseq_batched"]["launches"] = served["rotseq_batched"]
 
     # the planned kernel's numbers are taken at the auto plan's tiles, the
     # other kernel's at the paper configuration's

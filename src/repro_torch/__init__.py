@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of the rotation-sequence library ``repro``.
 
 Applies a recorded sequence of planar rotations to a matrix,
-``A <- A @ Q``, through ``seq.plan(like=A).apply(A)``: on an NVIDIA
-H100 by hand-written CUDA kernels (``kernels/``), on the CPU by their
-plain PyTorch versions.  Imports ``torch`` and ``numpy`` only.
+``A <- A @ Q``, through ``seq.plan(like=A).apply(A)``, and serves many
+such requests batched by shape (``repro_torch.serve``, through
+``plan.apply_batched``): on an NVIDIA H100 by hand-written CUDA kernels
+(``kernels/``), on the CPU by their plain PyTorch versions.  Imports
+``torch`` and ``numpy`` only.
 """
 from .core import (METHODS, RotationSequence, SequencePlan,
                    apply_rotation_sequence, identity_sequence,

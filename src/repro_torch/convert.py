@@ -1,10 +1,13 @@
-"""Carry rotation sequences across from the JAX reference package.
+"""Carry rotation sequences and request streams across from the JAX
+reference package.
 
 :func:`sequence_from_reference` takes what the reference's
 ``RotationSequence.to_dict()`` returns (waves as nested lists), or the
 same keys holding numpy arrays, and rebuilds the waves bit for bit as a
-port :class:`~repro_torch.core.sequence.RotationSequence`.  It reads
-plain data only and imports nothing of the reference.
+port :class:`~repro_torch.core.sequence.RotationSequence`.
+:func:`requests_from_reference` does the same for a request stream of
+``(sequence dict, numpy target)`` pairs.  Both read plain data only and
+import nothing of the reference.
 """
 from __future__ import annotations
 
@@ -13,9 +16,7 @@ import torch
 
 from repro_torch.core.sequence import RotationSequence, resolve_device
 
-__all__ = ["sequence_from_reference"]
-
-_DTYPES = {"float32": np.float32, "float64": np.float64}
+__all__ = ["sequence_from_reference", "requests_from_reference"]
 
 
 def sequence_from_reference(d: dict, *, device="cuda") -> RotationSequence:
@@ -26,21 +27,13 @@ def sequence_from_reference(d: dict, *, device="cuda") -> RotationSequence:
     the dtype of ``cos`` when it is a numpy array, else float32).  The
     waves are stored untouched: no renormalization.
     """
-    default = getattr(d["cos"], "dtype", np.dtype(np.float32))
-    name = str(d.get("dtype") or default)
-    if name not in _DTYPES:
-        raise ValueError(f"unsupported wave dtype {name!r}; one of "
-                         f"{sorted(_DTYPES)}")
+    return RotationSequence.from_dict(d, device=device)
+
+
+def requests_from_reference(pairs, *, device="cuda"):
+    """``[(sequence dict, target array)]`` -> ``[(RotationSequence,
+    tensor)]`` on ``device``, bit for bit (targets keep their dtype)."""
     device = resolve_device(device)
-
-    def conv(x):
-        return torch.from_numpy(
-            np.array(x, dtype=_DTYPES[name], copy=True)).to(device)
-
-    sign = d.get("sign")
-    k_live = d.get("k_live")
-    return RotationSequence(
-        conv(d["cos"]), conv(d["sin"]),
-        None if sign is None else conv(sign),
-        bool(d.get("reflect", False)),
-        None if k_live is None else int(k_live))
+    return [(sequence_from_reference(d, device=device),
+             torch.from_numpy(np.array(A, copy=True)).to(device))
+            for d, A in pairs]

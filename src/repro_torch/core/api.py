@@ -11,9 +11,11 @@ callers that hold them.  ``method`` is one of:
   ``accumulated``   rs_gemm analogue: tile factors + GEMM sweeps
   ``cuda_wave``     CUDA wavefront kernel (counterpart of ``pallas_wave``)
   ``cuda_mxu``      CUDA accumulated kernel (counterpart of ``pallas_mxu``)
+  ``cuda_batched``  CUDA fused batched kernel, one launch per batch of
+                    targets (counterpart of ``rotseq_batched``)
   ``auto``          the registry's cost model picks backend + tiles
 
-The two CUDA backends run their kernels on CUDA tensors and their plain
+The CUDA backends run their kernels on CUDA tensors and their plain
 versions on CPU tensors; off the card the cost model penalises them so
 ``auto`` never picks them there.
 """
@@ -62,6 +64,11 @@ def _run_cuda_mxu(A, C, S, *, n_b=64, k_b=16, reflect=False, G=None, **kw):
                             G=G, **kw)
 
 
+def _run_cuda_batched(A, C, S, *, reflect=False, G=None, **kw):
+    from repro_torch.kernels.rotseq_batched.ops import rot_sequence_batched
+    return rot_sequence_batched(A, C, S, reflect=reflect, G=G, **kw)
+
+
 registry.register(BackendSpec(
     name="unoptimized",
     fn=_run_unoptimized,
@@ -92,7 +99,9 @@ registry.register(BackendSpec(
 registry.register(BackendSpec(
     name="accumulated",
     fn=_run_accumulated,
-    capability=Capability(tile_min=(2, 1)),
+    # its factor accumulation writes a shared identity in place, which
+    # torch.func.vmap refuses: per-request batches loop
+    capability=Capability(tile_min=(2, 1), supports_vmap=False),
     cost=registry.cost_accumulated,
     candidates=registry.accumulated_tiles,
     doc="rs_gemm analogue: accumulate tile factors, sweep as GEMMs.",
@@ -103,7 +112,7 @@ registry.register(BackendSpec(
     fn=_run_cuda_wave,
     capability=Capability(dtypes=("float32",), platforms=("cuda",),
                           tile_min=(2, 1), needs_kernel=True,
-                          supports_vmap=False),
+                          supports_vmap=False, batch_via="flatten"),
     cost=registry.cost_cuda_wave,
     candidates=registry.cuda_wave_tiles,
     doc="CUDA wavefront kernel (packed layout, carry in shared memory).",
@@ -114,10 +123,23 @@ registry.register(BackendSpec(
     fn=_run_cuda_mxu,
     capability=Capability(dtypes=("float32",), platforms=("cuda",),
                           tile_min=(2, 1), tile_max=(128, 128),
-                          needs_kernel=True, supports_vmap=False),
+                          needs_kernel=True, supports_vmap=False,
+                          batch_via="flatten"),
     cost=registry.cost_cuda_mxu,
     candidates=registry.cuda_mxu_tiles,
     doc="CUDA accumulated kernel (IEEE float32 tile GEMM chain).",
+))
+
+registry.register(BackendSpec(
+    name="cuda_batched",
+    fn=_run_cuda_batched,
+    capability=Capability(dtypes=("float32",), platforms=("cuda",),
+                          supports_signs=True, needs_kernel=True,
+                          supports_vmap=False, batch_via="fused"),
+    cost=registry.cost_cuda_batched,
+    candidates=registry.no_tiles,
+    doc="CUDA fused batched kernel: one launch per batch, dead planes "
+        "skipped.",
 ))
 
 METHODS = registry.registered_methods()

@@ -9,21 +9,38 @@ problem in this process.
 
 :class:`Problem.platform` is the device type of the target tensor
 (``"cuda"`` or ``"cpu"``), never a global probe.  The CUDA kernels
-(``cuda_wave``, ``cuda_mxu``) are priced like the reference's Pallas
-kernels: their plain versions stay eligible on the CPU with a large
-penalty, so ``auto`` picks them only on the card, where they always
-undercut the eager backends of the same family.
+(``cuda_wave``, ``cuda_mxu``, ``cuda_batched``) are priced like the
+reference's Pallas kernels: their plain versions stay eligible on the
+CPU with a large penalty, so ``auto`` picks them only on the card.  The
+mirror image holds on the card: the plain PyTorch backends are eager
+step loops there, priced with the same penalty, so ``auto`` plans them
+on ``"cuda"`` only where no kernel is eligible (float64).  The eager
+tile-factor setup of ``cuda_mxu`` is priced by its measured step count,
+not at the card's peak rates.
 
-The reference's persisted plan cache, cross-shape interpolation,
-measured autotune and sharded communication term are not ported yet.
+``cuda_batched`` (one fused launch per serving bucket) is priced by the
+reference's formula for ``rotseq_batched``, with flops on the *live*
+planes only (``Problem.live_planes``): identity padding from ``pad_to``
+and ``seq.T`` staircases is skipped, not multiplied through.
+
+The persisted plan cache, cross-shape interpolation, measured autotune
+and sharded communication term are not ported yet; of the persistence
+layer only what the serve-plan store needs is here (:func:`plan_cache_path`
+and the versioned JSON helpers).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
+import tempfile
 from typing import Callable, Dict, List, Optional, Tuple
 
+import torch
+
 from repro_torch.hw import PLATFORMS, Hardware
+from repro_torch.kernels.limits import batched_threads
 
 __all__ = [
     "Hardware", "PLATFORMS", "Problem", "Plan", "Capability", "BackendSpec",
@@ -32,14 +49,29 @@ __all__ = [
     "cuda_wave_tiles", "cuda_mxu_tiles",
     "cost_unoptimized", "cost_wavefront", "cost_blocked",
     "cost_accumulated", "cost_cuda_wave", "cost_cuda_mxu",
+    "cost_cuda_batched",
     "select_plan", "plan_cache_stats", "clear_plan_cache",
-    "cost_components",
+    "cost_components", "plan_cache_path",
 ]
 
 # A CUDA kernel asked for off the card runs its plain version, orders of
 # magnitude slower; it stays eligible there but carries this penalty, so
-# "auto" never picks it while an explicit method name still works.
+# "auto" never picks it while an explicit method name still works.  The
+# plain backends carry the same penalty on the card, where they are eager
+# step loops of small launches.
 _OFF_DEVICE_PENALTY = 1e3
+
+# The fused batched kernel past its shared-memory cap (a block cannot
+# hold one warp's (n, 32) slab): priced out, as the reference prices its
+# kernel out past the on-chip budgets.
+_OVER_BUDGET_PENALTY = 1e3
+
+# One vectorised step of the eager tile-factor accumulation on the card
+# (core/accumulate.py, a handful of small launches over all tiles of a
+# band; n_b + k_b - 1 steps a band): measured by chip_smoke.py on an
+# NVIDIA H100 80GB HBM3 at 700 W as 36.11 ms for the 3 x 127 steps of
+# m = n = 3840, k = 180 at n_b = k_b = 64.
+_FACTOR_STEP_SECONDS = 36.11e-3 / (3 * 127)
 
 
 # --------------------------------------------------------------------------
@@ -62,6 +94,11 @@ class Problem:
     signs: bool = False    # needs per-entry G support
     batch: int = 1
     shared_sequence: bool = True
+    # live (non-identity) planes of one sequence's (n-1, k) grid when
+    # known (RotationSequence.k_live): pad_to tails and seq.T staircases
+    # make the live share small, which only the plane-skipping backend
+    # (cuda_batched) turns into less work
+    live_planes: Optional[int] = None
 
     @property
     def itemsize(self) -> int:
@@ -82,7 +119,15 @@ class Problem:
 
     @property
     def planes_total(self) -> int:
+        """Planes of the full (n-1, k) grid, identity padding included."""
         return max(0, self.n - 1) * self.k
+
+    @property
+    def planes_live(self) -> int:
+        """Known live planes (the full grid when unknown)."""
+        if self.live_planes is None:
+            return self.planes_total
+        return min(self.live_planes, self.planes_total)
 
     @property
     def hardware(self) -> Hardware:
@@ -117,7 +162,14 @@ class Capability:
     tile_max: Tuple[int, int] = (4096, 4096)
     # a CUDA kernel whose plain version runs (penalised) on other devices
     needs_kernel: bool = False
+    # per-request batches (apply_batched with sequences=): mapped with
+    # torch.func.vmap when True, looped per element when False
     supports_vmap: bool = True
+    # batched execution: "flatten" runs a shared-sequence batch (b, m, n)
+    # as one (b*m, n) problem (rotations act row-wise); "vmap" maps the
+    # backend over the batch; "fused" takes the whole batch with shared
+    # (n-1, K) or stacked (b, n-1, K) waves in one launch
+    batch_via: str = "flatten"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,6 +235,11 @@ def _roofline_seconds(flop_term: float, byte_term: float) -> float:
     return max(flop_term, byte_term, _LATENCY_FLOOR)
 
 
+def _eager_factor(p: Problem) -> float:
+    """The plain backends on the card are eager step loops, not kernels."""
+    return _OFF_DEVICE_PENALTY if p.platform == "cuda" else 1.0
+
+
 _ZERO_SPLIT = {"setup_flops": 0.0, "setup_bytes": 0.0,
                "stream_flops": 0.0, "stream_bytes": 0.0}
 
@@ -205,7 +262,7 @@ def cost_unoptimized(p: Problem, plan: Plan) -> float:
     hw = p.hardware
     c = _components_unoptimized(p, plan)
     return _roofline_seconds(c["stream_flops"] / hw.vpu_flops,
-                             c["stream_bytes"] / hw.hbm_bw)
+                             c["stream_bytes"] / hw.hbm_bw) * _eager_factor(p)
 
 
 def _components_wavefront(p: Problem, plan: Plan) -> Dict[str, float]:
@@ -218,7 +275,7 @@ def cost_wavefront(p: Problem, plan: Plan) -> float:
     hw = p.hardware
     c = _components_wavefront(p, plan)
     return _roofline_seconds(c["stream_flops"] / hw.vpu_flops,
-                             c["stream_bytes"] / hw.hbm_bw)
+                             c["stream_bytes"] / hw.hbm_bw) * _eager_factor(p)
 
 
 def _tile_grid(p: Problem, n_b: int, k_b: int) -> Tuple[int, int, int]:
@@ -247,13 +304,17 @@ def _components_blocked(p: Problem, plan: Plan) -> Dict[str, float]:
         stream_bytes=2.0 * p.m_total * p.n * p.itemsize * _bands(p.k, k_b))
 
 
-def cost_blocked(p: Problem, plan: Plan) -> float:
-    """Blocked wavefront: A streams once per band of k_b waves (SS5)."""
+def _blocked_seconds(p: Problem, plan: Plan) -> float:
     hw = p.hardware
     c = _components_blocked(p, plan)
     return _roofline_seconds(
         c["stream_flops"] / hw.vpu_flops,
         (c["setup_bytes"] + c["stream_bytes"]) / hw.hbm_bw)
+
+
+def cost_blocked(p: Problem, plan: Plan) -> float:
+    """Blocked wavefront: A streams once per band of k_b waves (SS5)."""
+    return _blocked_seconds(p, plan) * _eager_factor(p)
 
 
 def _accumulated_flops(p: Problem, n_b: int, k_b: int) -> Tuple[float, float]:
@@ -278,14 +339,18 @@ def _components_accumulated(p: Problem, plan: Plan) -> Dict[str, float]:
         stream_bytes=2.0 * p.m_total * p.n * p.itemsize * _bands(p.k, k_b))
 
 
-def cost_accumulated(p: Problem, plan: Plan) -> float:
-    """rs_gemm: ~4/3 extra flops (n_b = k_b) priced at the GEMM rate."""
+def _accumulated_seconds(p: Problem, plan: Plan) -> float:
     hw = p.hardware
     c = _components_accumulated(p, plan)
     flop_term = (c["stream_flops"] / hw.mxu_flops
                  + c["setup_flops"] / hw.vpu_flops)
     return _roofline_seconds(
         flop_term, (c["setup_bytes"] + c["stream_bytes"]) / hw.hbm_bw)
+
+
+def cost_accumulated(p: Problem, plan: Plan) -> float:
+    """rs_gemm: ~4/3 extra flops (n_b = k_b) priced at the GEMM rate."""
+    return _accumulated_seconds(p, plan) * _eager_factor(p)
 
 
 def _off_device_factor(p: Problem) -> float:
@@ -298,14 +363,58 @@ def cost_cuda_wave(p: Problem, plan: Plan) -> float:
     ``supports_vmap=False``: a per-request batch runs as separate
     launches, so the latency floor multiplies by the sequence count.
     """
-    return max(0.7 * cost_blocked(p, plan) * _off_device_factor(p),
+    return max(0.7 * _blocked_seconds(p, plan) * _off_device_factor(p),
                p.sequences * _LATENCY_FLOOR)
 
 
 def cost_cuda_mxu(p: Problem, plan: Plan) -> float:
-    """Accumulated kernel: accumulated-path traffic at fused constants."""
-    return max(0.7 * cost_accumulated(p, plan) * _off_device_factor(p),
+    """Accumulated kernel: accumulated-path traffic at fused constants.
+
+    On the card the tile factors are built eagerly (not in a kernel), so
+    their setup is priced by its vectorised steps at the measured
+    :data:`_FACTOR_STEP_SECONDS`, once per sequence, on top of the
+    kernel's GEMM sweep; off the card the reference's formula holds.
+    """
+    if p.platform != "cuda":
+        return max(0.7 * _accumulated_seconds(p, plan) * _OFF_DEVICE_PENALTY,
+                   p.sequences * _LATENCY_FLOOR)
+    hw = p.hardware
+    c = _components_accumulated(p, plan)
+    sweep = 0.7 * _roofline_seconds(
+        c["stream_flops"] / hw.mxu_flops,
+        (c["setup_bytes"] + c["stream_bytes"]) / hw.hbm_bw)
+    n_b, k_b = plan.n_b or 128, plan.k_b or 128
+    steps = _bands(p.k, k_b) * (n_b + k_b - 1)
+    return max(sweep + p.sequences * steps * _FACTOR_STEP_SECONDS,
                p.sequences * _LATENCY_FLOOR)
+
+
+def _components_cuda_batched(p: Problem, plan: Plan) -> Dict[str, float]:
+    # the c/s/g panels stream once per batch element (shared or not);
+    # targets stream once; flops only on the live planes
+    return _split(
+        setup_bytes=3.0 * max(1, p.batch) * p.planes_total * p.itemsize,
+        stream_flops=6.0 * p.m_total * p.planes_live,
+        stream_bytes=2.0 * p.m_total * p.n * p.itemsize)
+
+
+def cost_cuda_batched(p: Problem, plan: Plan) -> float:
+    """Fused batched kernel: every target through memory once, one launch.
+
+    The reference's ``rotseq_batched`` formula at the card's rates: the
+    flop term counts live planes only, and one latency floor covers the
+    whole batch.  Past the kernel's shared-memory cap (``n > 1816``) the
+    backend is priced out, so ``auto`` never plans what the wrapper
+    refuses.
+    """
+    hw = p.hardware
+    c = _components_cuda_batched(p, plan)
+    secs = _roofline_seconds(
+        c["stream_flops"] / hw.vpu_flops,
+        (c["setup_bytes"] + c["stream_bytes"]) / hw.hbm_bw)
+    if batched_threads(p.n, p.m) == 0:
+        secs *= _OVER_BUDGET_PENALTY
+    return max(secs * _off_device_factor(p), _LATENCY_FLOOR)
 
 
 # the setup/stream traffic split behind each cost model (the kernels move
@@ -317,6 +426,7 @@ _COMPONENT_FNS: Dict[str, Callable[[Problem, Plan], Dict[str, float]]] = {
     "accumulated": _components_accumulated,
     "cuda_wave": _components_blocked,
     "cuda_mxu": _components_accumulated,
+    "cuda_batched": _components_cuda_batched,
 }
 
 # stream flops run at the GEMM rate for the GEMM family
@@ -420,9 +530,14 @@ def clear_plan_cache() -> None:
 
 
 def _plan_key(problem: Problem) -> tuple:
-    return (problem.m, problem.n, problem.k, problem.dtype,
-            problem.platform, problem.signs, problem.batch,
-            problem.shared_sequence)
+    key = (problem.m, problem.n, problem.k, problem.dtype,
+           problem.platform, problem.signs, problem.batch,
+           problem.shared_sequence)
+    if problem.live_planes is not None:
+        # liveness changes which backend wins: a thin staircase must not
+        # share an entry with the dense grid of the same shape
+        key = key + ("live", problem.live_planes)
+    return key
 
 
 def _modeled_plans(problem: Problem) -> List[Plan]:
@@ -450,17 +565,20 @@ def _modeled_plans(problem: Problem) -> List[Plan]:
 
 def select_plan(m: int, n: int, k: int, *, dtype: str = "float32",
                 platform: str = "cuda", signs: bool = False,
-                batch: int = 1, shared_sequence: bool = True) -> Plan:
+                batch: int = 1, shared_sequence: bool = True,
+                live_planes: Optional[int] = None) -> Plan:
     """Pick ``(method, n_b, k_b)`` for a problem, with caching.
 
     Cost-model ranking, cached per ``(m, n, k, dtype, platform, signs,
-    batch, shared_sequence)``.
+    batch, shared_sequence)`` plus ``("live", live_planes)`` when the
+    live planes are known.
     """
     batch = max(1, int(batch))
     shared_sequence = bool(shared_sequence) or batch <= 1
     problem = Problem(m=m, n=n, k=k, dtype=dtype, platform=platform,
                       signs=signs, batch=batch,
-                      shared_sequence=shared_sequence)
+                      shared_sequence=shared_sequence,
+                      live_planes=live_planes)
     key = _plan_key(problem)
     cached = _PLAN_CACHE.get(key)
     if cached is not None:
@@ -479,3 +597,67 @@ def select_plan(m: int, n: int, k: int, *, dtype: str = "float32",
         best = plans[0]
     _PLAN_CACHE[key] = best
     return best
+
+
+# --------------------------------------------------------------------------
+# versioned JSON stores (the serve-plan store)
+# --------------------------------------------------------------------------
+#
+# ``REPRO_PLAN_CACHE`` overrides the path, as in the reference; the empty
+# string, ``off``, ``0`` or ``none`` turn persistence off (the test suite
+# does, through tests/conftest.py).  Stores are keyed by the running torch
+# and CUDA versions: a decision made under one build does not transfer.
+
+_PLAN_CACHE_ENV = "REPRO_PLAN_CACHE"
+
+
+def plan_cache_path() -> Optional[str]:
+    """Resolved on-disk plan-cache path, or ``None`` when persistence is
+    off.  The serve-plan store lives beside it."""
+    override = os.environ.get(_PLAN_CACHE_ENV)
+    if override is not None:
+        if override.strip().lower() in ("", "off", "0", "none"):
+            return None
+        return os.path.expanduser(override)
+    base = os.environ.get("XDG_CACHE_HOME",
+                          os.path.join(os.path.expanduser("~"), ".cache"))
+    return os.path.join(base, "repro_torch", "plans.json")
+
+
+def _version_str() -> str:
+    return f"torch {torch.__version__} cuda {torch.version.cuda}"
+
+
+def _read_versioned_json(path: str, fmt: int) -> Optional[dict]:
+    """Parse a versioned JSON store; ``None`` when the file is missing,
+    corrupt, or stale (another format or another torch/CUDA build)."""
+    try:
+        with open(path) as f:
+            payload = json.load(f)
+    except (OSError, ValueError):
+        return None
+    if not isinstance(payload, dict) or payload.get("format") != fmt \
+            or payload.get("torch") != _version_str():
+        return None
+    return payload
+
+
+def _atomic_write_json(path: str, payload: dict,
+                       prefix: str) -> Optional[str]:
+    """Write ``payload`` to a temporary file and rename it into place;
+    ``None`` (never raises) on I/O errors, so a read-only cache
+    directory leaves planning in memory."""
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
+                                   prefix=prefix, suffix=".tmp")
+        try:
+            with os.fdopen(fd, "w") as f:
+                json.dump(payload, f, indent=1)
+            os.replace(tmp, path)
+        except BaseException:
+            os.unlink(tmp)
+            raise
+    except OSError:
+        return None
+    return path

@@ -66,12 +66,16 @@ def step_schedule(rows: np.ndarray, steps: np.ndarray):
     return order, np.asarray(rows).ravel()[order], counts
 
 
-def sweep_planes(XT, rows, c, s, g, counts):
+def sweep_planes(XT, rows, c, s, g, counts, live=None):
     """Apply planes to row pairs ``(r, r+1)`` of ``XT`` in place, step by step.
 
     ``rows``, ``c``, ``s``, ``g`` list the planes sorted by step (``c``
     etc. may carry leading batch dimensions matching ``XT``'s);
-    ``counts[d]`` planes belong to step ``d``.  The caller picks steps so
+    ``counts[d]`` planes belong to step ``d``.  ``live`` (a boolean mask
+    laid out like ``c``) marks the planes to apply: the others are
+    skipped, leaving their rows untouched as a kernel that never visits
+    them does (a multiplied-through identity would turn ``-0.0`` into
+    ``+0.0`` and spread NaN).  The caller picks steps so
     that the planes of one step touch disjoint row pairs and every
     plane's predecessors (the planes before it in sequential order that
     share a row) lie in earlier steps.  Each row then sees the same
@@ -93,6 +97,10 @@ def sweep_planes(XT, rows, c, s, g, counts):
         xn, yn = plane_update(x, y, c[..., start:stop, None],
                               s[..., start:stop, None],
                               g[..., start:stop, None])
+        if live is not None:
+            keep = live[..., start:stop, None]
+            xn = torch.where(keep, xn, x)
+            yn = torch.where(keep, yn, y)
         XT[..., r0, :] = xn
         XT[..., r1, :] = yn
         start = stop

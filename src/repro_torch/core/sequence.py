@@ -13,6 +13,12 @@ Mirror of :mod:`repro.core.sequence` in PyTorch.
 * ``plan.apply`` is a :class:`torch.autograd.Function`: application is
   linear in ``A``, so its backward is one application of ``seq.T``
   through the same planned backend.  The sequence is a constant.
+* ``plan.apply_batched(A, sequences=...)`` applies one sequence per
+  target of a ``(b, m, n)`` batch (the serving path): in one launch on
+  a ``batch_via="fused"`` backend (``cuda_batched``), flattened, mapped
+  or looped otherwise, with the same transposed-sequence backward.
+* ``to_dict``/``from_dict`` serialise sequences and plan decisions (the
+  serve-plan store); a plan dict is keyed by the torch/CUDA build.
 
 Tensors stay on the device they are given.  Constructors that build
 tensors from scratch (or from numpy) take ``device=``, by default the
@@ -39,6 +45,11 @@ _DRIFT_ULPS = 64
 
 # sentinel backend name for degenerate (zero-rotation) plans
 _IDENTITY = "identity"
+
+# JSON format version of SequencePlan.to_dict (bump on layout change)
+PLAN_DICT_FORMAT = 1
+
+_NP_DTYPES = {"float32": np.float32, "float64": np.float64}
 
 
 def resolve_device(device) -> torch.device:
@@ -250,23 +261,75 @@ class RotationSequence:
         return RotationSequence(self.cos, self.sin, self._sign_array(),
                                 False, k_live=self.k_live)
 
+    # -- serialization -----------------------------------------------------
+    def to_dict(self) -> dict:
+        """JSON-serialisable dict (waves as nested lists), the layout of
+        the reference's ``RotationSequence.to_dict``."""
+        def lst(x):
+            return x.detach().cpu().numpy().tolist()
+
+        return {"cos": lst(self.cos), "sin": lst(self.sin),
+                "sign": None if self.sign is None else lst(self.sign),
+                "reflect": bool(self.reflect),
+                "dtype": _dtype_name(self.dtype), "k_live": self.k_live}
+
+    @classmethod
+    def from_dict(cls, d: dict, *, device="cuda") -> "RotationSequence":
+        """Inverse of :meth:`to_dict`, also for the reference's dicts.
+
+        The waves are stored untouched (no renormalisation) on
+        ``device``.  ``dtype`` is ``"float32"`` or ``"float64"``; by
+        default the dtype of ``cos`` when it is a numpy array, else
+        float32.
+        """
+        default = getattr(d["cos"], "dtype", np.dtype(np.float32))
+        name = str(d.get("dtype") or default)
+        if name not in _NP_DTYPES:
+            raise ValueError(f"unsupported wave dtype {name!r}; one of "
+                             f"{sorted(_NP_DTYPES)}")
+        device = resolve_device(device)
+
+        def conv(x):
+            return torch.from_numpy(
+                np.array(x, dtype=_NP_DTYPES[name], copy=True)).to(device)
+
+        sign = d.get("sign")
+        k_live = d.get("k_live")
+        return cls(conv(d["cos"]), conv(d["sin"]),
+                   None if sign is None else conv(sign),
+                   bool(d.get("reflect", False)),
+                   None if k_live is None else int(k_live))
+
     # -- execution ---------------------------------------------------------
     def plan(self, like=None, *, m: Optional[int] = None,
-             method: str = "auto", n_b: Optional[int] = None,
+             method: str = "auto", batch: Optional[int] = None,
+             shared_sequence: bool = True, n_b: Optional[int] = None,
              k_b: Optional[int] = None, **kw) -> "SequencePlan":
         """Resolve the registry once into a frozen :class:`SequencePlan`.
 
         ``like`` (a tensor) supplies the row count, dtype and device of
-        the target; ``m`` overrides the row count.  Without ``like`` the
-        sequence's own dtype and device stand in.  ``method="auto"``
-        runs the capability filter and cost model through the plan
-        cache; a named method keeps the seed tiles (``n_b=64, k_b=16``
-        for tiled backends).  Explicit ``n_b``/``k_b`` override both.
+        the target; ``m`` overrides the row count.  A 3D ``like``
+        (``(b, m, n)``, a batch for :meth:`SequencePlan.apply_batched`)
+        supplies the batch count too; ``batch`` overrides it.
+        ``shared_sequence=False`` declares the batch per-request (each
+        target brings its own sequence), which prices per-sequence setup
+        ``b`` times.  The sequence's ``k_live`` reaches the cost model as
+        its live planes.  Without ``like`` the sequence's own dtype and
+        device stand in.  ``method="auto"`` runs the capability filter
+        and cost model through the plan cache; a named method keeps the
+        seed tiles (``n_b=64, k_b=16`` for tiled backends).  Explicit
+        ``n_b``/``k_b`` override both.
         """
         _ensure_backends()
         like_shape = getattr(like, "shape", None)
+        if like_shape is not None and len(like_shape) == 3:
+            if batch is None:
+                batch = like_shape[0]
+            if m is None:
+                m = like_shape[1]
         if m is None:
             m = like_shape[0] if like_shape is not None else max(self.n, 1)
+        batch = 1 if batch is None else max(1, int(batch))
         dtype = _dtype_name(getattr(like, "dtype", None) or self.dtype)
         device = getattr(like, "device", None) or self.device
         n, k = self.n, self.k
@@ -282,7 +345,8 @@ class RotationSequence:
         if method == "auto":
             plan = registry.select_plan(
                 m, n, k, dtype=dtype, platform=torch.device(device).type,
-                signs=self.sign is not None)
+                signs=self.sign is not None, batch=batch,
+                shared_sequence=shared_sequence, live_planes=self.k_live)
             planned = plan.kwargs()
             if n_b is not None:
                 planned["n_b"] = n_b
@@ -335,8 +399,9 @@ class SequencePlan:
         if self.method == _IDENTITY:
             return A
         seq = self.sequence
-        return _PlannedApply.apply(A, self.method, self.kwargs, seq.reflect,
-                                   seq.cos, seq.sin, seq.sign)
+        return _PlannedApply.apply(A, _run_backend, self.method,
+                                   self.kwargs, seq.reflect, seq.cos,
+                                   seq.sin, seq.sign)
 
     __call__ = apply
 
@@ -350,6 +415,70 @@ class SequencePlan:
         seq = self.sequence
         return _run_backend(self.method, self.kwargs, seq.reflect, A,
                             seq.cos, seq.sin, seq.sign)
+
+    def apply_batched(self, A, sequences=None, *, direct: bool = False):
+        """Apply to a batch of targets ``A`` of shape ``(b, m, n)``.
+
+        With ``sequences=None`` the plan's own sequence is applied to
+        every target.  With ``sequences`` (``b`` sequences of the plan's
+        wave shape) each target gets its own: the serving path.  A
+        ``batch_via="fused"`` backend (``cuda_batched``) takes the whole
+        batch in one launch; otherwise a shared sequence runs the
+        flattened ``(b*m, n)`` problem, and per-request sequences are
+        mapped with ``torch.func.vmap`` where the backend allows it and
+        looped per target where it does not.  Every route equals ``b``
+        separate :meth:`apply` calls bit for bit on the rotation family.
+
+        Under a sign-carrying plan, members may be plain or reflector
+        sequences (their signs are materialised at stack time); under an
+        unsigned plan every member must share the plan's structure.
+
+        ``direct=False`` differentiates w.r.t. ``A`` through the
+        transposed-sequence backward (every request's waves transposed
+        into a staircase, run by the same backend: the fused kernel
+        skips the staircases' dead triangles); ``direct=True`` uses
+        PyTorch's own autograd through the backend.
+        """
+        if A.ndim != 3:
+            raise ValueError(
+                f"apply_batched expects A of shape (b, m, n); got "
+                f"{tuple(A.shape)}; use apply() for a single target")
+        seq = self.sequence
+        b, m, n = A.shape
+        if self.method == _IDENTITY:
+            return A
+        if n != seq.n:
+            raise ValueError(f"plan built for n={seq.n} targets; got "
+                             f"A.shape={tuple(A.shape)}")
+        if sequences is None:
+            C, S, G = seq.cos, seq.sin, seq.sign
+        else:
+            seqs = list(sequences)
+            if len(seqs) != b:
+                raise ValueError(
+                    f"{len(seqs)} sequences for a batch of {b} targets")
+            plan_signed = seq.sign is not None
+            for s in seqs:
+                if not isinstance(s, RotationSequence):
+                    raise TypeError(
+                        f"expected RotationSequence, got {type(s)}")
+                if tuple(s.shape) != tuple(seq.shape):
+                    raise ValueError(
+                        f"sequence shape {s.shape} != plan shape "
+                        f"{seq.shape}; pad_to a bucket-stable wave count "
+                        f"first")
+                if not plan_signed and (s.sign is not None
+                                        or s.reflect != seq.reflect):
+                    raise ValueError(
+                        "mixed sign/reflect structure in one batch; plan "
+                        "the bucket on a sign-carrying representative "
+                        "(RotationSequence.with_signs()) first")
+            C, S, G = _stack_waves(seqs, plan_signed)
+        if direct:
+            return _run_batched(self.method, self.kwargs, seq.reflect, A,
+                                C, S, G)
+        return _PlannedApply.apply(A, _run_batched, self.method, self.kwargs,
+                                   seq.reflect, C, S, G)
 
     def _check_target(self, A):
         if self.method == _IDENTITY:
@@ -375,19 +504,90 @@ class SequencePlan:
                     f"signs; re-plan the sign-carrying sequence")
         return dataclasses.replace(self, sequence=sequence)
 
+    # -- serialization -----------------------------------------------------
+    def to_dict(self) -> dict:
+        """Serialise the dispatch decision (not the waves) to JSON.
+
+        Method, resolved kwargs, the registry :class:`~repro_torch.core.
+        registry.Plan` and the wave shape/dtype/sign signature it was
+        made for, keyed by the running torch and CUDA versions:
+        :meth:`from_dict` rejects a stale or mismatched entry.
+        """
+        seq = self.sequence
+        d = {"format": PLAN_DICT_FORMAT, "torch": registry._version_str(),
+             "method": self.method, "kwargs": dict(self.kwargs),
+             "shape": list(seq.shape), "dtype": _dtype_name(seq.dtype),
+             "signed": seq.sign is not None, "reflect": bool(seq.reflect)}
+        if self.plan is not None:
+            d["plan"] = {"method": self.plan.method, "n_b": self.plan.n_b,
+                         "k_b": self.plan.k_b,
+                         "est_seconds": self.plan.est_seconds,
+                         "source": self.plan.source}
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict, sequence: RotationSequence) -> "SequencePlan":
+        """Rebuild a plan from :meth:`to_dict`, bound to ``sequence``.
+
+        Raises ``ValueError`` when the entry is unusable: unknown format,
+        another torch/CUDA build, a wave shape, dtype or sign structure
+        other than ``sequence``'s, or a backend no longer registered.
+        Callers holding stored plans treat the error as a miss and plan
+        again.
+        """
+        _ensure_backends()
+        if d.get("format") != PLAN_DICT_FORMAT:
+            raise ValueError(
+                f"unsupported SequencePlan dict format {d.get('format')!r}")
+        now = registry._version_str()
+        if d.get("torch") != now:
+            raise ValueError(f"plan serialised under {d.get('torch')!r}; "
+                             f"running {now!r}: plan again")
+        if tuple(d.get("shape", ())) != tuple(sequence.shape):
+            raise ValueError(f"plan serialised for wave shape "
+                             f"{d.get('shape')}; sequence has "
+                             f"{sequence.shape}")
+        if d.get("signed", False) != (sequence.sign is not None) \
+                or d.get("reflect", False) != bool(sequence.reflect):
+            raise ValueError(
+                "plan serialised for a different sign/reflect structure")
+        if d.get("dtype") != _dtype_name(sequence.dtype):
+            raise ValueError(f"plan serialised for dtype "
+                             f"{d.get('dtype')!r}; sequence is "
+                             f"{sequence.dtype}")
+        method = d["method"]
+        if method != _IDENTITY:
+            spec = registry.get_backend(method)  # raises on unknown
+            if sequence.sign is not None \
+                    and not spec.capability.supports_signs:
+                raise ValueError(
+                    f"serialised method {method!r} cannot carry signs")
+        kwargs = tuple(sorted(d.get("kwargs", {}).items()))
+        plan = None
+        pd = d.get("plan")
+        if pd is not None:
+            plan = registry.Plan(
+                method=str(pd.get("method", method)), n_b=pd.get("n_b"),
+                k_b=pd.get("k_b"),
+                est_seconds=float(pd.get("est_seconds", 0.0)),
+                source="persisted")
+        return cls(sequence, method, kwargs, plan)
+
 
 # --------------------------------------------------------------------------
 # planned application with a transposed-sequence backward
 # --------------------------------------------------------------------------
 
 def _transpose_waves(cos, sin, sign, reflect: bool):
-    """Anti-diagonal staircase repack of one ``(n-1, k)`` wave grid.
+    """Anti-diagonal staircase repack of ``(..., n-1, k)`` wave grids.
 
-    Returns ``(c_t, s_t, g_t, reflect_t)``; ``g_t`` is ``None`` for
-    plain rotations and a sign grid otherwise (identity padding off the
-    staircase must stay a rotation no-op).
+    Leading dimensions (a stack of per-request grids) are repacked
+    together.  Returns ``(c_t, s_t, g_t, reflect_t)``; ``g_t`` is
+    ``None`` for plain rotations and a sign grid otherwise (identity
+    padding off the staircase must stay a rotation no-op).
     """
-    J, k = cos.shape
+    J, k = cos.shape[-2:]
+    lead = cos.shape[:-2]
     if sign is None:
         s_signed = sin if reflect else -sin
     else:
@@ -401,20 +601,34 @@ def _transpose_waves(cos, sin, sign, reflect: bool):
     jb = j.expand_as(pc)
     one = torch.ones((), dtype=cos.dtype, device=dev)
     if k == 0:
-        c_t = one.expand(J, max(J - 1, 0)).clone()
+        c_t = one.expand(*lead, J, max(J - 1, 0)).clone()
         s_t = torch.zeros_like(c_t)
         g_src = None
     else:
-        c_t = torch.where(valid, cos[jb, pc], one)
-        s_t = torch.where(valid, s_signed[jb, pc], 0 * one)
-        g_src = sign[jb, pc] if sign is not None else None
+        c_t = torch.where(valid, cos[..., jb, pc], one)
+        s_t = torch.where(valid, s_signed[..., jb, pc], 0 * one)
+        g_src = sign[..., jb, pc] if sign is not None else None
     g_t = None
     if sign is not None:
         g_t = (torch.where(valid, g_src, _ROT * one) if g_src is not None
                else torch.full_like(c_t, _ROT))
     elif reflect:
-        g_t = torch.where(valid, _REFL * one, _ROT * one)
+        g_t = torch.where(valid, _REFL * one, _ROT * one).expand_as(c_t)
     return c_t, s_t, g_t, (False if g_t is not None else reflect)
+
+
+def _stack_waves(seqs, plan_signed: bool):
+    """Stack per-request waves into ``(b, n-1, k)`` tensors.
+
+    ``G`` is ``None`` unless the plan carries signs; then every member's
+    sign grid is materialised (plain members as ``-1``, reflectors as
+    ``+1``), which is where a bucket's implicit signs become explicit.
+    """
+    C = torch.stack([s.cos for s in seqs])
+    S = torch.stack([s.sin for s in seqs])
+    G = torch.stack([s._sign_array() for s in seqs]) if plan_signed \
+        else None
+    return C, S, G
 
 
 def _run_backend(method: str, kwargs: Tuple[Tuple[str, Any], ...],
@@ -423,26 +637,59 @@ def _run_backend(method: str, kwargs: Tuple[Tuple[str, Any], ...],
     return spec.fn(A, C, S, reflect=reflect, G=G, **dict(kwargs))
 
 
+def _run_batched(method: str, kwargs: Tuple[Tuple[str, Any], ...],
+                 reflect: bool, A, C, S, G):
+    """One batched application: ``A`` ``(b, m, n)``, waves shared
+    ``(n-1, k)`` or stacked ``(b, n-1, k)``, routed by capability."""
+    spec = registry.get_backend(method)
+    cap = spec.capability
+    kw = dict(kwargs)
+    if cap.batch_via == "fused":
+        return spec.fn(A, C, S, reflect=reflect, G=G, **kw)
+    b, m, n = A.shape
+    if C.ndim == 2:
+        if cap.batch_via == "flatten":
+            out = spec.fn(A.reshape(b * m, n), C, S, reflect=reflect, G=G,
+                          **kw)
+            return out.reshape(b, m, n)
+        C, S = C.expand(b, *C.shape), S.expand(b, *S.shape)
+        G = None if G is None else G.expand(b, *G.shape)
+    if cap.supports_vmap:
+        if G is None:
+            return torch.func.vmap(lambda a, c, s: spec.fn(
+                a, c, s, reflect=reflect, **kw))(A, C, S)
+        return torch.func.vmap(lambda a, c, s, g: spec.fn(
+            a, c, s, reflect=reflect, G=g, **kw))(A, C, S, G)
+    return torch.stack([
+        spec.fn(A[i], C[i], S[i], reflect=reflect,
+                G=None if G is None else G[i], **kw) for i in range(b)])
+
+
 class _PlannedApply(torch.autograd.Function):
-    """``A @ Q`` through a planned backend; backward is ``dY @ Q^T``."""
+    """``A @ Q`` through a planned backend; backward is ``dY @ Q^T``.
+
+    ``run`` is :func:`_run_backend` for one target or :func:`_run_batched`
+    for a batch; the backward transposes every sequence into its
+    staircase and runs it through the same backend.
+    """
 
     @staticmethod
-    def forward(ctx, A, method, kwargs, reflect, C, S, G):
-        ctx.method, ctx.kwargs, ctx.reflect = method, kwargs, reflect
+    def forward(ctx, A, run, method, kwargs, reflect, C, S, G):
+        ctx.run, ctx.method, ctx.kwargs = run, method, kwargs
+        ctx.reflect = reflect
         ctx.save_for_backward(C, S, G)
-        return _run_backend(method, kwargs, reflect, A, C, S, G)
+        return run(method, kwargs, reflect, A, C, S, G)
 
     @staticmethod
     def backward(ctx, dY):
         C, S, G = ctx.saved_tensors
-        seq_t = RotationSequence(C, S, G, ctx.reflect).T
+        c_t, s_t, g_t, refl_t = _transpose_waves(C, S, G, ctx.reflect)
         method, kwargs = ctx.method, ctx.kwargs
-        if seq_t.sign is not None and \
+        if g_t is not None and \
                 not registry.get_backend(method).capability.supports_signs:
             # transposing an all-reflector sequence materializes a mixed
             # sign grid; route the cotangent through the blocked family
             method, kwargs = "blocked", tuple(
                 (key, val) for key, val in kwargs if key in ("n_b", "k_b"))
-        dA = _run_backend(method, kwargs, seq_t.reflect, dY.contiguous(),
-                          seq_t.cos, seq_t.sin, seq_t.sign)
-        return dA, None, None, None, None, None, None
+        dA = ctx.run(method, kwargs, refl_t, dY.contiguous(), c_t, s_t, g_t)
+        return dA, None, None, None, None, None, None, None

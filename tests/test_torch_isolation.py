@@ -40,16 +40,21 @@ def _banned(name):
 def test_no_jax_or_reference_imports_in_the_port():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    for part in ("serve/rotations.py", "serve/stream.py",
+                 "kernels/rotseq_batched/kernel.py"):
+        assert PORT / part in files
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if _banned(name)]
     assert bad == []
-    assert list((PORT / "csrc").glob("*.cu"))
+    assert (PORT / "csrc" / "rotseq_batched.cu").exists()
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.convert, "
-            "repro_torch.kernels.rotseq.ops, repro_torch.kernels.rotseq_mxu"
-            ".ops; print(sorted(m for m in sys.modules if m.split('.')[0] "
+            "repro_torch.serve, repro_torch.kernels.rotseq.ops, "
+            "repro_torch.kernels.rotseq_mxu.ops, "
+            "repro_torch.kernels.rotseq_batched.ops; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] "
             "in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

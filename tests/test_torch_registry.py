@@ -2,8 +2,10 @@
 
 On ``"cpu"`` the port's hardware row is the reference's, so the four
 backends both packages share cost exactly the same.  On ``"cuda"`` (an
-H100) ``method="auto"`` must land on a CUDA kernel at the paper's
-shape, never on an eager host backend.
+H100) ``method="auto"`` must land on a CUDA kernel, never on an eager
+plain backend, and at the paper's shape on ``cuda_wave``, whose
+application is the faster one there (the eager tile factors of
+``cuda_mxu`` are priced by their measured step count).
 """
 import dataclasses
 
@@ -76,9 +78,29 @@ def test_cuda_kernels_priced_like_pallas_kernels(prob):
 def test_auto_on_the_card_picks_a_kernel_at_paper_shape():
     treg.clear_plan_cache()
     plan = treg.select_plan(3840, 3840, 180, platform="cuda")
-    assert plan.method in ("cuda_wave", "cuda_mxu")
+    assert plan.method == "cuda_wave"
     plan = treg.select_plan(3000, 1000, 37, platform="cuda", signs=True)
-    assert plan.method in ("cuda_wave", "cuda_mxu")
+    assert plan.method in ("cuda_wave", "cuda_mxu", "cuda_batched")
+    # a bucket of small per-request problems (the reference's demo
+    # shapes): the plain backends sit at the latency floor but are eager
+    # step loops on the card, so a kernel wins
+    demo = treg.select_plan(16, 32, 8, platform="cuda", batch=16,
+                            shared_sequence=False)
+    assert demo.method.startswith("cuda_")
+    prob = treg.Problem(m=16, n=32, k=8, platform="cuda")
+    for method in ("unoptimized", "wavefront", "blocked", "accumulated"):
+        spec = treg.get_backend(method)
+        cand = spec.candidates(prob)[0]
+        assert spec.cost(prob, cand) >= 1e3 * 2e-6   # floor, penalised
+    # the accumulated kernel's eager factors: 127 vectorised steps a band
+    # at 64/64, priced at their measured time on the card
+    paper = treg.Problem(m=3840, n=3840, k=180, platform="cuda")
+    mxu = treg.cost_cuda_mxu(paper, treg.Plan("cuda_mxu", n_b=64, k_b=64))
+    wave = treg.cost_cuda_wave(paper, treg.Plan("cuda_wave", n_b=64, k_b=16))
+    assert mxu > 36e-3 > 10 * wave
+    # where no kernel is eligible (float64) a plain backend still plans
+    f64 = treg.select_plan(64, 96, 8, platform="cuda", dtype="float64")
+    assert not f64.method.startswith("cuda_")
     cpu = treg.select_plan(3840, 3840, 180, platform="cpu")
     assert cpu.method == jreg.select_plan(3840, 3840, 180,
                                           platform="cpu").method
@@ -91,7 +113,8 @@ def test_eligibility():
     assert names(platform="cuda") == set(treg.registered_methods())
     assert "cuda_wave" in names(platform="cpu")   # plain version, penalised
     assert not {"unoptimized", "wavefront"} & names(signs=True)
-    assert not {"cuda_wave", "cuda_mxu"} & names(dtype="float64")
+    assert not {"cuda_wave", "cuda_mxu", "cuda_batched"} & names(
+        dtype="float64")
     tiles = treg.cuda_mxu_tiles(treg.Problem(m=3840, n=3840, k=180))
     assert all(p.n_b + p.k_b <= limits.MXU_MAX_W for p in tiles)
     # a kernel plan names its tiles only; rows per block are the kernel's
@@ -120,3 +143,12 @@ def test_limits():
     assert limits.wave_smem_bytes(64, 16, 128) > limits.SMEM_STATIC
     # the wrapper refuses a tile whose window a block cannot hold
     assert limits.wave_smem_bytes(128, 128, 128) > limits.SMEM_PER_BLOCK
+    # the fused batched kernel: one thread a row, the row's n columns in
+    # shared memory; one warp's float32 slab fits up to n = 1816
+    assert limits.batched_threads(1024, 1024) == 32
+    assert limits.batched_smem_bytes(1024, 32) == 128 * 1024
+    assert limits.batched_threads(32, 5000) == limits.BATCHED_M_BLK
+    assert limits.batched_threads(32, 5) == limits.WARP
+    assert limits.batched_threads(1816, 64) == limits.WARP
+    assert limits.batched_threads(1817, 64) == 0
+    assert limits.batched_smem_bytes(1816, 32) <= limits.SMEM_PER_BLOCK
