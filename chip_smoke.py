@@ -17,6 +17,12 @@ against its plain version and against per-request ``cuda_wave``; then
 signed and reflector requests), ``apply_batched`` on the ``seq.T``
 staircases, a gradient through ``apply_batched`` and ``StreamEngine``
 run with the launch counts set to 0 just before and read just after.
+Then the LM serving path at the full width of SmolLM-135M (seeded random
+weights, bf16 activations): the fused RoPE kernel is held bit for bit
+against its plain version at the decode, prefill and a ragged shape in
+float32 and bfloat16; ``ServeEngine`` greedy-decodes 8 prompts with the
+RoPE launches counted (one a layer a decode step); and the same float32
+model decodes on the card and on the host, whose tokens must agree.
 Every phase prints one JSON line and raises on failure.  The line before
 the last holds the card's name and power limit, the last ``{"ok": true,
 "device": {...}}``.  Exits non-zero, with no result, when there is no
@@ -24,6 +30,8 @@ CUDA device or no ``src/repro_torch`` beside this script.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -52,6 +60,18 @@ GRAD_TOL = 1e-4    # relative Frobenius error of plan.apply(grad) vs W
 B, MB, NB, KB = 16, 1024, 1024, 64
 KMIN, KMAX = 33, 64
 STREAM_REQUESTS = 64
+
+# the LM serving path: SmolLM-135M at full width, 8 slots, 4-11 token
+# prompts, 32 new tokens each; its float32 twin on the card and the host
+LM_ARCH = "smollm-135m"
+LM_BATCH, LM_MAX_LEN, LM_MAX_NEW = 8, 128, 32
+PROMPT_LEN = (4, 11)
+PARITY_BATCH, PARITY_MAX_NEW = 2, 8
+PARITY_RTOL = 1e-3   # per step: max|card - host| <= PARITY_RTOL * max|host|
+# RoPE at the decode shape of the serving run, a prefill and a ragged one:
+# (B, S, Hq, Hk, D)
+ROPE_SHAPES = {"decode": (8, 1, 9, 3, 64), "prefill": (8, 2048, 9, 3, 64),
+               "ragged": (8, 300, 9, 3, 64)}
 
 
 def emit(**row):
@@ -399,6 +419,187 @@ def serving_phase(bctx, kernels) -> dict:
     return counts
 
 
+def rope_phase(dev) -> dict:
+    """Hold the fused RoPE kernel against its plain version, bit for bit,
+    in float32 and bfloat16 at every shape of ``ROPE_SHAPES``; time it."""
+    import torch
+    from repro_torch.kernels.rope import kernel as rope_k
+    from repro_torch.kernels.rope.ref import apply_rope_ref, rope_tables
+    gen = torch.Generator().manual_seed(SEED + 5)
+    rows = {}
+    for label, (b, s, hq, hk, d) in ROPE_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, s, hq, d), generator=gen).to(dev, dtype)
+            k = torch.randn((b, s, hk, d), generator=gen).to(dev, dtype)
+            c, sn = rope_tables(torch.arange(s, device=dev), d, dtype=dtype)
+            oq, ok = rope_k.rope(q, k, c, sn)
+            pq, pk = apply_rope_ref(q, c, sn), apply_rope_ref(k, c, sn)
+            torch.cuda.synchronize()
+            err = max(max_abs(oq.float(), pq.float()),
+                      max_abs(ok.float(), pk.float()))
+            check(torch.equal(oq, pq) and torch.equal(ok, pk),
+                  f"rope {label} {dtype}: kernel != plain version "
+                  f"(max|d| {err})")
+            check(bool(torch.isfinite(oq).all() and torch.isfinite(ok).all()),
+                  f"rope {label} {dtype}: non-finite")
+            reps = 200 if s == 1 else 20
+            ms = time_ms(lambda: rope_k.rope(q, k, c, sn), reps)
+            plain_ms = time_ms(lambda: (apply_rope_ref(q, c, sn),
+                                        apply_rope_ref(k, c, sn)), reps)
+            elt = q.element_size()
+            nbytes = (2.0 * b * s * (hq + hk) * d + 2.0 * s * (d // 2)) * elt
+            b_ms, b_by = bound(6.0 * b * s * (hq + hk) * (d // 2), nbytes)
+            rows[f"{label}/{str(dtype).split('.')[-1]}"] = dict(
+                shape=[b, s, hq, hk, d], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    emit(phase="rope", bitwise_vs_plain=True, shapes=rows,
+         library_ms=None, library="none: no single PyTorch call computes "
+         "half-split RoPE")
+    main = rows["decode/bfloat16"]
+    return dict(
+        name="rope", route="cuda", source="src/repro_torch/csrc/rope.cu",
+        replaces="src/repro/kernels/rope/kernel.py:50",
+        max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None)
+
+
+def lm_prompts(vocab: int, batch: int):
+    """``batch`` seeded prompts of 4-11 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 6)
+    lens = rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1, size=batch)
+    return [rng.integers(0, vocab, size=int(n)).tolist() for n in lens]
+
+
+def lm_serving_phase(dev, kernels) -> dict:
+    """SmolLM-135M at full width through ``ServeEngine`` on the card, with
+    every kernel's launches counted over the serving run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(SEED))
+    init_s = time.perf_counter() - t0
+    prompts = lm_prompts(cfg.vocab, LM_BATCH)
+    eng = ServeEngine(model, cfg, batch=LM_BATCH, max_len=LM_MAX_LEN)
+    finite = []
+    step = eng._step
+
+    def checked(*args):
+        logits, cache = step(*args)
+        finite.append(torch.isfinite(logits).all())
+        return logits, cache
+
+    eng._step = checked
+    eng.generate(prompts, max_new=2)      # warm-up: cuBLAS, allocator
+    finite.clear()
+    for k in kernels.values():
+        k.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, max_new=LM_MAX_NEW)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {name: k.LAUNCHES for name, k in kernels.items()}
+    steps = eng.steps
+    want_steps = max(len(p) for p in prompts) - 1 + LM_MAX_NEW
+    check(steps == want_steps, f"{steps} decode steps, expected {want_steps}")
+    check(counts["rope"] == cfg.n_layers * steps,
+          f"rope launches {counts['rope']} != {cfg.n_layers} x {steps}")
+    check(all(len(o) == LM_MAX_NEW and all(0 <= t < cfg.vocab for t in o)
+              for o in outs), "generated tokens out of range or short")
+    check(bool(torch.stack(finite).all()), "non-finite logits")
+    tokens = sum(len(o) for o in outs)
+    ms_per_step = seconds * 1e3 / steps
+    prof = profile_decode(eng, prompts)
+    emit(phase="lm_serving", arch=cfg.name, dtype=cfg.dtype,
+         n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+         n_kv_heads=cfg.n_kv_heads, vocab=cfg.vocab, batch=LM_BATCH,
+         max_len=LM_MAX_LEN, max_new=LM_MAX_NEW,
+         prompt_lens=[len(p) for p in prompts], decode_steps=steps,
+         tokens=tokens, seconds=seconds, tokens_per_s=tokens / seconds,
+         ms_per_step=ms_per_step, init_seconds=init_s,
+         launches=counts, rope_launches_per_step=counts["rope"] / steps,
+         first_outputs=outs[0][:8], profile=prof,
+         device_idle_share=(None if prof["device_ms_per_step"] is None else
+                            1.0 - prof["device_ms_per_step"] / ms_per_step))
+    return dict(counts=counts, ms_per_step=ms_per_step)
+
+
+def profile_decode(eng, prompts) -> dict:
+    """Device time of the decode steps of a one-token ``generate``, by
+    kernel, from ``torch.profiler`` (CUPTI): per step in all, RoPE's, and
+    the kernels that take most.  Only the device's own events (kernels,
+    copies) are summed: a host-side op's device time repeats theirs.
+    ``None`` where the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.generate(prompts, max_new=1)
+        torch.cuda.synchronize()
+    steps = eng.steps
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    total = sum(us for _, us, _ in rows)
+    if total == 0:
+        return dict(steps=steps, device_ms_per_step=None,
+                    rope_device_ms_per_step=None, top=[])
+    rope = sum(us for key, us, _ in rows if "rope_kernel" in key)
+    top = sorted(rows, key=lambda r: -r[1])[:8]
+    return dict(steps=steps, device_ms_per_step=total / 1e3 / steps,
+                rope_device_ms_per_step=rope / 1e3 / steps,
+                top=[dict(name=key[:80], ms_per_step=us / 1e3 / steps,
+                          calls_per_step=n / steps) for key, us, n in top])
+
+
+def lm_parity_phase(dev) -> None:
+    """The float32 twin of the served model decodes on the card and on
+    the host from the same seeded weights: equal tokens, logits within
+    ``PARITY_RTOL`` of the host's at every step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    host = build_model(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(SEED + 7))
+    card = copy.deepcopy(host).to(dev)
+    prompts = lm_prompts(cfg.vocab, LM_BATCH)[:PARITY_BATCH]
+    runs = {}
+    for name, model in (("card", card), ("host", host)):
+        eng = ServeEngine(model, cfg, batch=PARITY_BATCH, max_len=LM_MAX_LEN)
+        log = []
+        step = eng._step
+
+        def logged(*args, _step=step, _log=log):
+            logits, cache = _step(*args)
+            _log.append(logits[:, -1].float().cpu())
+            return logits, cache
+
+        eng._step = logged
+        t0 = time.perf_counter()
+        outs = eng.generate(prompts, max_new=PARITY_MAX_NEW)
+        runs[name] = (outs, log, time.perf_counter() - t0)
+    (c_out, c_log, c_s), (h_out, h_log, h_s) = runs["card"], runs["host"]
+    check(len(c_log) == len(h_log), "card and host ran different steps")
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(c_log, h_log)]
+    check(c_out == h_out, f"tokens differ: card {c_out}, host {h_out}")
+    check(max(errs) <= PARITY_RTOL,
+          f"logits differ by {max(errs)} of their max > {PARITY_RTOL}")
+    emit(phase="lm_parity", arch=cfg.name, dtype=cfg.dtype,
+         batch=PARITY_BATCH, max_new=PARITY_MAX_NEW, steps=len(c_log),
+         tokens_equal=True, tokens=c_out, max_rel_logit_err=max(errs),
+         rtol=PARITY_RTOL, card_seconds=c_s, host_seconds=h_s)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -417,6 +618,7 @@ def main() -> int:
     from repro_torch.kernels.rotseq import kernel as wave_k
     from repro_torch.kernels.rotseq.ops import rot_sequence_wave
     from repro_torch.kernels.rotseq_batched import kernel as batched_k
+    from repro_torch.kernels.rope import kernel as rope_k
     from repro_torch.kernels.rotseq_mxu import kernel as mxu_k
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -553,6 +755,14 @@ def main() -> int:
     served = serving_phase(bctx, {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
                                   "rotseq_batched": batched_k})
     entries["rotseq_batched"]["launches"] = served["rotseq_batched"]
+
+    # -- the LM serving path: SmolLM-135M through ServeEngine -------------
+    entries["rope"] = rope_phase(dev)
+    lm = lm_serving_phase(dev, {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
+                                "rotseq_batched": batched_k,
+                                "rope": rope_k})
+    entries["rope"]["launches"] = lm["counts"]["rope"]
+    lm_parity_phase(dev)
 
     # the planned kernel's numbers are taken at the auto plan's tiles, the
     # other kernel's at the paper configuration's

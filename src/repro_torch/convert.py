@@ -6,7 +6,9 @@ reference package.
 same keys holding numpy arrays, and rebuilds the waves bit for bit as a
 port :class:`~repro_torch.core.sequence.RotationSequence`.
 :func:`requests_from_reference` does the same for a request stream of
-``(sequence dict, numpy target)`` pairs.  Both read plain data only and
+``(sequence dict, numpy target)`` pairs.
+:func:`lm_params_from_reference` loads the reference ``Transformer.init``
+tree, as numpy arrays, into the port's LM.  All read plain data only and
 import nothing of the reference.
 """
 from __future__ import annotations
@@ -16,7 +18,8 @@ import torch
 
 from repro_torch.core.sequence import RotationSequence, resolve_device
 
-__all__ = ["sequence_from_reference", "requests_from_reference"]
+__all__ = ["sequence_from_reference", "requests_from_reference",
+           "lm_params_from_reference"]
 
 
 def sequence_from_reference(d: dict, *, device="cuda") -> RotationSequence:
@@ -37,3 +40,41 @@ def requests_from_reference(pairs, *, device="cuda"):
     return [(sequence_from_reference(d, device=device),
              torch.from_numpy(np.array(A, copy=True)).to(device))
             for d, A in pairs]
+
+
+def _flatten(tree, prefix, out):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}{k}.", out)
+    else:
+        out[prefix[:-1]] = tree
+    return out
+
+
+def lm_params_from_reference(params, cfg, *, device="cuda"):
+    """A port :class:`~repro_torch.models.transformer.Transformer` holding
+    the reference's weights, bit for bit, on ``device``.
+
+    ``params`` is the reference ``Transformer(cfg).init(key)`` tree with
+    numpy leaves: ``embed``, ``ln_f``, ``lm_head`` (untied configs) and
+    ``group{gi}``, a list over the group's slots whose leaves are stacked
+    ``(reps, ...)``.  Global layer ``start + r * len(slots) + s`` takes
+    repetition ``r`` of slot ``s``.  Dense weights keep their
+    ``(d_in, d_out)`` layout: nothing is transposed.
+    """
+    from repro_torch.models.transformer import Transformer, _groups
+
+    state = {}
+    for key in ("embed", "ln_f", "lm_head"):
+        if key in params:
+            _flatten(params[key], f"{key}.", state)
+    for gi, (start, count, slot_kinds) in enumerate(_groups(cfg)):
+        P = len(slot_kinds)
+        for s, slot in enumerate(params[f"group{gi}"]):
+            for name, leaf in _flatten(slot, "", {}).items():
+                for r in range(count // P):
+                    state[f"layers.{start + r * P + s}.{name}"] = leaf[r]
+    model = Transformer(cfg, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(np.array(v, copy=True))
+                           for k, v in state.items()}, strict=True)
+    return model.to(resolve_device(device))

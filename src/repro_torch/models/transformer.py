@@ -1,0 +1,188 @@
+"""Decoder-only transformer of the dense families (smollm, starcoder2,
+llama3, gemma3, chameleon): mirror of :mod:`repro.models.transformer`.
+
+The reference stacks each repeating group of layers and scans over it;
+the port keeps one entry a layer in an ``nn.ModuleList`` and loops over
+them.  Per layer, from the ``ModelConfig``: ``pattern_global`` slots use
+full attention (with ``rope_base_global`` where set), the other slots
+sliding-window attention when ``cfg.window`` is set.  Mixture-of-experts
+and multi-head latent attention wait for their slice (ROADMAP Queue 1
+item 12).
+
+Parameters keep the reference's tree under ``embed``, ``ln_f``,
+``lm_head`` (untied configs) and ``layers[i]`` (``ln1``, ``attn``,
+``ln2``, ``mlp``), in its ``(d_in, d_out)`` layout, drawn from a seeded
+``torch.Generator`` on the host and then moved to ``device``, so one
+seed gives the same weights on every device.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.core.sequence import resolve_device
+
+from .attention import gqa_attention, gqa_decode, gqa_init
+from .layers import (dense, dense_init, embed_init, mlp_gelu, mlp_init,
+                     mlp_swiglu, rmsnorm, rmsnorm_init, softcap, to_module)
+
+__all__ = ["Transformer"]
+
+
+def _layer_kinds(cfg):
+    """(attn_kind, mlp_kind) per layer index."""
+    kinds = []
+    for i in range(cfg.n_layers):
+        slot = i % cfg.pattern_period
+        attn = "global" if slot in cfg.pattern_global else "local"
+        if cfg.window is None:
+            attn = "global"
+        mlp = "dense"
+        if cfg.n_experts and i >= cfg.first_dense_layers:
+            mlp = "moe"
+        kinds.append((attn, mlp))
+    return kinds
+
+
+def _groups(cfg):
+    """The reference's scan groups: ``(start, count, kinds-per-slot)``.
+
+    Groups are maximal runs where the kind pattern repeats with period
+    ``cfg.pattern_period``; the reference stacks a group's weights
+    ``(count // len(slots), ...)`` per slot, so global layer
+    ``start + r * len(slots) + s`` is repetition ``r`` of slot ``s``.
+    """
+    kinds = _layer_kinds(cfg)
+    P = cfg.pattern_period
+    groups = []
+    i = 0
+    while i < len(kinds):
+        slot_kinds = tuple(kinds[i:i + P])
+        if len(slot_kinds) < P:
+            groups.append((i, len(kinds) - i, tuple(kinds[i:])))
+            break
+        j = i
+        while (j + P <= len(kinds)
+               and tuple(kinds[j:j + P]) == slot_kinds):
+            j += P
+        groups.append((i, j - i, slot_kinds))
+        i = j
+    return groups
+
+
+class Transformer(nn.Module):
+    """Decoder-only LM; see the module docstring.
+
+    ``generator`` (a CPU ``torch.Generator``, by default seeded 0) draws
+    the weights, in float32 as the reference's ``init`` does.
+    """
+
+    def __init__(self, cfg, *, generator: Optional[torch.Generator] = None,
+                 device="cuda"):
+        super().__init__()
+        if cfg.mla:
+            raise NotImplementedError(
+                "multi-head latent attention is not ported yet (ROADMAP "
+                "Queue 1 item 12)")
+        if cfg.n_experts:
+            raise NotImplementedError(
+                "mixture-of-experts layers are not ported yet (ROADMAP "
+                "Queue 1 item 12)")
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.kinds = _layer_kinds(cfg)
+        gen = generator if generator is not None else \
+            torch.Generator().manual_seed(0)
+        self.embed = to_module(embed_init(gen, cfg.vocab, cfg.d_model))
+        self.ln_f = to_module(rmsnorm_init(cfg.d_model))
+        if not cfg.tie_embeddings:
+            self.lm_head = to_module(dense_init(gen, cfg.d_model, cfg.vocab))
+        self.layers = to_module([{
+            "ln1": rmsnorm_init(cfg.d_model),
+            "attn": gqa_init(gen, cfg),
+            "ln2": rmsnorm_init(cfg.d_model),
+            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated),
+        } for _ in self.kinds])
+        self.to(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["e"].device
+
+    def _attn_args(self, attn_kind):
+        cfg = self.cfg
+        window = cfg.window if attn_kind == "local" else None
+        base = (cfg.rope_base_global
+                if (attn_kind == "global" and cfg.rope_base_global)
+                else cfg.rope_base)
+        return window, base
+
+    def _mlp(self, p, x):
+        return (mlp_swiglu if self.cfg.mlp_gated else mlp_gelu)(p["mlp"], x)
+
+    def _embed(self, tokens):
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        # gather, then cast: the same values as casting the whole table
+        x = self.embed["e"][tokens].to(dt)
+        if cfg.emb_scale:
+            x = x * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=dt))
+        return x
+
+    def _logits(self, x):
+        cfg = self.cfg
+        x = rmsnorm(self.ln_f, x)
+        if cfg.tie_embeddings:
+            logits = x @ self.embed["e"].to(x.dtype).T
+        else:
+            logits = dense(self.lm_head, x)
+        return softcap(logits, cfg.logit_softcap)
+
+    # -------------------------------------------------------- forward ----
+
+    def forward(self, tokens):
+        """tokens (B, S) int -> logits (B, S, vocab)."""
+        x = self._embed(tokens)
+        for p, (attn_kind, _) in zip(self.layers, self.kinds):
+            window, base = self._attn_args(attn_kind)
+            a, _ = gqa_attention(p["attn"], self.cfg, rmsnorm(p["ln1"], x),
+                                 window=window, rope_base=base)
+            x = x + a
+            x = x + self._mlp(p, rmsnorm(p["ln2"], x))
+        return self._logits(x)
+
+    # ---------------------------------------------------------- decode ----
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
+        """``{"idx": 0, "layers": [{"k", "v"}, ...]}``; sliding-window
+        layers get a ``window``-slot ring buffer (see ``gqa_decode``)."""
+        cfg = self.cfg
+        layers = []
+        for attn_kind, _ in self.kinds:
+            is_local = attn_kind == "local" and cfg.window is not None
+            length = min(cfg.window, max_len) if is_local else max_len
+            shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+            layers.append({
+                "k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device)})
+        return {"idx": 0, "layers": layers}
+
+    def decode_step(self, cache, tokens):
+        """tokens (B, 1) -> (logits (B, 1, vocab), new cache).
+
+        The cache tensors are updated in place; ``idx`` stays a Python
+        int, so a step never waits on the card.
+        """
+        idx = cache["idx"]
+        x = self._embed(tokens)
+        for p, c, (attn_kind, _) in zip(self.layers, cache["layers"],
+                                        self.kinds):
+            window, base = self._attn_args(attn_kind)
+            a, c["k"], c["v"] = gqa_decode(
+                p["attn"], self.cfg, rmsnorm(p["ln1"], x), c["k"], c["v"],
+                idx, window=window, rope_base=base)
+            x = x + a
+            x = x + self._mlp(p, rmsnorm(p["ln2"], x))
+        return self._logits(x), {"idx": idx + 1, "layers": cache["layers"]}

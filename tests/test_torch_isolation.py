@@ -41,19 +41,31 @@ def test_no_jax_or_reference_imports_in_the_port():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     for part in ("serve/rotations.py", "serve/stream.py",
-                 "kernels/rotseq_batched/kernel.py"):
+                 "kernels/rotseq_batched/kernel.py", "serve/lm.py",
+                 "launch/serve.py", "convert.py", "configs/__init__.py",
+                 "configs/base.py", "configs/smollm_135m.py",
+                 "models/layers.py", "models/attention.py",
+                 "models/transformer.py", "models/zoo.py",
+                 "kernels/rope/ref.py", "kernels/rope/kernel.py",
+                 "kernels/rope/ops.py"):
         assert PORT / part in files
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if _banned(name)]
     assert bad == []
     assert (PORT / "csrc" / "rotseq_batched.cu").exists()
+    assert (PORT / "csrc" / "rope.cu").exists()
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.serve, repro_torch.kernels.rotseq.ops, "
             "repro_torch.kernels.rotseq_mxu.ops, "
-            "repro_torch.kernels.rotseq_batched.ops; "
+            "repro_torch.kernels.rotseq_batched.ops, "
+            "repro_torch.kernels.rope.ops, repro_torch.models, "
+            "repro_torch.models.transformer, repro_torch.serve.lm, "
+            "repro_torch.launch.serve, repro_torch.configs; "
+            "[__import__('repro_torch.configs.' + a.replace('-', '_')) "
+            "for a in repro_torch.configs.ARCHS]; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] "
             "in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
