@@ -7,12 +7,15 @@ At the paper's own workload (``m = n = 3840``, ``k = 180`` waves,
 float32) it builds the CUDA kernels from ``src/repro_torch/csrc`` and
 holds the wavefront and accumulated kernels against their plain PyTorch
 versions on the card; it then runs the main path
-``seq.plan(like=A).apply(A)`` with ``method="auto"``, a ragged signed
-problem through both kernels and a gradient, counting the kernel
-launches of that run.  Then the serving path at a realistic bucket: 16
-requests of ``m = n = 1024`` float32 targets, each with its own
-sequence of 33-64 waves padded to 64.  The fused batched kernel is held
-against its plain version and against per-request ``cuda_wave``; then
+``seq.plan(like=A).apply(A)`` with ``method="auto"`` (a ``cuda_batched``
+pick is held bit for bit to ``cuda_wave``, itself held to the blocked
+plain version), a ragged signed problem through both tiled kernels and a
+gradient, counting the kernel launches of that run.  Then the serving
+path at a realistic bucket: 16 requests of ``m = n = 1024`` float32
+targets, each with its own sequence of 33-64 waves padded to 64.  The
+fused batched kernel is held against its plain version, on the
+bucket's ``seq.T`` staircases and against per-request ``cuda_wave``,
+and its ptxas report must show no spills; then
 ``RotationService`` (with the reference's mixed demo stream of plain,
 signed and reflector requests), ``apply_batched`` on the ``seq.T``
 staircases, a gradient through ``apply_batched`` and ``StreamEngine``
@@ -33,6 +36,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -51,7 +55,11 @@ K = 180
 WAVE_TILES = dict(n_b=64, k_b=16)
 MXU_TILES = dict(n_b=128, k_b=128)
 # each kernel's fastest measured application at this shape (PERF.md)
-BEST_TILES = {"cuda_wave": WAVE_TILES, "cuda_mxu": dict(n_b=64, k_b=64)}
+BEST_TILES = {"cuda_wave": WAVE_TILES, "cuda_mxu": dict(n_b=64, k_b=64),
+              "cuda_batched": {}}
+# the kernel each rotation backend launches
+KERNEL_OF = {"cuda_wave": "rotseq_wave", "cuda_mxu": "rotseq_mxu",
+             "cuda_batched": "rotseq_batched"}
 MXU_TOL = 1e-5     # relative Frobenius error, kernel vs plain version
 GRAD_TOL = 1e-4    # relative Frobenius error of plan.apply(grad) vs W
 
@@ -110,6 +118,29 @@ def time_ms(fn, reps: int, warm: bool = True) -> float:
 def bound(flops: float, nbytes: float):
     f, b = flops / PEAK_F32 * 1e3, nbytes / PEAK_BW * 1e3
     return (f, "operations") if f >= b else (b, "bytes")
+
+
+def ptxas_table(log) -> dict:
+    """``{entry function: {registers, spill_stores, spill_loads}}`` from
+    ``nvcc -Xptxas -v`` output."""
+    table, name = {}, None
+    for ln in (log or "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", ln)
+        if m:
+            name = m.group(1)
+            table.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            table[name].update(spill_stores=int(m.group(1)),
+                               spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            table[name]["registers"] = int(m.group(1))
+    return table
 
 
 def wave_phase(ctx, tiles: dict, label: str) -> dict:
@@ -222,23 +253,45 @@ def mxu_phase(ctx, tiles: dict, label: str) -> dict:
         bound_by=b_by, library_ms=ctx["lib_ms"], tiles=tiles)
 
 
-def batched_phase(bctx) -> dict:
-    """Hold ``rotseq_batched`` against its plain version and against
-    per-request ``cuda_wave`` at the serving bucket, and time it."""
+def pack_batched(A, sequences):
+    """The fused kernel's operands for targets ``A`` ``(b, m, n)``, one
+    sequence a target, packed as ``rot_sequence_batched`` packs them:
+    ``(C, S, (AT, Cw, Sw, Gw, starts, counts))``."""
     import torch
     from repro_torch.core.ref import sign_grid
-    from repro_torch.kernels.rotseq_batched import kernel as batched_k
-    from repro_torch.kernels.rotseq_batched.ops import (rot_sequence_batched,
-                                                        wave_windows)
-    from repro_torch.kernels.rotseq_batched.ref import rotseq_batched_ref
-    A, seqs, padded = bctx["A"], bctx["seqs"], bctx["padded"]
-    C = torch.stack([s.cos for s in padded])
-    S = torch.stack([s.sin for s in padded])
+    from repro_torch.kernels.rotseq_batched.ops import wave_windows
+    C = torch.stack([s.cos for s in sequences])
+    S = torch.stack([s.sin for s in sequences])
     G = sign_grid(C, False, None)
     starts, counts = wave_windows(C, S, G)
-    AT = A.transpose(1, 2).contiguous()
-    Cw, Sw, Gw = (x.transpose(1, 2).contiguous() for x in (C, S, G))
-    args = (AT, Cw, Sw, Gw, starts, counts)
+    return C, S, (A.transpose(1, 2).contiguous(),
+                  *(x.transpose(1, 2).contiguous() for x in (C, S, G)),
+                  starts, counts)
+
+
+def batched_instances(ptxas: dict) -> dict:
+    """``{"kb16/t64": report}``: the fused kernel's instantiations in the
+    ptxas report, by waves a band and threads a block."""
+    found = {}
+    for name, rep in ptxas.items():
+        m = re.search(r"rotseq_batched_kernelILi(\d+)ELi(\d+)E", name)
+        if m:
+            found[f"kb{m.group(1)}/t{m.group(2)}"] = rep
+    return found
+
+
+def batched_phase(bctx, ptxas: dict) -> dict:
+    """Hold ``rotseq_batched`` against its plain version and against
+    per-request ``cuda_wave`` at the serving bucket, and on the bucket's
+    ``seq.T`` staircases; time it; fail on a ptxas spill."""
+    import torch
+    from repro_torch.kernels.limits import BATCHED_M_BLK
+    from repro_torch.kernels.rotseq_batched import kernel as batched_k
+    from repro_torch.kernels.rotseq_batched.ops import rot_sequence_batched
+    from repro_torch.kernels.rotseq_batched.ref import rotseq_batched_ref
+    A, seqs, padded = bctx["A"], bctx["seqs"], bctx["padded"]
+
+    C, S, args = pack_batched(A, padded)
     o_k, p_k = batched_k.rotseq_batched(*args)
     o_p, p_p = rotseq_batched_ref(*args)
     torch.cuda.synchronize()
@@ -258,6 +311,16 @@ def batched_phase(bctx) -> dict:
           f"max|d| {err_wave}")
     ms = time_ms(lambda: batched_k.rotseq_batched(*args), 10)
     plain_ms = time_ms(lambda: rotseq_batched_ref(*args), 1)
+    # the staircases (seq.T of every request: 3.8% of the grid live)
+    stairs = [s.T for s in padded]
+    _, _, args_t = pack_batched(A, stairs)
+    o_t, p_t = batched_k.rotseq_batched(*args_t)
+    w_t, wp_t = rotseq_batched_ref(*args_t)
+    torch.cuda.synchronize()
+    check(torch.equal(o_t, w_t) and torch.equal(p_t, wp_t),
+          "rotseq_batched staircase != plain version")
+    stair_ms = time_ms(lambda: batched_k.rotseq_batched(*args_t), 10)
+    stair_live = sum(s.k_live for s in stairs)
     # yardstick: one batched product with every request's Q formed
     # beforehand (not timed), TF32 off
     eye = torch.eye(NB, device=A.device).expand(B, NB, NB)
@@ -267,11 +330,28 @@ def batched_phase(bctx) -> dict:
     del Q
     b_ms, b_by = bound(6.0 * MB * sum(live),
                        4.0 * (2 * B * MB * NB + 3 * B * (NB - 1) * KB))
+    # the live planes' c/s/g are the panel bytes this data needs
+    stair_b_ms, _ = bound(6.0 * MB * stair_live,
+                          4.0 * (2 * B * MB * NB + 3 * stair_live))
+    # every instantiation of the kernel in the build's ptxas report, none
+    # spilling; the launched one has the wrapper's block size
+    regs = batched_instances(ptxas)
+    check(bool(regs), "no ptxas report for rotseq_batched")
+    for key, rep in regs.items():
+        check(rep.get("spill_stores", 0) == 0
+              and rep.get("spill_loads", 0) == 0,
+              f"rotseq_batched {key} spills: {rep}")
+    (kb,) = [int(key[2:].split("/t")[0]) for key in regs
+             if key.endswith(f"/t{BATCHED_M_BLK}")]
     emit(phase="rotseq_batched", b=B, m=MB, n=NB, k_pad=KB,
-         k=[s.k for s in seqs], max_abs_err_vs_plain=err,
+         k=[s.k for s in seqs], kb=kb, threads=BATCHED_M_BLK,
+         max_abs_err_vs_plain=err,
          planes_equal_live=True, max_abs_err_vs_cuda_wave=err_wave,
          ms=ms, plain_ms=plain_ms, bmm_ms=lib_ms,
-         bmm_rel_err=lib_err, bound_ms=b_ms, bound_by=b_by)
+         bmm_rel_err=lib_err, bound_ms=b_ms, bound_by=b_by,
+         staircase_waves=stairs[0].k, staircase_ms=stair_ms,
+         staircase_bound_ms=stair_b_ms, staircase_bitwise_vs_plain=True,
+         ptxas=regs)
     return dict(
         name="rotseq_batched", route="cuda",
         source="src/repro_torch/csrc/rotseq_batched.cu",
@@ -382,9 +462,10 @@ def serving_phase(bctx, kernels) -> dict:
     # one request alone: what auto plans for a single target of the
     # bucket's shape, against cuda_wave
     one = seqs[0].plan(like=A[0])
-    one_wave = seqs[0].plan(like=A[0], method="cuda_wave")
-    single_ms = {one.method: time_ms(lambda: one.apply(A[0]), 3),
-                 "cuda_wave": time_ms(lambda: one_wave.apply(A[0]), 3)}
+    single_ms = {}
+    for meth in sorted({one.method, "cuda_batched", "cuda_wave"}):
+        pl = seqs[0].plan(like=A[0], method=meth)
+        single_ms[meth] = time_ms(lambda: pl.apply(A[0]), 3)
 
     def run_sync():
         svc.apply_many(stream_pairs)
@@ -411,6 +492,8 @@ def serving_phase(bctx, kernels) -> dict:
          staircase_ms=stair_ms, staircase_cuda_wave_loop_ms=stair_loop_ms,
          staircase_max_abs_err_vs_cuda_wave=err_t,
          single_request_auto=one.method, single_request_ms=single_ms,
+         single_request_auto_vs_best=single_ms[one.method]
+         / min(single_ms.values()),
          grad_rel_err=g_err, tol=GRAD_TOL,
          stream_requests=STREAM_REQUESTS, stream_stats=eng.stats,
          stream_bitwise_vs_sync=True, sync_requests_per_s=rates["sync"],
@@ -634,11 +717,12 @@ def main() -> int:
 
     # -- build ----------------------------------------------------------
     t0 = time.perf_counter()
+    cached = _build._target().exists()
     log = _build.build()
-    report = [ln.strip() for ln in (log or "").splitlines()
+    report = [ln.strip() for ln in log.splitlines()
               if "entry function" in ln or "registers" in ln
               or "spill" in ln or "error" in ln.lower()]
-    emit(phase="build", built=log is not None,
+    emit(phase="build", built=not cached,
          seconds=time.perf_counter() - t0, ptxas=report)
 
     gen = torch.Generator().manual_seed(SEED)
@@ -686,17 +770,28 @@ def main() -> int:
               for meth in ("cuda_wave", "cuda_mxu")}
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    counts = {"rotseq_wave": wave_k.LAUNCHES, "rotseq_mxu": mxu_k.LAUNCHES}
+    counts = {"rotseq_wave": wave_k.LAUNCHES, "rotseq_mxu": mxu_k.LAUNCHES,
+              "rotseq_batched": batched_k.LAUNCHES}
 
-    check(plan.method in ("cuda_wave", "cuda_mxu"),
-          f"auto planned {plan.method} on the card")
+    check(plan.method in KERNEL_OF, f"auto planned {plan.method} on the card")
     kw = dict(plan.kwargs)
-    if plan.method == "cuda_wave":
-        err_auto = max_abs(out, rot_sequence_blocked(A, C, S, **kw))
-        check(err_auto == 0.0, f"auto cuda_wave max|d| {err_auto}")
-    else:
+    plans = {meth: (plan if meth == plan.method else
+                    seq.plan(like=A, method=meth, **BEST_TILES[meth]))
+             for meth in KERNEL_OF}
+    # cuda_wave held bit for bit to the blocked plain version at its
+    # tiles, and a cuda_batched pick held bit for bit to cuda_wave
+    wave_plan = plans["cuda_wave"]
+    wave_out = out if plan.method == "cuda_wave" else wave_plan.apply(A)
+    err_wave = max_abs(wave_out, rot_sequence_blocked(
+        A, C, S, **dict(wave_plan.kwargs)))
+    check(err_wave == 0.0, f"cuda_wave max|d| {err_wave} vs blocked")
+    if plan.method == "cuda_mxu":
         err_auto = rel_err(out, rot_sequence_accumulated(A, C, S, **kw))
         check(err_auto <= MXU_TOL, f"auto cuda_mxu rel err {err_auto}")
+    else:
+        err_auto = max_abs(out, wave_out)
+        check(err_auto == 0.0, f"auto {plan.method} max|d| {err_auto} "
+              f"vs cuda_wave")
     rag_w = max_abs(ragged["cuda_wave"], rot_sequence_blocked(
         Ar, seq_r.cos, seq_r.sin, G=seq_r.sign,
         **dict(rplans["cuda_wave"].kwargs)))
@@ -709,28 +804,46 @@ def main() -> int:
                  for meth, o in smalls.items()}
     check(max(small_err.values()) <= 5e-5 * 7,
           f"small problem vs numpy oracle {small_err}")
-    for name, n_launch in counts.items():
-        check(n_launch > 0, f"{name} never launched on the main path")
-    # the planned application against the other kernel's best plan, on
-    # the same inputs: what the planner's pick costs end to end
-    other = "cuda_mxu" if plan.method == "cuda_wave" else "cuda_wave"
-    alt = seq.plan(like=A, method=other, **BEST_TILES[other])
-    apply_ms = {plan.method: time_ms(lambda: plan.apply(A), 3),
-                other: time_ms(lambda: alt.apply(A), 3)}
+    path = {"rotseq_wave", "rotseq_mxu", KERNEL_OF[plan.method]}
+    for name in path:
+        check(counts[name] > 0, f"{name} never launched on the main path")
+    # the planned application against each kernel's best plan, on the
+    # same inputs: what the planner's pick costs end to end
+    apply_ms = {meth: time_ms(lambda: pl.apply(A), 3)
+                for meth, pl in plans.items()}
+    # the fused kernel's one launch at this shape, apart from the packing
+    # (transposes, sign grid, live windows) that its application adds
+    _, _, fused_args = pack_batched(A[None], [seq])
+    fused_out, _ = batched_k.rotseq_batched(*fused_args)
+    fused_err = max_abs(fused_out[0].t(), wave_out)
+    check(fused_err == 0.0, f"rotseq_batched at {M}x{N}x{K} max|d| "
+          f"{fused_err} vs cuda_wave")
+    fused_ms = time_ms(lambda: batched_k.rotseq_batched(*fused_args), 3)
+    pack_ms = time_ms(lambda: pack_batched(A[None], [seq]), 3)
+    fused_live = int(fused_args[5].sum())
+    fused_b_ms, fused_b_by = bound(6.0 * M * fused_live,
+                                   4.0 * (2 * M * N + 3 * fused_live))
+    del fused_args, fused_out
     emit(phase="main_path", auto_method=plan.method, auto_kwargs=kw,
-         auto_err=err_auto, other_method=other,
-         other_kwargs=dict(alt.kwargs), apply_ms=apply_ms,
+         auto_err=err_auto, apply_ms=apply_ms,
+         auto_vs_best=apply_ms[plan.method] / min(apply_ms.values()),
+         rotseq_batched_launch_ms=fused_ms, rotseq_batched_pack_ms=pack_ms,
+         rotseq_batched_bound_ms=fused_b_ms,
+         rotseq_batched_bound_by=fused_b_by,
+         rotseq_batched_launch_max_abs_err_vs_cuda_wave=fused_err,
          ragged_shape=[mr, nr, kr], ragged_wave_max_abs_err=rag_w,
          ragged_mxu_rel_err=rag_m, small_vs_numpy_oracle=small_err,
          launches=counts, seconds=main_s)
 
     # -- the planned kernel again at the tiles the main path ran ---------
-    name = "rotseq_wave" if plan.method == "cuda_wave" else "rotseq_mxu"
-    if entries[name]["tiles"] != kw:
+    # (the fused kernel has no tiles; its kernels-line numbers are the
+    # serving bucket's, its launch at this shape is in the main_path line)
+    name = KERNEL_OF[plan.method]
+    if name != "rotseq_batched" and entries[name]["tiles"] != kw:
         phase = wave_phase if name == "rotseq_wave" else mxu_phase
         entries[name] = phase(ctx, kw, "auto plan")
-    for name, entry in entries.items():
-        entry["launches"] = counts[name]
+    for name in ("rotseq_wave", "rotseq_mxu"):
+        entries[name]["launches"] = counts[name]
 
     # -- gradient ------------------------------------------------------------
     Ag = A.clone().requires_grad_(True)
@@ -751,7 +864,7 @@ def main() -> int:
     seqs = [random_sequence(NB, k, generator=gen_b, device=dev) for k in ks]
     bctx = dict(A=torch.randn((B, MB, NB), generator=gen_b).to(dev),
                 seqs=seqs, padded=[s.pad_to(KB) for s in seqs])
-    entries["rotseq_batched"] = batched_phase(bctx)
+    entries["rotseq_batched"] = batched_phase(bctx, ptxas_table(log))
     served = serving_phase(bctx, {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
                                   "rotseq_batched": batched_k})
     entries["rotseq_batched"]["launches"] = served["rotseq_batched"]

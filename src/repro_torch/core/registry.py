@@ -23,6 +23,14 @@ reference's formula for ``rotseq_batched``, with flops on the *live*
 planes only (``Problem.live_planes``): identity padding from ``pad_to``
 and ``seq.T`` staircases is skipped, not multiplied through.
 
+On the card the two row-parallel kernels (``cuda_wave``, ``cuda_batched``)
+are far from the flop roofline, so there each is also priced by its
+plane rate measured on an H100 (:data:`_WAVE_PLANE_SECONDS`,
+:data:`_BATCHED_PLANE_SECONDS`): one thread walks a row's planes in
+order, so a launch takes the planes of one row times the time of one,
+for as many rows as the card runs at once
+(:data:`repro_torch.hw.RESIDENT_ROWS`).
+
 The persisted plan cache, cross-shape interpolation, measured autotune
 and sharded communication term are not ported yet; of the persistence
 layer only what the serve-plan store needs is here (:func:`plan_cache_path`
@@ -39,8 +47,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.hw import PLATFORMS, Hardware
-from repro_torch.kernels.limits import batched_threads
+from repro_torch.hw import PLATFORMS, RESIDENT_ROWS, Hardware
 
 __all__ = [
     "Hardware", "PLATFORMS", "Problem", "Plan", "Capability", "BackendSpec",
@@ -61,17 +68,24 @@ __all__ = [
 # step loops of small launches.
 _OFF_DEVICE_PENALTY = 1e3
 
-# The fused batched kernel past its shared-memory cap (a block cannot
-# hold one warp's (n, 32) slab): priced out, as the reference prices its
-# kernel out past the on-chip budgets.
-_OVER_BUDGET_PENALTY = 1e3
-
 # One vectorised step of the eager tile-factor accumulation on the card
 # (core/accumulate.py, a handful of small launches over all tiles of a
 # band; n_b + k_b - 1 steps a band): measured by chip_smoke.py on an
 # NVIDIA H100 80GB HBM3 at 700 W as 36.11 ms for the 3 x 127 steps of
 # m = n = 3840, k = 180 at n_b = k_b = 64.
 _FACTOR_STEP_SECONDS = 36.11e-3 / (3 * 127)
+
+# Time of one plane of one row through each row-parallel kernel's
+# application on the card: plan.apply at m = n = 3840, k = 180 (3839 * 180
+# planes a row, 3840 rows) took 26.83 ms through cuda_wave (64/16 tiles)
+# and 6.62 ms through cuda_batched (bands of 16 waves, 64 threads a
+# block), measured by chip_smoke.py's main_path phase on an NVIDIA H100
+# 80GB HBM3 at 700 W.  Each rate is fitted at that one shape and was
+# checked on the card only there, at one 1024 x 1024 target and at the
+# 16-request serving bucket; the queueing past the card's resident rows
+# and the per-request loop of wavefront launches are extrapolated.
+_WAVE_PLANE_SECONDS = 26.83e-3 / (3839 * 180)
+_BATCHED_PLANE_SECONDS = 6.62e-3 / (3839 * 180)
 
 
 # --------------------------------------------------------------------------
@@ -357,14 +371,29 @@ def _off_device_factor(p: Problem) -> float:
     return 1.0 if p.platform == "cuda" else _OFF_DEVICE_PENALTY
 
 
+def _row_chain_seconds(planes: int, rows: int,
+                       plane_seconds: float) -> float:
+    """A row-parallel kernel on the card: ``planes`` in order on each
+    row, ``rows`` rows, as many at once as the card holds; past that,
+    rows queue."""
+    return plane_seconds * planes * max(1.0, rows / RESIDENT_ROWS["cuda"])
+
+
 def cost_cuda_wave(p: Problem, plan: Plan) -> float:
     """Wavefront kernel: blocked-wavefront traffic, carry kept on chip.
 
     ``supports_vmap=False``: a per-request batch runs as separate
-    launches, so the latency floor multiplies by the sequence count.
+    launches, so the latency floor multiplies by the sequence count.  On
+    the card each launch also costs its measured plane rate over the
+    full grid (the kernel has no plane skip); the roofline term still
+    orders the tiles.
     """
-    return max(0.7 * _blocked_seconds(p, plan) * _off_device_factor(p),
-               p.sequences * _LATENCY_FLOOR)
+    secs = 0.7 * _blocked_seconds(p, plan) * _off_device_factor(p)
+    if p.platform == "cuda":
+        rows = p.m if p.sequences > 1 else p.m_total
+        secs += p.sequences * _row_chain_seconds(
+            p.planes_total, rows, _WAVE_PLANE_SECONDS)
+    return max(secs, p.sequences * _LATENCY_FLOOR)
 
 
 def cost_cuda_mxu(p: Problem, plan: Plan) -> float:
@@ -403,18 +432,19 @@ def cost_cuda_batched(p: Problem, plan: Plan) -> float:
 
     The reference's ``rotseq_batched`` formula at the card's rates: the
     flop term counts live planes only, and one latency floor covers the
-    whole batch.  Past the kernel's shared-memory cap (``n > 1816``) the
-    backend is priced out, so ``auto`` never plans what the wrapper
-    refuses.
+    whole batch.  On the card the launch takes at least its measured
+    plane rate over each row's live planes, all requests' rows at once.
     """
     hw = p.hardware
     c = _components_cuda_batched(p, plan)
     secs = _roofline_seconds(
         c["stream_flops"] / hw.vpu_flops,
         (c["setup_bytes"] + c["stream_bytes"]) / hw.hbm_bw)
-    if batched_threads(p.n, p.m) == 0:
-        secs *= _OVER_BUDGET_PENALTY
-    return max(secs * _off_device_factor(p), _LATENCY_FLOOR)
+    secs *= _off_device_factor(p)
+    if p.platform == "cuda":
+        secs = max(secs, _row_chain_seconds(p.planes_live, p.m_total,
+                                            _BATCHED_PLANE_SECONDS))
+    return max(secs, _LATENCY_FLOOR)
 
 
 # the setup/stream traffic split behind each cost model (the kernels move

@@ -8,13 +8,17 @@ rate, because the port's GEMM kernel (``rotseq_mxu``) is IEEE float32
 on the CUDA cores, not TF32 on the tensor cores.  The ``"cpu"`` row is
 the reference's own, copied unchanged so that host costs agree with the
 reference bit for bit.
+
+:data:`RESIDENT_ROWS` holds, outside the reference's record, how many
+rows a row-parallel kernel (one thread a row) runs at once on the card:
+one warp on each of the 4 schedulers of an H100 SXM's 132 SMs.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-__all__ = ["Hardware", "PLATFORMS"]
+__all__ = ["Hardware", "PLATFORMS", "RESIDENT_ROWS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,3 +37,5 @@ PLATFORMS: Dict[str, Hardware] = {
     "cpu": Hardware("cpu-host", mxu_flops=1.5e12, vpu_flops=0.4e12,
                     hbm_bw=100e9, link_bw=25e9),
 }
+
+RESIDENT_ROWS: Dict[str, int] = {"cuda": 132 * 4 * 32}

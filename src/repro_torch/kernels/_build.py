@@ -4,8 +4,9 @@ Every source under ``repro_torch/csrc/`` goes into one shared library
 with a plain C interface, compiled for ``sm_90a`` by one ``nvcc`` call at
 first use into ``build/kernels/`` at the repository root.  The library
 is named by a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged tree reuses what it built.  Nothing here runs
-at import: the CPU tests import every module.
+rebuilt and an unchanged tree reuses what it built.  ``nvcc``'s output
+(the ptxas register and spill report) is kept beside the library.
+Nothing here runs at import: the CPU tests import every module.
 """
 from __future__ import annotations
 
@@ -53,19 +54,21 @@ def _target() -> pathlib.Path:
     return BUILD_DIR / f"librotseq_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Optional[str]:
+def build() -> str:
     """Build the library if it is missing; return ``nvcc``'s output.
 
     The output holds the ``-Xptxas -v`` register and spill report of
-    every kernel; ``None`` means the library was already built.  The
-    build writes a temporary file and renames it into place, because
-    test workers on one card (``pytest -n``) may build at the same time
-    and none may load a partial library.  Raises with ``nvcc``'s output
-    if the build fails.
+    every kernel.  It is saved beside the library, so a library built
+    earlier returns the report of its own build; a library without its
+    report is built again.  The build writes temporary files and renames
+    them into place, the report first, because test workers on one card
+    (``pytest -n``) may build at the same time and none may load a
+    partial library.  Raises with ``nvcc``'s output if the build fails.
     """
     target = _target()
-    if target.exists():
-        return None
+    report = target.with_suffix(".log")
+    if target.exists() and report.exists():
+        return report.read_text()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=".librotseq.",
                                suffix=".so")
@@ -77,6 +80,11 @@ def build() -> Optional[str]:
         os.unlink(tmp)
         raise RuntimeError(f"kernel build failed: nvcc exited "
                            f"{proc.returncode}\n{proc.stdout}")
+    fd, tmp_log = tempfile.mkstemp(dir=BUILD_DIR, prefix=".librotseq.",
+                                   suffix=".log")
+    with os.fdopen(fd, "w") as f:
+        f.write(proc.stdout)
+    os.replace(tmp_log, report)
     os.replace(tmp, target)
     return proc.stdout
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 __all__ = [
     "WARP", "SMEM_PER_BLOCK", "SMEM_STATIC", "REGS_PER_THREAD",
     "WAVE_M_BLK", "MXU_MAX_W", "BATCHED_M_BLK", "round_up", "clamp_m_blk",
-    "wave_smem_bytes", "batched_threads", "batched_smem_bytes",
+    "wave_smem_bytes",
 ]
 
 WARP = 32
@@ -26,8 +26,12 @@ WAVE_M_BLK = 128
 # widest tile factor the accumulated kernel holds: 8 columns per lane
 # (its rows per block and shared-memory slab are constants of the source)
 MXU_MAX_W = 8 * WARP
-# most rows of A per block of the fused batched kernel: one thread per row
-BATCHED_M_BLK = 128
+# rows of A per block of the fused batched kernel, one thread a row (the
+# block size its source is compiled for, kThreads): small blocks spread
+# one request over many SMs (a 1024-row request over 16).  The row's
+# window is in registers and the row streams through memory, so the
+# width n sets no limit.
+BATCHED_M_BLK = 64
 
 _F32 = 4
 
@@ -54,21 +58,3 @@ def wave_smem_bytes(n_b: int, k_b: int, threads: int) -> int:
     """
     return ((k_b + n_b) * threads + 3 * n_b * k_b) * _F32
 
-
-def batched_smem_bytes(n: int, threads: int) -> int:
-    """Dynamic shared memory of one fused batched block: the ``(n,
-    threads)`` slab of its rows, laid out ``[column][thread]``."""
-    return n * threads * _F32
-
-
-def batched_threads(n: int, m: int) -> int:
-    """Threads (rows of ``A``) per block of the fused batched kernel.
-
-    Whole warps, at most :data:`BATCHED_M_BLK`, no more than ``m`` needs
-    and as many as the slab of all ``n`` columns lets a block hold in
-    shared memory.  0 when not even one warp's slab fits (``n > 1816``
-    in float32): the kernel cannot run that width, the wrapper refuses
-    it and the cost model prices the backend out.
-    """
-    fits = SMEM_PER_BLOCK // batched_smem_bytes(max(1, n), WARP)
-    return min(clamp_m_blk(m, BATCHED_M_BLK), fits * WARP)

@@ -12,6 +12,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.limits import BATCHED_M_BLK
 
 from .ref import rotseq_batched_ref, row_blocks
 
@@ -24,6 +25,8 @@ _I = ctypes.c_int
 
 # gridDim.y (row blocks of one request) is at most 65535
 _MAX_ROW_BLOCKS = 65535
+# the kernel indexes one request's panel with 32-bit ints
+_MAX_PANEL = 2 ** 31
 
 
 def _lib():
@@ -45,8 +48,9 @@ def rotseq_batched(AT, C, S, G, starts, counts):
         ``p`` applies planes ``starts[p] .. starts[p] + counts[p] - 1``
         in order and skips the rest.
 
-    On the card a block owns ``threads`` rows of one request, one thread
-    a row, with the row's ``n`` columns in shared memory.
+    On the card a block owns :data:`~repro_torch.kernels.limits.
+    BATCHED_M_BLK` rows of one request, one thread a row, and walks the
+    waves in bands, each band's window of columns in registers.
 
     Returns ``(out, planes)``: ``out`` ``(b, n, m)`` and ``planes``
     ``(b, R)`` int32, the planes each row block applied.
@@ -63,7 +67,7 @@ def rotseq_batched(AT, C, S, G, starts, counts):
         if tuple(x.shape) != tuple(shape):
             raise ValueError(f"{name}: expected {tuple(shape)}, got "
                              f"{tuple(x.shape)}")
-    threads, R = row_blocks(n, m)
+    R = row_blocks(m)
     dev = AT.device
     if dev.type == "cpu":
         return rotseq_batched_ref(AT, C, S, G, starts, counts)
@@ -81,6 +85,9 @@ def rotseq_batched(AT, C, S, G, starts, counts):
     if R > _MAX_ROW_BLOCKS:
         raise ValueError(f"m={m} rows need {R} row blocks; a launch takes "
                          f"at most {_MAX_ROW_BLOCKS}")
+    if K * J >= _MAX_PANEL:
+        raise ValueError(f"a panel of {K} x {J} planes passes the kernel's "
+                         f"32-bit plane index")
     fn = _lib()
     out = torch.empty_like(AT)
     planes = torch.empty((b, R), dtype=torch.int32, device=dev)
@@ -89,7 +96,7 @@ def rotseq_batched(AT, C, S, G, starts, counts):
         rc = fn(AT.data_ptr(), C.data_ptr(), S.data_ptr(), G.data_ptr(),
                 starts.data_ptr(), counts.data_ptr(), out.data_ptr(),
                 planes.data_ptr(), b, n, m, K, int(bs > 1),
-                threads, stream)
+                BATCHED_M_BLK, stream)
     if rc != 0:
         raise RuntimeError(f"rotseq_batched launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -6,7 +6,9 @@ on the card.  It applies the whole ``(K, n-1)`` grid of every request
 in the ``j + 2p`` step order (:func:`repro_torch.core.rotations.
 sweep_planes`, ``n + 2K - 3`` vectorised steps over requests and rows)
 and skips every plane outside its wave's ``[start, start + count)``
-window, as the kernel never visits it.
+window, as the kernel leaves the row untouched there.  The kernel walks
+bands of waves instead (steps ``j + 2i`` within a band); both orders
+respect every plane's dependencies, so they agree to the bit.
 """
 from __future__ import annotations
 
@@ -14,24 +16,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.rotations import step_schedule, sweep_planes
-from repro_torch.kernels.limits import batched_smem_bytes, batched_threads
+from repro_torch.kernels.limits import BATCHED_M_BLK
 
 __all__ = ["rotseq_batched_ref", "row_blocks"]
 
 
-def row_blocks(n: int, m: int):
-    """``(threads, R)``: rows per block and row blocks of one request.
-
-    Raises when a block cannot hold one warp's ``(n, 32)`` slab, on
-    every device, so the plain version refuses what the kernel refuses.
-    """
-    threads = batched_threads(n, m)
-    if threads == 0:
-        raise ValueError(
-            f"n={n} columns need {batched_smem_bytes(n, 32)} B of shared "
-            f"memory for one warp's slab; the fused batched kernel takes "
-            f"at most n=1816")
-    return threads, -(-m // threads)
+def row_blocks(m: int) -> int:
+    """Row blocks of one request: :data:`BATCHED_M_BLK` rows a block."""
+    return -(-m // BATCHED_M_BLK)
 
 
 def rotseq_batched_ref(AT, C, S, G, starts, counts):
@@ -45,7 +37,7 @@ def rotseq_batched_ref(AT, C, S, G, starts, counts):
     """
     b, n, m = AT.shape
     bs, K, J = C.shape
-    _, R = row_blocks(n, m)
+    R = row_blocks(m)
     dev = AT.device
     j = np.arange(J)[None, :]
     p = np.arange(K)[:, None]

@@ -27,6 +27,7 @@ from repro.kernels.rotseq_batched.ref import rot_sequence_batched_ref as j_ref
 from repro_torch import RotationSequence, SequencePlan
 from repro_torch.core import registry
 from repro_torch.core.ref import sign_grid
+from repro_torch.core.rotations import plane_update
 from repro_torch.kernels.rotseq_batched import kernel as batched_k
 from repro_torch.kernels.rotseq_batched.ops import (count_live_planes,
                                                     rot_sequence_batched,
@@ -245,12 +246,200 @@ def test_wrapper_takes_plain_version_only_on_cpu_and_refuses_width():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(ValueError, match="cuda or cpu"):
         batched_k.rotseq_batched(*(x.to("meta") for x in args))
-    # one warp's (n, 32) float32 slab fits a block only up to n = 1816,
-    # on every device
-    wide = torch.zeros((1, 1, 1817))
-    with pytest.raises(ValueError, match="1816"):
-        rot_sequence_batched(wide, torch.ones((1816, 1)),
-                             torch.zeros((1816, 1)))
+    # the width has no cap: the row streams through memory a band at a
+    # time, so the widths past the former shared-memory slab (n = 1816)
+    # run and equal the reference
+    for n in (1817, 2048):
+        A = _targets(2, 4, n, 13)
+        C, S = _waves(n, 3, 14)
+        out = rot_sequence_batched(torch.from_numpy(A), torch.from_numpy(C),
+                                   torch.from_numpy(S))
+        ref = j_ref(jnp.asarray(A), jnp.asarray(C), jnp.asarray(S))
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **_tol(3))
+
+
+def test_build_keeps_its_report_beside_the_library(tmp_path, monkeypatch):
+    """``_build.build()`` returns ``nvcc``'s ptxas report on every call:
+    the report of a fresh build is saved beside the library and read
+    back when the library is already built; a library without its
+    report is built again, and an edited source names a new library."""
+    import sys
+
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _build.CSRC.glob("*.cu"):
+        (csrc / f.name).write_bytes(f.read_bytes())
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'w').write('lib')\n"
+        f"open({str(calls)!r}, 'a').write('x')\n"
+        "print(\"ptxas info    : Used 40 registers, 0 bytes spill\")\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    first = _build.build()
+    assert "Used 40 registers" in first and _build._target().exists()
+    assert _build.build() == first and calls.read_text() == "x"
+    _build._target().with_suffix(".log").unlink()
+    assert _build.build() == first and calls.read_text() == "xx"
+    before = _build._target()
+    src = csrc / "rotseq_batched.cu"
+    src.write_text(src.read_text() + "// edited\n")
+    assert _build._target() != before
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
+        [before.name, before.with_suffix(".log").name])
+
+
+# ------------------------------ the kernel's band schedule, emulated ----
+
+def _emulate_band_schedule(AT, C, S, G, starts, counts, kb):
+    """``csrc/rotseq_batched.cu`` step for step, over all rows at once.
+
+    Bands of ``kb`` waves; within a band step ``t`` applies plane
+    ``t - 2i`` of band wave ``i``; steps run in chunks of ``CS = min(W,
+    128 // kb)`` (``W = 2 kb``) aligned to multiples of ``CS`` over the
+    band's hull range; at the start of chunk ``tc`` the window holds
+    column ``c`` in slot ``(c - tc) % W`` and rotates by ``CS`` slots at
+    its end; step ``t`` takes column ``t + 1`` from the chunk's staged
+    tile and stores column ``t - W + 2``; only the hulls' columns are
+    loaded and stored; the first band to run reads ``AT`` and carries the
+    columns it does not touch to ``out``; a dead plane's staged values are
+    stale (NaN here) and a select drops its result.
+    """
+    b, n, m = AT.shape
+    bs, K, J = C.shape
+    W = 2 * kb
+    CS = min(W, 128 // kb)
+    out = torch.full_like(AT, 3.0e38)       # any column left unwritten shows
+    stale = torch.tensor(float("nan"))
+    for ib in range(b):
+        r = ib if bs > 1 else 0
+        src, dst = AT[ib], out[ib]
+        first = True
+        for b0 in range(0, K, kb):
+            hulls = [(i, int(starts[r, b0 + i]), int(counts[r, b0 + i]))
+                     for i in range(min(kb, K - b0))]
+            hulls = [h for h in hulls if h[2] > 0]
+            if not hulls:
+                continue
+            tlo = min(lo + 2 * i for i, lo, _ in hulls)
+            thi = max(lo + cnt + 2 * i for i, lo, cnt in hulls)
+            clo = min(lo for _, lo, _ in hulls)
+            chi = max(lo + cnt for _, lo, cnt in hulls)
+
+            def inside(col):
+                return clo <= col <= chi
+
+            if first:
+                for col in range(n):
+                    if not inside(col):
+                        dst[col] = src[col]
+            frm = src if first else dst
+            first = False
+
+            def load(col):
+                return frm[col].clone() if inside(col) else torch.zeros(m)
+
+            def stage(tc):
+                panel = [[None] * CS for _ in range(kb)]
+                for i in range(kb):
+                    for u in range(CS):
+                        p, j = b0 + i, tc + u - 2 * i
+                        live = (p < K and 0 <= j < J
+                                and starts[r, p] <= j
+                                < starts[r, p] + counts[r, p])
+                        panel[i][u] = ((C[r, p, j], S[r, p, j], G[r, p, j],
+                                        True) if live
+                                       else (stale, stale, stale, False))
+                return panel, [load(tc + 1 + u) for u in range(CS)]
+
+            t0 = tlo // CS * CS
+            t1 = -(-thi // CS) * CS
+            win = [torch.zeros(m)] * W
+            for q in range(W - 1):
+                win[(q + 2) % W] = load(t0 - W + 2 + q)
+            for tc in range(t0, t1, CS):
+                panel, cols = stage(tc)
+                for u in range(CS):
+                    t = tc + u
+                    win[(u + 1) % W] = cols[u]
+                    for i in range(kb):
+                        c, s, g, live = panel[i][u]
+                        xi, yi = (u - 2 * i) % W, (u - 2 * i + 1) % W
+                        x, y = win[xi], win[yi]
+                        xn, yn = plane_update(x, y, c, s, g)
+                        win[xi] = xn if live else x
+                        win[yi] = yn if live else y
+                    if inside(t - W + 2):
+                        dst[t - W + 2] = win[(u + 2) % W]
+                win = [win[(q + CS) % W] for q in range(W)]
+            for q in range(W - 1):
+                if inside(t1 - W + 2 + q):
+                    dst[t1 - W + 2 + q] = win[(q + 2) % W]
+        if first:
+            dst.copy_(src)
+    return out
+
+
+def _hull_case(b=2, m=6, n=16, k=5):
+    """Per-request waves whose planes outside a window ``[lo_p, hi_p)``
+    are the identity, and targets with NaN, inf and -0.0 in the columns
+    outside every hull (0, 1 and n-2, n-1), which must keep their bits."""
+    seqs = []
+    for r in range(b):
+        C, S = _waves(n, k, 140 + r)
+        for p in range(k):
+            lo, hi = 2 + (p + r) % 3, n - 3 - (p % 2)
+            C[:lo, p], S[:lo, p] = 1.0, 0.0
+            C[hi:, p], S[hi:, p] = 1.0, 0.0
+        seqs.append(RotationSequence(torch.from_numpy(C),
+                                     torch.from_numpy(S)))
+    A = torch.from_numpy(_targets(b, m, n, 15))
+    A[:, 0, 0] = float("nan")
+    A[:, 1, 1] = float("inf")
+    A[:, 2, n - 2] = -0.0
+    A[:, 3, n - 1] = float("-inf")
+    A[:, 4, 0] = -0.0
+    return seqs, A
+
+
+@pytest.mark.parametrize("kb", [2, 4, 16])
+@pytest.mark.parametrize("case", CASES + ["hulls"])
+def test_band_schedule_emulation_equals_plain_version(case, kb):
+    """The kernel's band/step order, register window and hull select
+    give the plain version's result bit for bit: per-request and shared
+    panels, a wave count that is no multiple of ``kb`` (5, 7, 15), and
+    NaN, inf and -0.0 outside the hulls left as they were."""
+    if case == "hulls":
+        tseqs, A = _hull_case()
+        shared = False
+    else:
+        tseqs, _, shared = _case(case, k=5)
+        A = torch.from_numpy(_targets(3, 7, 12, 16))
+    C = torch.stack([s.cos for s in tseqs])
+    S = torch.stack([s.sin for s in tseqs])
+    G = torch.stack([sign_grid(s.cos, s.reflect, s.sign) for s in tseqs])
+    starts, counts = wave_windows(C, S, G)
+    args = (A.transpose(1, 2).contiguous(),
+            *(x.transpose(1, 2).contiguous() for x in (C, S, G)),
+            starts, counts)
+    assert args[1].shape[1] % kb != 0       # a remainder band
+    got = _emulate_band_schedule(*args, kb)
+    want, _ = rotseq_batched_ref(*args)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if case == "hulls":
+        out = got.transpose(1, 2)
+        assert torch.isnan(out[:, 0, 0]).all()
+        assert torch.isinf(out[:, 1, 1]).all()
+        assert torch.signbit(out[:, 2, -2]).all()
+        assert torch.signbit(out[:, 4, 0]).all()
 
 
 # ---------------------------------------------------- apply_batched ----
@@ -404,10 +593,10 @@ def test_serving_buckets_plan_the_fused_kernel_on_the_card():
     demo = registry.select_plan(16, 32, 8, platform="cuda", batch=16,
                                 shared_sequence=False)
     assert bucket.method == stair.method == demo.method == "cuda_batched"
-    # past one warp's shared-memory slab the kernel is priced out
+    # the width sets no cap: a bucket of wide targets plans it too
     wide = registry.select_plan(1024, 3840, 64, platform="cuda", batch=16,
                                 shared_sequence=False)
-    assert wide.method != "cuda_batched"
+    assert wide.method == "cuda_batched"
     registry.clear_plan_cache()
 
 
@@ -497,28 +686,43 @@ def test_plan_dict_roundtrip_and_rejections():
 # ------------------------------------------------------------ the card ----
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + ["hulls", 1817, 2048])
 @pytest.mark.parametrize("m", [7, 300])
 def test_batched_kernel_equals_plain_on_card(case, m):
+    """Bit for bit, out and plane counts, over wave counts that leave a
+    remainder band of 16 (6, 8, 20 and 44), rows staged one at a time
+    (``m = 7``) and four at a time (``m = 300``), with NaN, inf and -0.0
+    outside the hulls, and at widths 1817 and 2048, past the first
+    design's shared-memory cap."""
     dev = _cuda()
-    tseqs, _, shared = _case(case, b=3, m=m, n=40, k=6)
-    C, S, G = _stack(tseqs)
-    refl = tseqs[0].reflect and G is None
-    C, S = torch.from_numpy(C).to(dev), torch.from_numpy(S).to(dev)
+    if case == "hulls":
+        tseqs, A = _hull_case(b=3, m=m, n=40, k=6)
+        shared = False
+    elif isinstance(case, int):
+        C, S = _waves(case, 20, 17)
+        tseqs = [RotationSequence(torch.from_numpy(C), torch.from_numpy(S))]
+        shared = True
+        A = torch.from_numpy(_targets(2, m, case, 18))
+    else:
+        tseqs, _, shared = _case(case, b=3, m=m, n=40, k=6)
+        A = torch.from_numpy(_targets(3, m, 40, 12))
+    C = torch.stack([s.cos for s in tseqs]).to(dev)
+    S = torch.stack([s.sin for s in tseqs]).to(dev)
+    G = torch.stack([sign_grid(s.cos, s.reflect, s.sign)
+                     for s in tseqs]).to(dev)
     if shared:
-        C, S = C[:1], S[:1]
-    G = sign_grid(C, refl, None if G is None
-                  else torch.from_numpy(G).to(dev))
+        C, S, G = C[:1], S[:1], G[:1]
     starts, counts = wave_windows(C, S, G)
-    AT = torch.from_numpy(_targets(3, 40, m, 12)).to(dev)
-    args = (AT, *(x.transpose(1, 2).contiguous() for x in (C, S, G)),
+    args = (A.to(dev).transpose(1, 2).contiguous(),
+            *(x.transpose(1, 2).contiguous() for x in (C, S, G)),
             starts, counts)
     before = batched_k.LAUNCHES
     out, planes = batched_k.rotseq_batched(*args)
     torch.cuda.synchronize()
     assert batched_k.LAUNCHES - before == 1
     want, want_planes = rotseq_batched_ref(*args)
-    assert torch.equal(out, want) and torch.equal(planes, want_planes)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(planes, want_planes)
 
 
 @pytest.mark.gpu
@@ -528,13 +732,9 @@ def test_batched_kernel_refuses_what_it_cannot_run():
     C, S = torch.ones((11, 3), device=dev), torch.zeros((11, 3), device=dev)
     with pytest.raises(TypeError, match="float32"):
         rot_sequence_batched(A.double(), C.double(), S.double())
-    with pytest.raises(ValueError, match="1816"):
-        rot_sequence_batched(torch.zeros((1, 4, 1817), device=dev),
-                             torch.ones((1816, 2), device=dev),
-                             torch.zeros((1816, 2), device=dev))
-    # the widest slab a block holds still runs
-    out = rot_sequence_batched(torch.ones((1, 40, 1816), device=dev),
-                               torch.ones((1815, 2), device=dev),
-                               torch.zeros((1815, 2), device=dev))
+    # a wide slab runs: the width has no cap
+    out = rot_sequence_batched(torch.ones((1, 40, 4096), device=dev),
+                               torch.ones((4095, 2), device=dev),
+                               torch.zeros((4095, 2), device=dev))
     torch.cuda.synchronize()
     assert torch.equal(out, torch.ones_like(out))

@@ -3,11 +3,13 @@
 On ``"cpu"`` the port's hardware row is the reference's, so the four
 backends both packages share cost exactly the same.  On ``"cuda"`` (an
 H100) ``method="auto"`` must land on a CUDA kernel, never on an eager
-plain backend, and at the paper's shape on ``cuda_wave``, whose
-application is the faster one there (the eager tile factors of
-``cuda_mxu`` are priced by their measured step count).
+plain backend, and where the kernels' applications were measured on the
+card it must order them as the measurements did: ``cuda_batched`` before
+``cuda_wave`` before ``cuda_mxu`` at the paper's shape, ``cuda_batched``
+for one ``1024 x 1024`` target.
 """
 import dataclasses
+import pathlib
 
 import pytest
 
@@ -78,7 +80,9 @@ def test_cuda_kernels_priced_like_pallas_kernels(prob):
 def test_auto_on_the_card_picks_a_kernel_at_paper_shape():
     treg.clear_plan_cache()
     plan = treg.select_plan(3840, 3840, 180, platform="cuda")
-    assert plan.method == "cuda_wave"
+    # measured (chip_smoke.py, H100): cuda_batched 6.62 ms, cuda_wave
+    # 26.83 ms, cuda_mxu 53.07 ms an application
+    assert plan.method == "cuda_batched"
     plan = treg.select_plan(3000, 1000, 37, platform="cuda", signs=True)
     assert plan.method in ("cuda_wave", "cuda_mxu", "cuda_batched")
     # a bucket of small per-request problems (the reference's demo
@@ -93,11 +97,15 @@ def test_auto_on_the_card_picks_a_kernel_at_paper_shape():
         cand = spec.candidates(prob)[0]
         assert spec.cost(prob, cand) >= 1e3 * 2e-6   # floor, penalised
     # the accumulated kernel's eager factors: 127 vectorised steps a band
-    # at 64/64, priced at their measured time on the card
+    # at 64/64, priced at their measured time on the card; the two
+    # row-parallel kernels at their measured plane rates
     paper = treg.Problem(m=3840, n=3840, k=180, platform="cuda")
     mxu = treg.cost_cuda_mxu(paper, treg.Plan("cuda_mxu", n_b=64, k_b=64))
     wave = treg.cost_cuda_wave(paper, treg.Plan("cuda_wave", n_b=64, k_b=16))
-    assert mxu > 36e-3 > 10 * wave
+    fused = treg.cost_cuda_batched(paper, treg.Plan("cuda_batched"))
+    assert mxu > 36e-3 and mxu > wave > fused
+    assert wave == pytest.approx(26.83e-3, rel=0.02)
+    assert fused == pytest.approx(6.62e-3, rel=0.02)
     # where no kernel is eligible (float64) a plain backend still plans
     f64 = treg.select_plan(64, 96, 8, platform="cuda", dtype="float64")
     assert not f64.method.startswith("cuda_")
@@ -105,6 +113,32 @@ def test_auto_on_the_card_picks_a_kernel_at_paper_shape():
     assert cpu.method == jreg.select_plan(3840, 3840, 180,
                                           platform="cpu").method
     assert not cpu.method.startswith("cuda")
+
+
+def test_refit_orders_the_single_request_as_measured():
+    """One ``1024 x 1024`` target of the serving bucket's first request
+    (41 waves): ``cuda_batched`` took 0.72 ms and ``cuda_wave`` 1.94 ms on
+    the card (chip_smoke.py's serving phase, H100), so ``auto`` plans the
+    fused kernel, and prices it below the wavefront kernel by a factor
+    near the measured one."""
+    treg.clear_plan_cache()
+    plan = treg.select_plan(1024, 1024, 41, platform="cuda",
+                            live_planes=1023 * 41)
+    assert plan.method == "cuda_batched"
+    one = treg.Problem(m=1024, n=1024, k=41, platform="cuda",
+                       live_planes=1023 * 41)
+    fused = treg.cost_cuda_batched(one, treg.Plan("cuda_batched"))
+    wave = min(treg.cost_cuda_wave(one, p)
+               for p in treg.cuda_wave_tiles(one))
+    assert 1.5 < wave / fused < 6.0          # measured: 1.94 / 0.72 = 2.7
+    # a whole serving bucket still plans the fused kernel, far below a
+    # per-request loop of wavefront launches
+    bucket = treg.Problem(m=1024, n=1024, k=64, platform="cuda", batch=16,
+                          shared_sequence=False, live_planes=1023 * 48)
+    assert (treg.cost_cuda_batched(bucket, treg.Plan("cuda_batched"))
+            < min(treg.cost_cuda_wave(bucket, p)
+                  for p in treg.cuda_wave_tiles(bucket)) / 10)
+    treg.clear_plan_cache()
 
 
 def test_eligibility():
@@ -143,12 +177,13 @@ def test_limits():
     assert limits.wave_smem_bytes(64, 16, 128) > limits.SMEM_STATIC
     # the wrapper refuses a tile whose window a block cannot hold
     assert limits.wave_smem_bytes(128, 128, 128) > limits.SMEM_PER_BLOCK
-    # the fused batched kernel: one thread a row, the row's n columns in
-    # shared memory; one warp's float32 slab fits up to n = 1816
-    assert limits.batched_threads(1024, 1024) == 32
-    assert limits.batched_smem_bytes(1024, 32) == 128 * 1024
-    assert limits.batched_threads(32, 5000) == limits.BATCHED_M_BLK
-    assert limits.batched_threads(32, 5) == limits.WARP
-    assert limits.batched_threads(1816, 64) == limits.WARP
-    assert limits.batched_threads(1817, 64) == 0
-    assert limits.batched_smem_bytes(1816, 32) <= limits.SMEM_PER_BLOCK
+    # the fused batched kernel: one thread a row in blocks of two warps,
+    # the one block size its source is compiled for; the width sets no
+    # limit (the row's window is in registers, not a shared-memory slab)
+    from repro_torch.kernels.rotseq_batched.ref import row_blocks
+    assert limits.BATCHED_M_BLK == 2 * limits.WARP
+    cu = pathlib.Path(limits.__file__).parents[1] / "csrc" / "rotseq_batched.cu"
+    assert (f"constexpr int kThreads = {limits.BATCHED_M_BLK};"
+            in cu.read_text())
+    assert [row_blocks(m) for m in (1, 64, 65, 1024, 5000)] == [
+        1, 1, 2, 16, 79]
