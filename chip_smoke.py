@@ -6,11 +6,13 @@
 At the paper's own workload (``m = n = 3840``, ``k = 180`` waves,
 float32) it builds the CUDA kernels from ``src/repro_torch/csrc`` and
 holds the wavefront and accumulated kernels against their plain PyTorch
-versions on the card; it then runs the main path
-``seq.plan(like=A).apply(A)`` with ``method="auto"`` (a ``cuda_batched``
-pick is held bit for bit to ``cuda_wave``, itself held to the blocked
-plain version), a ragged signed problem through both tiled kernels and a
-gradient, counting the kernel launches of that run.  Then the serving
+versions on the card (the wavefront kernel bit for bit, also on the
+ragged and small problems below, one launch an application, no ptxas
+spill); it then runs the main path ``seq.plan(like=A).apply(A)`` with
+``method="auto"`` (a pick other than ``cuda_wave`` is held to it, bit for
+bit for ``cuda_batched``; ``cuda_wave`` is held bit for bit to the
+blocked plain version), a ragged signed problem through both tiled
+kernels and a gradient, counting the kernel launches of that run.  Then the serving
 path at a realistic bucket: 16 requests of ``m = n = 1024`` float32
 targets, each with its own sequence of 33-64 waves padded to 64.  The
 fused batched kernel is held against its plain version, on the
@@ -52,7 +54,8 @@ PEAK_BW = 3.35e12
 
 M = N = 3840
 K = 180
-WAVE_TILES = dict(n_b=64, k_b=16)
+# the wavefront kernel takes its compiled band and no column tiles
+WAVE_TILES = dict(k_b=16)
 MXU_TILES = dict(n_b=128, k_b=128)
 # each kernel's fastest measured application at this shape (PERF.md)
 BEST_TILES = {"cuda_wave": WAVE_TILES, "cuda_mxu": dict(n_b=64, k_b=64),
@@ -143,58 +146,87 @@ def ptxas_table(log) -> dict:
     return table
 
 
-def wave_phase(ctx, tiles: dict, label: str) -> dict:
-    """Hold ``rotseq_wave`` against its plain version at ``tiles``, time it."""
+def wave_instances(ptxas: dict) -> dict:
+    """``{"kb16/w4": report}``: the wavefront kernel's instantiations in
+    the ptxas report, by waves a band and warps a block."""
+    found = {}
+    for name, rep in ptxas.items():
+        m = re.search(r"rotseq_wave_kernelILi(\d+)ELi(\d+)E", name)
+        if m:
+            found[f"kb{m.group(1)}/w{m.group(2)}"] = rep
+    return found
+
+
+def no_spills(regs: dict, kernel: str) -> None:
+    check(bool(regs), f"no ptxas report for {kernel}")
+    for key, rep in regs.items():
+        check(rep.get("spill_stores", 0) == 0
+              and rep.get("spill_loads", 0) == 0,
+              f"{kernel} {key} spills: {rep}")
+
+
+def pack_wave(A, C, S, G=None):
+    """The wavefront kernel's operands for ``A``: ``(AT, Cw, Sw, Gw)``,
+    packed as ``rot_sequence_wave`` packs them."""
+    from repro_torch.core.ref import sign_grid
+    return (A.t().contiguous(), *(x.t().contiguous()
+                                  for x in (C, S, sign_grid(C, False, G))))
+
+
+def wave_phase(ctx, ptxas: dict) -> dict:
+    """Hold ``rotseq_wave`` bit for bit against its plain version at the
+    paper shape, the ragged signed shape and the small one; check that an
+    application is one launch; time it; fail on a ptxas spill."""
     import torch
-    from repro_torch.core.blocked import (band_inputs, num_tiles,
-                                          pack_sheared, rot_sequence_blocked)
+    from repro_torch.kernels.limits import WAVE_KB, WAVE_WARPS
     from repro_torch.kernels.rotseq import kernel as wave_k
     from repro_torch.kernels.rotseq.ops import rot_sequence_wave
     from repro_torch.kernels.rotseq.ref import rotseq_wave_ref
     A, C, S = ctx["A"], ctx["C"], ctx["S"]
-    n_b, k_b = tiles["n_b"], tiles["k_b"]
-    T = num_tiles(N, n_b, k_b)
-    band = pack_sheared(C, S, 0, k_b, n_b, T)
-    init, fresh = band_inputs(A.t().contiguous(), k_b, n_b, T)
-    fresh = fresh.contiguous()
-    o_k = wave_k.rotseq_wave(fresh, *band, init)
-    o_p = rotseq_wave_ref(fresh, *band, init)
+    args = pack_wave(A, C, S)
+    o_k = wave_k.rotseq_wave(*args)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    o_p = rotseq_wave_ref(*args)
+    end.record()
     torch.cuda.synchronize()
-    check(torch.equal(o_k, o_p), "rotseq_wave band != plain version")
-    bands = -(-K // k_b)
-    # the kernel's time does not depend on the data, so one application's
-    # launches are timed as `bands` launches on the first band's inputs
-    ms = time_ms(lambda: [wave_k.rotseq_wave(fresh, *band, init)
-                          for _ in range(bands)], 5)
-    plain_ms = bands * time_ms(lambda: rotseq_wave_ref(fresh, *band, init),
-                               1)
+    plain_ms = start.elapsed_time(end)
+    check(torch.equal(o_k, o_p), "rotseq_wave != plain version")
+    # the ragged signed problem and the small one, kernel against plain
+    for name in ("ragged", "small"):
+        X, seq_x = ctx[name]
+        a_x = pack_wave(X, seq_x.cos, seq_x.sin, seq_x.sign)
+        check(torch.equal(wave_k.rotseq_wave(*a_x), rotseq_wave_ref(*a_x)),
+              f"rotseq_wave != plain version on the {name} problem")
+    ms = time_ms(lambda: wave_k.rotseq_wave(*args), 5)
 
     before = wave_k.LAUNCHES
-    out_w = rot_sequence_wave(A, C, S, **tiles)
+    out_w = rot_sequence_wave(A, C, S)
     torch.cuda.synchronize()
     launches = wave_k.LAUNCHES - before
-    check(launches == bands, f"rotseq_wave launches {launches}")
-    plain_w = rot_sequence_blocked(A, C, S, **tiles)
-    err_w = max_abs(out_w, plain_w)
+    check(launches == 1, f"rotseq_wave: {launches} launches an application")
+    err_w = max_abs(out_w, o_p.t())
     err_wf = max_abs(out_w, ctx["ref"])
     check(bool(torch.isfinite(out_w).all()), "rotseq_wave: non-finite")
     check(err_w == 0.0 and err_wf == 0.0,
           f"rotseq_wave max|d| {err_w} vs blocked, {err_wf} vs wavefront")
-    apply_ms = time_ms(lambda: rot_sequence_wave(A, C, S, **tiles), 5)
-    apply_plain_ms = time_ms(
-        lambda: rot_sequence_blocked(A, C, S, **tiles), 1, warm=False)
-    b_ms, b_by = bound(6.0 * M * (N - 1) * K, ctx["io_bytes"])
-    emit(phase="rotseq_wave", tiles_of=label, m=M, n=N, k=K, **tiles,
-         launches=launches, max_abs_err_vs_plain=err_w,
-         max_abs_err_vs_wavefront=err_wf, ms=ms, plain_ms=plain_ms,
-         apply_ms=apply_ms, apply_plain_ms=apply_plain_ms,
-         matmul_ms=ctx["lib_ms"], bound_ms=b_ms, bound_by=b_by)
+    apply_ms = time_ms(lambda: rot_sequence_wave(A, C, S), 5)
+    b_ms, b_by = bound(6.0 * M * (N - 1) * K,
+                       4.0 * (2 * M * N + 3 * (N - 1) * K))
+    regs = wave_instances(ptxas)
+    no_spills(regs, "rotseq_wave")
+    emit(phase="rotseq_wave", m=M, n=N, k=K, kb=WAVE_KB, warps=WAVE_WARPS,
+         launches=launches, bitwise_vs_plain=["paper", "ragged", "small"],
+         max_abs_err_vs_plain=err_w, max_abs_err_vs_wavefront=err_wf,
+         ms=ms, plain_ms=plain_ms, apply_ms=apply_ms,
+         matmul_ms=ctx["lib_ms"], bound_ms=b_ms, bound_by=b_by, ptxas=regs)
     return dict(
         name="rotseq_wave", route="cuda",
         source="src/repro_torch/csrc/rotseq_wave.cu",
         replaces="src/repro/kernels/rotseq/kernel.py:72",
         max_abs_err=err_w, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=ctx["lib_ms"], tiles=tiles)
+        bound_by=b_by, library_ms=ctx["lib_ms"], tiles=WAVE_TILES)
 
 
 def mxu_phase(ctx, tiles: dict, label: str) -> dict:
@@ -309,6 +341,11 @@ def batched_phase(bctx, ptxas: dict) -> dict:
     check(bool(torch.isfinite(out).all()), "rotseq_batched: non-finite")
     check(err_wave == 0.0, f"rotseq_batched vs per-request cuda_wave "
           f"max|d| {err_wave}")
+    # the bucket as a loop of per-request cuda_wave applications
+    wave_plans = [s.plan(like=A[i], method="cuda_wave")
+                  for i, s in enumerate(seqs)]
+    wave_loop_ms = time_ms(lambda: [pl.apply(A[i])
+                                    for i, pl in enumerate(wave_plans)], 3)
     ms = time_ms(lambda: batched_k.rotseq_batched(*args), 10)
     plain_ms = time_ms(lambda: rotseq_batched_ref(*args), 1)
     # the staircases (seq.T of every request: 3.8% of the grid live)
@@ -336,17 +373,14 @@ def batched_phase(bctx, ptxas: dict) -> dict:
     # every instantiation of the kernel in the build's ptxas report, none
     # spilling; the launched one has the wrapper's block size
     regs = batched_instances(ptxas)
-    check(bool(regs), "no ptxas report for rotseq_batched")
-    for key, rep in regs.items():
-        check(rep.get("spill_stores", 0) == 0
-              and rep.get("spill_loads", 0) == 0,
-              f"rotseq_batched {key} spills: {rep}")
+    no_spills(regs, "rotseq_batched")
     (kb,) = [int(key[2:].split("/t")[0]) for key in regs
              if key.endswith(f"/t{BATCHED_M_BLK}")]
     emit(phase="rotseq_batched", b=B, m=MB, n=NB, k_pad=KB,
          k=[s.k for s in seqs], kb=kb, threads=BATCHED_M_BLK,
          max_abs_err_vs_plain=err,
          planes_equal_live=True, max_abs_err_vs_cuda_wave=err_wave,
+         cuda_wave_loop_ms=wave_loop_ms,
          ms=ms, plain_ms=plain_ms, bmm_ms=lib_ms,
          bmm_rel_err=lib_err, bound_ms=b_ms, bound_by=b_by,
          staircase_waves=stairs[0].k, staircase_ms=stair_ms,
@@ -735,14 +769,7 @@ def main() -> int:
     lib_ms = time_ms(lambda: torch.matmul(A, Q), 10)
     emit(phase="matmul", ms=lib_ms, rel_err_vs_wavefront=rel_err(
         torch.matmul(A, Q), ref))
-    ctx = dict(A=A, C=C, S=S, ref=ref, lib_ms=lib_ms,
-               io_bytes=4.0 * (2 * M * N + 2 * (N - 1) * K))
-
-    # -- the two kernels at the tiles of the paper's configuration -------
-    entries = {"rotseq_wave": wave_phase(ctx, WAVE_TILES, "paper"),
-               "rotseq_mxu": mxu_phase(ctx, MXU_TILES, "paper")}
-
-    # -- main path: plan(like=A).apply(A), auto and both kernels ----------
+    # a ragged signed problem, and a small one held to the numpy oracle
     gen_r = torch.Generator().manual_seed(SEED + 1)
     mr, nr, kr = 3000, 1000, 37
     Ar = torch.randn((mr, nr), generator=gen_r).to(dev)
@@ -756,7 +783,16 @@ def main() -> int:
     oracle = torch.from_numpy(rot_sequence_numpy(
         As.cpu().numpy(), small.cos.cpu().numpy(), small.sin.cpu().numpy(),
         G=small.sign.cpu().numpy()))
+    ctx = dict(A=A, C=C, S=S, ref=ref, lib_ms=lib_ms,
+               io_bytes=4.0 * (2 * M * N + 2 * (N - 1) * K),
+               ragged=(Ar, seq_r), small=(As, small))
+    ptxas = ptxas_table(log)
 
+    # -- the two tiled kernels at the paper's configuration ---------------
+    entries = {"rotseq_wave": wave_phase(ctx, ptxas),
+               "rotseq_mxu": mxu_phase(ctx, MXU_TILES, "paper")}
+
+    # -- main path: plan(like=A).apply(A), auto and both kernels ----------
     wave_k.LAUNCHES = 0
     mxu_k.LAUNCHES = 0
     batched_k.LAUNCHES = 0
@@ -766,8 +802,9 @@ def main() -> int:
     rplans = {meth: seq_r.plan(like=Ar, method=meth)
               for meth in ("cuda_wave", "cuda_mxu")}
     ragged = {meth: rp.apply(Ar) for meth, rp in rplans.items()}
-    smalls = {meth: small.plan(like=As, method=meth, n_b=8, k_b=4).apply(As)
-              for meth in ("cuda_wave", "cuda_mxu")}
+    smalls = {meth: small.plan(like=As, method=meth, **tiles).apply(As)
+              for meth, tiles in (("cuda_wave", WAVE_TILES),
+                                  ("cuda_mxu", dict(n_b=8, k_b=4)))}
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     counts = {"rotseq_wave": wave_k.LAUNCHES, "rotseq_mxu": mxu_k.LAUNCHES,
@@ -839,9 +876,8 @@ def main() -> int:
     # (the fused kernel has no tiles; its kernels-line numbers are the
     # serving bucket's, its launch at this shape is in the main_path line)
     name = KERNEL_OF[plan.method]
-    if name != "rotseq_batched" and entries[name]["tiles"] != kw:
-        phase = wave_phase if name == "rotseq_wave" else mxu_phase
-        entries[name] = phase(ctx, kw, "auto plan")
+    if name == "rotseq_mxu" and entries[name]["tiles"] != kw:
+        entries[name] = mxu_phase(ctx, kw, "auto plan")
     for name in ("rotseq_wave", "rotseq_mxu"):
         entries[name]["launches"] = counts[name]
 
@@ -864,7 +900,7 @@ def main() -> int:
     seqs = [random_sequence(NB, k, generator=gen_b, device=dev) for k in ks]
     bctx = dict(A=torch.randn((B, MB, NB), generator=gen_b).to(dev),
                 seqs=seqs, padded=[s.pad_to(KB) for s in seqs])
-    entries["rotseq_batched"] = batched_phase(bctx, ptxas_table(log))
+    entries["rotseq_batched"] = batched_phase(bctx, ptxas)
     served = serving_phase(bctx, {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
                                   "rotseq_batched": batched_k})
     entries["rotseq_batched"]["launches"] = served["rotseq_batched"]

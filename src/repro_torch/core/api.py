@@ -51,7 +51,7 @@ def _run_accumulated(A, C, S, *, n_b=64, k_b=16, reflect=False, G=None,
                                     reflect=reflect, G=G)
 
 
-def _run_cuda_wave(A, C, S, *, n_b=64, k_b=16, reflect=False, G=None,
+def _run_cuda_wave(A, C, S, *, n_b=None, k_b=16, reflect=False, G=None,
                    **kw):
     from repro_torch.kernels.rotseq.ops import rot_sequence_wave
     return rot_sequence_wave(A, C, S, n_b=n_b, k_b=k_b, reflect=reflect,
@@ -115,7 +115,8 @@ registry.register(BackendSpec(
                           supports_vmap=False, batch_via="flatten"),
     cost=registry.cost_cuda_wave,
     candidates=registry.cuda_wave_tiles,
-    doc="CUDA wavefront kernel (packed layout, carry in shared memory).",
+    doc="CUDA wavefront kernel (packed layout, bands pipelined across "
+        "warps, one launch).",
 ))
 
 registry.register(BackendSpec(

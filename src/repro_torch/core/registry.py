@@ -26,10 +26,10 @@ and ``seq.T`` staircases is skipped, not multiplied through.
 On the card the two row-parallel kernels (``cuda_wave``, ``cuda_batched``)
 are far from the flop roofline, so there each is also priced by its
 plane rate measured on an H100 (:data:`_WAVE_PLANE_SECONDS`,
-:data:`_BATCHED_PLANE_SECONDS`): one thread walks a row's planes in
-order, so a launch takes the planes of one row times the time of one,
-for as many rows as the card runs at once
-(:data:`repro_torch.hw.RESIDENT_ROWS`).
+:data:`_BATCHED_PLANE_SECONDS`): one lane walks a row's planes in order
+(``cuda_wave`` splits them over the warps of its band pipeline), so a
+launch takes the planes of one chain times the time of one, for as many
+rows as the card runs at once (:data:`repro_torch.hw.RESIDENT_ROWS`).
 
 The persisted plan cache, cross-shape interpolation, measured autotune
 and sharded communication term are not ported yet; of the persistence
@@ -48,6 +48,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.hw import PLATFORMS, RESIDENT_ROWS, Hardware
+from repro_torch.kernels.limits import WAVE_KB, WAVE_WARPS
 
 __all__ = [
     "Hardware", "PLATFORMS", "Problem", "Plan", "Capability", "BackendSpec",
@@ -76,15 +77,22 @@ _OFF_DEVICE_PENALTY = 1e3
 _FACTOR_STEP_SECONDS = 36.11e-3 / (3 * 127)
 
 # Time of one plane of one row through each row-parallel kernel's
-# application on the card: plan.apply at m = n = 3840, k = 180 (3839 * 180
-# planes a row, 3840 rows) took 26.83 ms through cuda_wave (64/16 tiles)
-# and 6.62 ms through cuda_batched (bands of 16 waves, 64 threads a
-# block), measured by chip_smoke.py's main_path phase on an NVIDIA H100
-# 80GB HBM3 at 700 W.  Each rate is fitted at that one shape and was
-# checked on the card only there, at one 1024 x 1024 target and at the
-# 16-request serving bucket; the queueing past the card's resident rows
-# and the per-request loop of wavefront launches are extrapolated.
-_WAVE_PLANE_SECONDS = 26.83e-3 / (3839 * 180)
+# application on the card.  cuda_batched: plan.apply at m = n = 3840,
+# k = 180 (3839 * 180 planes a row, 3840 rows) took 6.62 ms (bands of 16
+# waves, 64 threads a block), measured by chip_smoke.py's main_path phase
+# on an NVIDIA H100 80GB HBM3 at 700 W.  cuda_wave runs the 12 bands of a
+# row group (the last padded to 16 waves) on 12 warps at once, so at that
+# shape a warp's chain is 3839 * 192 / 12 planes and the row groups need
+# 3840 * 12 / 32 warps, 2.7 times the card's resident ones; its one
+# launch took 1.66 ms there (chip_smoke.py's rotseq_wave phase, same
+# card), and the roofline term the model adds (0.30 ms) stands for the
+# transposes around it (plan.apply measured 1.95 ms).  Each rate is
+# fitted at that one shape and was checked on the card only there, at
+# one 1024 x 1024 target and at the 16-request serving bucket; the
+# queueing past the card's resident rows and the per-request loop of
+# wavefront launches are extrapolated.
+_WAVE_PLANE_SECONDS = 1.66e-3 / (3839 * 192 / 12
+                                 * (3840 * 12 / RESIDENT_ROWS["cuda"]))
 _BATCHED_PLANE_SECONDS = 6.62e-3 / (3839 * 180)
 
 
@@ -169,7 +177,7 @@ class Plan:
 @dataclasses.dataclass(frozen=True)
 class Capability:
     """What a backend can run; consulted before costing it."""
-    dtypes: Tuple[str, ...] = ("float32", "float64")
+    dtypes: Tuple[str, ...] = ("float32", "bfloat16", "float64", "float16")
     platforms: Tuple[str, ...] = ("cpu", "cuda")
     supports_signs: bool = True       # per-entry G (mixed rot/reflector)
     tile_min: Tuple[int, int] = (1, 1)
@@ -384,15 +392,21 @@ def cost_cuda_wave(p: Problem, plan: Plan) -> float:
 
     ``supports_vmap=False``: a per-request batch runs as separate
     launches, so the latency floor multiplies by the sequence count.  On
-    the card each launch also costs its measured plane rate over the
-    full grid (the kernel has no plane skip); the roofline term still
+    the card each launch also costs its measured plane rate over its
+    band pipeline: the padded bands of ``WAVE_KB`` waves run on
+    ``min(WAVE_WARPS, bands)`` warps a row group, so each warp's chain is
+    that share of a row's planes and the row groups need that many times
+    the warps (the kernel has no plane skip).  The roofline term still
     orders the tiles.
     """
     secs = 0.7 * _blocked_seconds(p, plan) * _off_device_factor(p)
     if p.platform == "cuda":
         rows = p.m if p.sequences > 1 else p.m_total
+        bands = _bands(p.k, WAVE_KB)
+        warps = max(1, min(WAVE_WARPS, bands))
+        planes = max(0, p.n - 1) * bands * WAVE_KB
         secs += p.sequences * _row_chain_seconds(
-            p.planes_total, rows, _WAVE_PLANE_SECONDS)
+            planes / warps, rows * warps, _WAVE_PLANE_SECONDS)
     return max(secs, p.sequences * _LATENCY_FLOOR)
 
 
@@ -531,9 +545,8 @@ def accumulated_tiles(p: Problem) -> List[Plan]:
 
 
 def cuda_wave_tiles(p: Problem) -> List[Plan]:
-    cap = get_backend("cuda_wave").capability
-    pairs = _clip_pairs(p, [(64, 16), (32, 8), (8, 4)], cap)
-    return [Plan("", n_b=a, k_b=b) for a, b in pairs]
+    # the band the kernel is compiled for; it has no column tiles
+    return [Plan("", k_b=WAVE_KB)]
 
 
 def cuda_mxu_tiles(p: Problem) -> List[Plan]:

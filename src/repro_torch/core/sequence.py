@@ -317,8 +317,8 @@ class RotationSequence:
         its live planes.  Without ``like`` the sequence's own dtype and
         device stand in.  ``method="auto"`` runs the capability filter
         and cost model through the plan cache; a named method keeps the
-        seed tiles (``n_b=64, k_b=16`` for tiled backends).  Explicit
-        ``n_b``/``k_b`` override both.
+        seed tiles (``n_b=64, k_b=16``, those a tiled backend takes).
+        Explicit ``n_b``/``k_b`` override both.
         """
         _ensure_backends()
         like_shape = getattr(like, "shape", None)
@@ -358,8 +358,12 @@ class RotationSequence:
 
         planned = dict(kw)
         if spec.candidates is not registry.no_tiles:  # tiled backend
-            planned["n_b"] = 64 if n_b is None else n_b
-            planned["k_b"] = 16 if k_b is None else k_b
+            # the seed tiles, those the backend takes (cuda_wave: k_b)
+            takes = spec.candidates(registry.Problem(m=m, n=n, k=k))[0]
+            if takes.n_b is not None or n_b is not None:
+                planned["n_b"] = 64 if n_b is None else n_b
+            if takes.k_b is not None or k_b is not None:
+                planned["k_b"] = 16 if k_b is None else k_b
         return SequencePlan(self, method, tuple(sorted(planned.items())),
                             None)
 

@@ -12,8 +12,8 @@ from __future__ import annotations
 
 __all__ = [
     "WARP", "SMEM_PER_BLOCK", "SMEM_STATIC", "REGS_PER_THREAD",
-    "WAVE_M_BLK", "MXU_MAX_W", "BATCHED_M_BLK", "round_up", "clamp_m_blk",
-    "wave_smem_bytes",
+    "WAVE_KB", "WAVE_WARPS", "WAVE_ROWS", "MXU_MAX_W", "BATCHED_M_BLK",
+    "round_up", "wave_smem_bytes",
 ]
 
 WARP = 32
@@ -21,8 +21,13 @@ SMEM_PER_BLOCK = 232_448
 SMEM_STATIC = 48 * 1024
 REGS_PER_THREAD = 255
 
-# rows of A per block of the wavefront kernel: one thread per row
-WAVE_M_BLK = 128
+# the wavefront kernel's block: one group of WAVE_ROWS rows of A, one row
+# a lane, run by WAVE_WARPS warps that each apply one band of WAVE_KB
+# waves, a fixed lag behind the warp before (the constants its source is
+# compiled for, kWarps and kBand)
+WAVE_KB = 16
+WAVE_WARPS = 12
+WAVE_ROWS = 32
 # widest tile factor the accumulated kernel holds: 8 columns per lane
 # (its rows per block and shared-memory slab are constants of the source)
 MXU_MAX_W = 8 * WARP
@@ -41,20 +46,13 @@ def round_up(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
 
 
-def clamp_m_blk(m: int, m_blk: int) -> int:
-    """Clamp a rows-per-block request to the target's warp-padded rows.
+def wave_smem_bytes(warps: int = WAVE_WARPS) -> int:
+    """Dynamic shared memory of one wavefront block of ``warps`` warps.
 
-    A block never spans more warps than the target has rows for, so a
-    small target does not launch idle warps.
+    Each warp's plane values for three chunks of ``min(2 WAVE_KB, 128 //
+    WAVE_KB)`` steps, one ``float4`` a plane, and its ring of 32 columns
+    of ``WAVE_ROWS`` rows that the warp before it (or, for the first
+    warp, memory) hands its columns through.
     """
-    return min(m_blk, round_up(max(1, m), WARP))
-
-
-def wave_smem_bytes(n_b: int, k_b: int, threads: int) -> int:
-    """Dynamic shared memory of one wavefront block.
-
-    The ``(k_b + n_b)``-row column window of every thread, laid out
-    ``[row][thread]``, plus one tile's c/s/g values.
-    """
-    return ((k_b + n_b) * threads + 3 * n_b * k_b) * _F32
-
+    chunk = min(2 * WAVE_KB, 128 // WAVE_KB)
+    return warps * (3 * WAVE_KB * chunk * 4 + 32 * WAVE_ROWS) * _F32

@@ -11,8 +11,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.limits import (SMEM_PER_BLOCK, WAVE_M_BLK,
-                                        clamp_m_blk, wave_smem_bytes)
+from repro_torch.kernels.limits import WAVE_KB
 
 from .ref import rotseq_wave_ref
 
@@ -26,56 +25,62 @@ _I = ctypes.c_int
 
 def _lib():
     fn = _build.load().rotseq_wave_f32
-    fn.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+    fn.argtypes = [_P] * 5 + [_I] * 3 + [_P]
     fn.restype = _I
     return fn
 
 
-def rotseq_wave(ATfresh, Ct, St, Gt, init):
-    """Apply one band of ``k_b`` waves to the packed operand.
+def rotseq_wave(AT, Cw, Sw, Gw, *, k_b: int = WAVE_KB, n_b=None):
+    """Apply all waves of the panels to the packed operand.
 
     Args:
-      ATfresh: ``(T * n_b, m)`` fresh column stream, packed layout
-        (``ATfresh[i] = A[:, i + 1]``, zero-padded).
-      Ct, St, Gt: ``(T, n_b, k_b)`` sheared rotation tiles.
-      init: ``(k_b, m)`` initial carry (``[0...0, A[:, 0]]``).
+      AT: ``(n, m)`` packed target (``AT[i] = A[:, i]``).
+      Cw, Sw, Gw: ``(K, n - 1)`` wave-major panels of cosines, sines and
+        per-entry signs (``Cw[p, j] = C[j, p]``).
+      k_b: waves a band.  The kernel is compiled for ``WAVE_KB`` only.
+      n_b: tile width of the plain version (the CPU path; its result does
+        not depend on it).  The kernel streams whole rows and has no
+        tiles, so on a CUDA tensor it must be ``None``.
 
-    On the card one thread carries one row of ``A``; a block has
-    ``WAVE_M_BLK`` threads, fewer when ``A`` has fewer rows.
+    On the card one launch applies every band: a block is a group of 32
+    rows of ``A`` whose bands run on several warps at once, each a fixed
+    lag behind the one before (``csrc/rotseq_wave.cu``).
 
-    Returns ``(T * n_b, m)`` with ``O[i] = A_final[:, i - (k_b - 1)]``.
+    Returns ``(n, m)``: the packed result, ``A_final`` transposed.
     """
     global LAUNCHES
-    dev = ATfresh.device
+    dev = AT.device
     if dev.type == "cpu":
-        return rotseq_wave_ref(ATfresh, Ct, St, Gt, init)
+        return rotseq_wave_ref(AT, Cw, Sw, Gw, k_b=k_b, n_b=n_b)
     if dev.type != "cuda":
         raise ValueError(f"rotseq_wave runs on cuda or cpu, not {dev}")
-    T, n_b, k_b = Ct.shape
-    U, M = ATfresh.shape
-    for name, x, shape in (("Ct", Ct, (T, n_b, k_b)),
-                           ("St", St, (T, n_b, k_b)),
-                           ("Gt", Gt, (T, n_b, k_b)),
-                           ("init", init, (k_b, M)),
-                           ("ATfresh", ATfresh, (T * n_b, M))):
+    if k_b != WAVE_KB:
+        raise ValueError(f"the wavefront kernel is compiled for k_b = "
+                         f"{WAVE_KB}, not {k_b}")
+    if n_b is not None:
+        raise ValueError("the wavefront kernel has no column tiles: n_b "
+                         "is for its plain version only")
+    n, M = AT.shape
+    K = Cw.shape[0]
+    for name, x, shape in (("AT", AT, (n, M)), ("Cw", Cw, (K, n - 1)),
+                           ("Sw", Sw, (K, n - 1)), ("Gw", Gw, (K, n - 1))):
         if x.device != dev or x.dtype != torch.float32:
             raise TypeError(f"{name}: the kernel takes float32 on {dev}, got "
                             f"{x.dtype} on {x.device}")
         if tuple(x.shape) != shape or not x.is_contiguous():
             raise ValueError(f"{name}: expected contiguous {shape}, got "
                              f"{tuple(x.shape)}")
-    threads = clamp_m_blk(M, WAVE_M_BLK)
-    smem = wave_smem_bytes(n_b, k_b, threads)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"n_b={n_b}, k_b={k_b} need {smem} B of shared "
-                         f"memory a block; a block has {SMEM_PER_BLOCK}")
+    if K * max(n - 1, 0) >= 2 ** 31:
+        raise ValueError(f"panels of {K} x {n - 1} exceed the kernel's "
+                         f"32-bit offsets")
+    out = torch.empty_like(AT)
+    if K == 0 or n < 2:                 # no planes: nothing to launch
+        return out.copy_(AT)
     fn = _lib()
-    out = torch.empty_like(ATfresh)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ATfresh.data_ptr(), Ct.data_ptr(), St.data_ptr(),
-                Gt.data_ptr(), init.data_ptr(), out.data_ptr(), T, n_b, k_b,
-                M, threads, stream)
+        rc = fn(AT.data_ptr(), Cw.data_ptr(), Sw.data_ptr(), Gw.data_ptr(),
+                out.data_ptr(), n, M, K, stream)
     if rc != 0:
         raise RuntimeError(f"rotseq_wave launch failed: CUDA error {rc}")
     LAUNCHES += 1

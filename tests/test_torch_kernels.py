@@ -24,6 +24,7 @@ from repro_torch.core.accumulate import (accumulate_tile_factors,
                                          rot_sequence_accumulated)
 from repro_torch.core.blocked import (band_inputs, num_tiles, pack_sheared,
                                       rot_sequence_blocked)
+from repro_torch.kernels import limits
 from repro_torch.kernels.rotseq import kernel as wave_k
 from repro_torch.kernels.rotseq.ops import rot_sequence_wave
 from repro_torch.kernels.rotseq.ref import rotseq_wave_ref
@@ -122,16 +123,16 @@ def test_wrappers_take_plain_version_only_on_cpu():
     T = num_tiles(20, n_b, k_b)
     tiles = pack_sheared(_t(C), _t(S), 0, k_b, n_b, T, G=_t(G))
     init, fresh = band_inputs(_t(A).t().contiguous(), k_b, n_b, T)
-    assert torch.equal(wave_k.rotseq_wave(fresh, *tiles, init),
-                       rotseq_wave_ref(fresh, *tiles, init))
+    packed = [_t(x).t().contiguous() for x in (A, C, S, G)]
+    assert torch.equal(wave_k.rotseq_wave(*packed, k_b=k_b),
+                       rotseq_wave_ref(*packed, k_b=k_b))
     Q = accumulate_tile_factors(*tiles)
     init_n, fresh_n = init.t().contiguous(), fresh.t().contiguous()
     assert torch.equal(mxu_k.rotseq_mxu(fresh_n, Q, init_n),
                        rotseq_mxu_ref(fresh_n, Q, init_n))
     # any other device is refused, never run through the plain version
-    meta = [x.to("meta") for x in (fresh, *tiles, init)]
     with pytest.raises(ValueError, match="cuda or cpu"):
-        wave_k.rotseq_wave(*meta)
+        wave_k.rotseq_wave(*(x.to("meta") for x in packed))
     with pytest.raises(ValueError, match="cuda or cpu"):
         mxu_k.rotseq_mxu(fresh_n.to("meta"), Q.to("meta"),
                          init_n.to("meta"))
@@ -139,18 +140,19 @@ def test_wrappers_take_plain_version_only_on_cpu():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("signs", [False, True])
-@pytest.mark.parametrize("m,n,k,n_b,k_b", [(300, 257, 37, 64, 16),
-                                           (129, 40, 5, 8, 4)])
-def test_wave_kernel_equals_plain_on_card(m, n, k, n_b, k_b, signs):
+@pytest.mark.parametrize("m,n,k", [(300, 257, 37), (129, 40, 5)])
+def test_wave_kernel_equals_plain_on_card(m, n, k, signs):
+    """One launch applies every band, at the band the kernel is built
+    for, bit for bit with the blocked plain version."""
     dev = _cuda()
     A, C, S, G = _inputs(m, n, k, m + k, signs)
     before = wave_k.LAUNCHES
-    out = rot_sequence_wave(_t(A, dev), _t(C, dev), _t(S, dev), n_b=n_b,
-                            k_b=k_b, G=_t(G, dev))
+    out = rot_sequence_wave(_t(A, dev), _t(C, dev), _t(S, dev),
+                            G=_t(G, dev))
     torch.cuda.synchronize()
-    assert wave_k.LAUNCHES - before == -(-k // k_b)
+    assert wave_k.LAUNCHES - before == 1
     plain = rot_sequence_blocked(_t(A, dev), _t(C, dev), _t(S, dev),
-                                 n_b=n_b, k_b=k_b, G=_t(G, dev))
+                                 k_b=limits.WAVE_KB, G=_t(G, dev))
     assert torch.equal(out, plain)
 
 
@@ -182,6 +184,11 @@ def test_kernels_refuse_what_they_cannot_run():
     with pytest.raises(TypeError, match="float32"):
         rot_sequence_mxu(_t(A, dev).double(), _t(C, dev).double(),
                          _t(S, dev).double())
+    # the wavefront kernel takes the band it is built for and no tiles
+    with pytest.raises(ValueError, match="compiled for"):
+        rot_sequence_wave(_t(A, dev), _t(C, dev), _t(S, dev), k_b=4)
+    with pytest.raises(ValueError, match="no column tiles"):
+        rot_sequence_wave(_t(A, dev), _t(C, dev), _t(S, dev), n_b=64)
     A, C, S, _ = _inputs(16, 300, 4, 3)
     with pytest.raises(ValueError, match="width"):
         rot_sequence_mxu(_t(A, dev), _t(C, dev), _t(S, dev), n_b=200,

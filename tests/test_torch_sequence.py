@@ -227,3 +227,42 @@ def test_apply_rotation_sequence_matches_oracle(m=7, n=12, k=4):
                                       method=method)
         np.testing.assert_allclose(out.double().numpy(), ref,
                                    atol=5e-5 * k, rtol=5e-5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_auto_plans_half_precision_on_cpu(dtype, m=5, n=9, k=4):
+    """``seq.plan(like=A).apply(A)`` plans a plain backend for bfloat16
+    and float16 targets, as the reference does, and returns the target's
+    dtype within the reference's half-precision tolerance of its result
+    (``tests/test_kernels.py``: 5e-2, times ``k`` absolute)."""
+    C, S, _ = _waves(n, k, 12)
+    A = np.random.default_rng(13).standard_normal((m, n)).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    t = RotationSequence(_t(C).to(tdt), _t(S).to(tdt))
+    j = JSeq(jnp.asarray(C, jdt), jnp.asarray(S, jdt))
+    plan = t.plan(like=_t(A).to(tdt))
+    out = plan.apply(_t(A).to(tdt))
+    jplan = j.plan(like=jnp.asarray(A, jdt))
+    ref = jplan.apply(jnp.asarray(A, jdt))
+    assert out.dtype == tdt and plan.method == jplan.method == "blocked"
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               atol=5e-2 * k, rtol=5e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_reflector_sign_grid_bit_parity(dtype, m=9, n=17, k=5):
+    """The port's ``blocked`` gives a scalar-reflector sequence and its
+    ``+1`` sign grid the same bits, in each dtype the reference checks
+    (``tests/test_rotseq_core.py``)."""
+    C, S, _ = _waves(n, k, 3)
+    A = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (m, n))).to(dtype)
+    refl = RotationSequence(_t(C).to(dtype), _t(S).to(dtype), None, True)
+    grid = refl.with_signs()
+    assert grid.sign is not None
+    out_scalar = refl.plan(like=A, method="blocked", n_b=8, k_b=4).apply(A)
+    out_grid = grid.plan(like=A, method="blocked", n_b=8, k_b=4).apply(A)
+    assert out_scalar.dtype == dtype
+    assert torch.equal(out_scalar, out_grid)
