@@ -7,12 +7,17 @@ At the paper's own workload (``m = n = 3840``, ``k = 180`` waves,
 float32) it builds the CUDA kernels from ``src/repro_torch/csrc`` and
 holds the wavefront and accumulated kernels against their plain PyTorch
 versions on the card (the wavefront kernel bit for bit, also on the
-ragged and small problems below, one launch an application, no ptxas
-spill); it then runs the main path ``seq.plan(like=A).apply(A)`` with
-``method="auto"`` (a pick other than ``cuda_wave`` is held to it, bit for
-bit for ``cuda_batched``; ``cuda_wave`` is held bit for bit to the
-blocked plain version), a ragged signed problem through both tiled
-kernels and a gradient, counting the kernel launches of that run.  Then the serving
+ragged and small problems below, one launch an application; the
+accumulated kernel at 128/128 and 64/64 tiles, its tile factors built by
+one fused batched launch a band and held to the eager ones under ``==``;
+no ptxas spill); it then runs the main path ``seq.plan(like=A).apply(A)``
+with ``method="auto"`` (a pick other than ``cuda_wave`` is held to it,
+bit for bit for ``cuda_batched``; ``cuda_wave`` is held bit for bit to
+the blocked plain version), a ragged signed problem through both tiled
+kernels and a gradient, counting the kernel launches of that run, and
+times ``auto``'s pick against every rotation kernel at the paper shape,
+one ``1024 x 1024`` target and a shared-sequence batch of 8 paper-shape
+targets.  Then the serving
 path at a realistic bucket: 16 requests of ``m = n = 1024`` float32
 targets, each with its own sequence of 33-64 waves padded to 64.  The
 fused batched kernel is held against its plain version, on the
@@ -57,13 +62,17 @@ K = 180
 # the wavefront kernel takes its compiled band and no column tiles
 WAVE_TILES = dict(k_b=16)
 MXU_TILES = dict(n_b=128, k_b=128)
-# each kernel's fastest measured application at this shape (PERF.md)
-BEST_TILES = {"cuda_wave": WAVE_TILES, "cuda_mxu": dict(n_b=64, k_b=64),
-              "cuda_batched": {}}
+# the accumulated kernel's tiles timed at this shape; the main path's
+# cuda_mxu plan takes the one whose application was fastest in this run
+MXU_SWEEP = [MXU_TILES, dict(n_b=64, k_b=64)]
+# each kernel's tiles at this shape (cuda_mxu's set by the rotseq_mxu
+# phase)
+BEST_TILES = {"cuda_wave": WAVE_TILES, "cuda_mxu": None, "cuda_batched": {}}
 # the kernel each rotation backend launches
 KERNEL_OF = {"cuda_wave": "rotseq_wave", "cuda_mxu": "rotseq_mxu",
              "cuda_batched": "rotseq_batched"}
 MXU_TOL = 1e-5     # relative Frobenius error, kernel vs plain version
+PLANNER_BATCH = 8  # shared-sequence batch of paper-shape targets
 GRAD_TOL = 1e-4    # relative Frobenius error of plan.apply(grad) vs W
 
 # the serving bucket: B requests of (MB, NB) targets, KMIN..KMAX waves
@@ -229,60 +238,147 @@ def wave_phase(ctx, ptxas: dict) -> dict:
         bound_by=b_by, library_ms=ctx["lib_ms"], tiles=WAVE_TILES)
 
 
-def mxu_phase(ctx, tiles: dict, label: str) -> dict:
-    """Hold ``rotseq_mxu`` against its plain version at ``tiles``, time it."""
+def mxu_instances(ptxas: dict) -> dict:
+    """``{"wp256": report}``: the accumulated kernel's instantiations in
+    the ptxas report, by padded width."""
+    found = {}
+    for name, rep in ptxas.items():
+        m = re.search(r"rotseq_mxu_kernelILi(\d+)E", name)
+        if m:
+            found[f"wp{m.group(1)}"] = rep
+    return found
+
+
+def mxu_tiles(ctx, tiles: dict) -> dict:
+    """``rotseq_mxu`` at ``tiles``: one application through the route
+    (factors by one ``rotseq_batched`` launch a band, one accumulated
+    launch a band) held to the eager plain path and the wavefront; the
+    route's factors held to the eager ones under ``==``; the kernel held
+    to its plain version on one band; times."""
     import torch
     from repro_torch.core.accumulate import (accumulate_tile_factors,
                                              rot_sequence_accumulated)
-    from repro_torch.core.blocked import band_inputs, num_tiles, pack_sheared
+    from repro_torch.core.blocked import num_tiles, pack_sheared
+    from repro_torch.kernels.rotseq_batched import kernel as batched_k
     from repro_torch.kernels.rotseq_mxu import kernel as mxu_k
-    from repro_torch.kernels.rotseq_mxu.ops import rot_sequence_mxu
+    from repro_torch.kernels.rotseq_mxu.ops import (band_factors,
+                                                    band_inputs_natural,
+                                                    rot_sequence_mxu)
     from repro_torch.kernels.rotseq_mxu.ref import rotseq_mxu_ref
     A, C, S = ctx["A"], ctx["C"], ctx["S"]
     n_b, k_b = tiles["n_b"], tiles["k_b"]
     T = num_tiles(N, n_b, k_b)
     bands = -(-K // k_b)
-    before = mxu_k.LAUNCHES
+    before = (mxu_k.LAUNCHES, batched_k.LAUNCHES)
     out_m = rot_sequence_mxu(A, C, S, **tiles)
     torch.cuda.synchronize()
-    launches = mxu_k.LAUNCHES - before
-    check(launches == bands, f"rotseq_mxu launches {launches}")
+    launches = mxu_k.LAUNCHES - before[0]
+    factor_launches = batched_k.LAUNCHES - before[1]
+    check(launches == bands and factor_launches == bands,
+          f"rotseq_mxu at {tiles}: {launches} accumulated and "
+          f"{factor_launches} factor launches for {bands} bands")
     plain_m = rot_sequence_accumulated(A, C, S, **tiles)
     check(bool(torch.isfinite(out_m).all()), "rotseq_mxu: non-finite")
     err_m = rel_err(out_m, plain_m)
     err_m_ref = rel_err(out_m, ctx["ref"])
     check(err_m <= MXU_TOL, f"rotseq_mxu rel err {err_m} > {MXU_TOL}")
     check(err_m_ref <= MXU_TOL, f"rotseq_mxu vs wavefront {err_m_ref}")
+    # every band's factors through the route equal the eager ones
+    for p0 in range(0, K, k_b):
+        Q = band_factors(C, S, p0, k_b, n_b, T)
+        check(torch.equal(Q, accumulate_tile_factors(
+            *pack_sheared(C, S, p0, k_b, n_b, T))),
+              f"route factors != eager factors at band {p0 // k_b}")
     band = pack_sheared(C, S, 0, k_b, n_b, T)
-    Q0 = accumulate_tile_factors(*band)
-    init, fresh = band_inputs(A.t(), k_b, n_b, T)
-    init, fresh = init.t().contiguous(), fresh.t().contiguous()
-    check(rel_err(mxu_k.rotseq_mxu(fresh, Q0, init),
-                  rotseq_mxu_ref(fresh, Q0, init)) <= MXU_TOL,
-          "rotseq_mxu band vs plain version")
+    Q0 = band_factors(C, S, 0, k_b, n_b, T)
+    fresh, init = band_inputs_natural(A, k_b, n_b, T)
+    o_k = mxu_k.rotseq_mxu(fresh, Q0, init)
+    o_p = rotseq_mxu_ref(fresh, Q0, init)
+    check(rel_err(o_k, o_p) <= MXU_TOL, "rotseq_mxu band vs plain version")
     ms = time_ms(lambda: [mxu_k.rotseq_mxu(fresh, Q0, init)
-                          for _ in range(bands)], 5)
+                          for _ in range(bands)], 10)
     plain_ms = bands * time_ms(lambda: rotseq_mxu_ref(fresh, Q0, init), 3)
-    factors_ms = bands * time_ms(lambda: accumulate_tile_factors(*band), 3)
+    factors_ms = bands * time_ms(lambda: band_factors(C, S, 0, k_b, n_b,
+                                                      T), 5)
+    factors_eager_ms = bands * time_ms(
+        lambda: accumulate_tile_factors(*band), 2)
     apply_ms = time_ms(lambda: rot_sequence_mxu(A, C, S, **tiles), 5)
     apply_plain_ms = time_ms(
         lambda: rot_sequence_accumulated(A, C, S, **tiles), 2)
     w = n_b + k_b
     b_ms, b_by = bound(2.0 * M * w * w * T * bands, ctx["io_bytes"])
-    err_abs = max_abs(out_m, plain_m)
-    emit(phase="rotseq_mxu", tiles_of=label, m=M, n=N, k=K, **tiles,
-         launches=launches, rel_err_vs_plain=err_m,
-         rel_err_vs_wavefront=err_m_ref, tol=MXU_TOL,
-         max_abs_err_vs_plain=err_abs, ms=ms, plain_ms=plain_ms,
-         factors_ms=factors_ms, apply_ms=apply_ms,
-         apply_plain_ms=apply_plain_ms, matmul_ms=ctx["lib_ms"],
-         bound_ms=b_ms, bound_by=b_by)
+    return dict(launches=launches, factor_launches=factor_launches,
+                rel_err_vs_plain=err_m, rel_err_vs_wavefront=err_m_ref,
+                max_abs_err_vs_plain=max_abs(out_m, plain_m),
+                factors_equal_eager=True, ms=ms, plain_ms=plain_ms,
+                factors_ms=factors_ms, factors_eager_ms=factors_eager_ms,
+                apply_ms=apply_ms, apply_plain_ms=apply_plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def mxu_phase(ctx, ptxas: dict) -> dict:
+    """Hold ``rotseq_mxu`` and its factor route at the paper's tiles
+    (128/128) and at 64/64; fail on a ptxas spill.  Returns the kernels
+    line's entry (at 128/128) and the tiles whose application was
+    fastest (the main path's ``cuda_mxu`` plan)."""
+    rows = {f"{t['n_b']}/{t['k_b']}": mxu_tiles(ctx, t) for t in MXU_SWEEP}
+    regs = mxu_instances(ptxas)
+    no_spills(regs, "rotseq_mxu")
+    best = min(MXU_SWEEP, key=lambda t: rows[f"{t['n_b']}/{t['k_b']}"][
+        "apply_ms"])
+    emit(phase="rotseq_mxu", m=M, n=N, k=K, tol=MXU_TOL, tiles=rows,
+         best_tiles=best, matmul_ms=ctx["lib_ms"], ptxas=regs)
+    paper = rows[f"{MXU_TILES['n_b']}/{MXU_TILES['k_b']}"]
     return dict(
         name="rotseq_mxu", route="cuda",
         source="src/repro_torch/csrc/rotseq_mxu.cu",
         replaces="src/repro/kernels/rotseq_mxu/kernel.py:52",
-        max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=ctx["lib_ms"], tiles=tiles)
+        max_abs_err=paper["max_abs_err_vs_plain"], ms=paper["ms"],
+        plain_ms=paper["plain_ms"], bound_ms=paper["bound_ms"],
+        bound_by=paper["bound_by"], library_ms=ctx["lib_ms"],
+        tiles=MXU_TILES, best=best)
+
+
+def planner_phase(ctx, seq) -> None:
+    """``auto``'s pick at the paper shape, one ``1024 x 1024`` target and
+    a shared-sequence batch of ``PLANNER_BATCH`` paper-shape targets (the
+    tile factors paid once), each against every rotation kernel's
+    application on the same inputs; a pick's result is held to
+    ``cuda_wave``'s (bit for bit, or within ``MXU_TOL`` for
+    ``cuda_mxu``)."""
+    import torch
+    from repro_torch import random_sequence
+    dev = ctx["A"].device
+    gen = torch.Generator().manual_seed(SEED + 8)
+    one = torch.randn((1024, 1024), generator=gen).to(dev)
+    seq_one = random_sequence(1024, 41, generator=gen, device=dev)
+    batch = torch.randn((PLANNER_BATCH, M, N), generator=gen).to(dev)
+    points = {"paper": (seq, ctx["A"], False),
+              "1024^2 k41": (seq_one, one, False),
+              f"{PLANNER_BATCH}x{M}^2 shared": (seq, batch, True)}
+    rows = {}
+    for label, (sq, X, batched) in points.items():
+        auto = sq.plan(like=X)
+        runs = {"auto": auto}
+        for meth in KERNEL_OF:
+            runs[meth] = sq.plan(like=X, method=meth, **BEST_TILES[meth])
+        call = {name: (lambda pl=pl: pl.apply_batched(X) if batched
+                       else pl.apply(X)) for name, pl in runs.items()}
+        got, wave = call["auto"](), call["cuda_wave"]()
+        if auto.method == "cuda_mxu":
+            err = rel_err(got, wave)
+            check(err <= MXU_TOL, f"{label}: auto cuda_mxu rel err {err}")
+        else:
+            err = max_abs(got, wave)
+            check(err == 0.0, f"{label}: auto {auto.method} max|d| {err}")
+        del got, wave
+        ms = {name: time_ms(fn, 3) for name, fn in call.items()}
+        best = min((m_ for m_ in ms if m_ != "auto"), key=ms.get)
+        rows[label] = dict(auto=auto.method, auto_kwargs=dict(auto.kwargs),
+                           err_vs_cuda_wave=err, apply_ms=ms, fastest=best,
+                           auto_vs_fastest=ms["auto"] / ms[best])
+    del batch
+    emit(phase="planner", points=rows)
 
 
 def pack_batched(A, sequences):
@@ -790,7 +886,8 @@ def main() -> int:
 
     # -- the two tiled kernels at the paper's configuration ---------------
     entries = {"rotseq_wave": wave_phase(ctx, ptxas),
-               "rotseq_mxu": mxu_phase(ctx, MXU_TILES, "paper")}
+               "rotseq_mxu": mxu_phase(ctx, ptxas)}
+    BEST_TILES["cuda_mxu"] = entries["rotseq_mxu"]["best"]
 
     # -- main path: plan(like=A).apply(A), auto and both kernels ----------
     wave_k.LAUNCHES = 0
@@ -872,12 +969,10 @@ def main() -> int:
          ragged_mxu_rel_err=rag_m, small_vs_numpy_oracle=small_err,
          launches=counts, seconds=main_s)
 
-    # -- the planned kernel again at the tiles the main path ran ---------
+    planner_phase(ctx, seq)
+
     # (the fused kernel has no tiles; its kernels-line numbers are the
     # serving bucket's, its launch at this shape is in the main_path line)
-    name = KERNEL_OF[plan.method]
-    if name == "rotseq_mxu" and entries[name]["tiles"] != kw:
-        entries[name] = mxu_phase(ctx, kw, "auto plan")
     for name in ("rotseq_wave", "rotseq_mxu"):
         entries[name]["launches"] = counts[name]
 
@@ -913,8 +1008,7 @@ def main() -> int:
     entries["rope"]["launches"] = lm["counts"]["rope"]
     lm_parity_phase(dev)
 
-    # the planned kernel's numbers are taken at the auto plan's tiles, the
-    # other kernel's at the paper configuration's
+    # the two tiled kernels' numbers are taken at the paper configuration
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]

@@ -14,9 +14,9 @@ reference's Pallas kernels: their plain versions stay eligible on the
 CPU with a large penalty, so ``auto`` picks them only on the card.  The
 mirror image holds on the card: the plain PyTorch backends are eager
 step loops there, priced with the same penalty, so ``auto`` plans them
-on ``"cuda"`` only where no kernel is eligible (float64).  The eager
-tile-factor setup of ``cuda_mxu`` is priced by its measured step count,
-not at the card's peak rates.
+on ``"cuda"`` only where no kernel is eligible (float64).  The tile
+factors of ``cuda_mxu`` are one ``cuda_batched`` launch a band, priced
+at that kernel's measured plane rate.
 
 ``cuda_batched`` (one fused launch per serving bucket) is priced by the
 reference's formula for ``rotseq_batched``, with flops on the *live*
@@ -48,7 +48,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.hw import PLATFORMS, RESIDENT_ROWS, Hardware
-from repro_torch.kernels.limits import WAVE_KB, WAVE_WARPS
+from repro_torch.kernels.limits import (MXU_ROWS, MXU_SLAB, WAVE_KB,
+                                        WAVE_WARPS, mxu_width)
 
 __all__ = [
     "Hardware", "PLATFORMS", "Problem", "Plan", "Capability", "BackendSpec",
@@ -69,12 +70,22 @@ __all__ = [
 # step loops of small launches.
 _OFF_DEVICE_PENALTY = 1e3
 
-# One vectorised step of the eager tile-factor accumulation on the card
-# (core/accumulate.py, a handful of small launches over all tiles of a
-# band; n_b + k_b - 1 steps a band): measured by chip_smoke.py on an
-# NVIDIA H100 80GB HBM3 at 700 W as 36.11 ms for the 3 x 127 steps of
-# m = n = 3840, k = 180 at n_b = k_b = 64.
-_FACTOR_STEP_SECONDS = 36.11e-3 / (3 * 127)
+# One slab of the accumulated kernel on the card (csrc/rotseq_mxu.cu): a
+# block of MXU_ROWS rows walks bands x tiles x slabs of MXU_SLAB rows of
+# Q_t at a padded width WP (limits.mxu_width).  At m = n = 3840, k = 180
+# its launches took 1.016 ms at n_b = k_b = 128 (WP = 256, 2 * 31 * 8
+# slabs a block) and 1.049 ms at 64/64 (WP = 128, 3 * 61 * 4 slabs),
+# 120 blocks on 132 SMs (chip_smoke.py's rotseq_mxu line, NVIDIA H100
+# 80GB HBM3, 700 W): a slab takes a + b * WP seconds, fitted at those two.
+_MXU_SLAB_SECONDS = (0.817e-6, 4.81e-9)
+_SMS = 132
+# Host time of one band of cuda_mxu's application (kernels/rotseq_mxu/
+# ops.py: the factor panels, windows and identity target, the padded
+# copy, two launches; some twenty PyTorch calls): the first band's is
+# exposed before the card starts, and past the card's own work the host
+# sets the pace.  In chip_smoke.py's rotseq_mxu line a band's factors
+# took 0.29-0.37 ms (factors_ms, paced by the host; same card).
+_MXU_BAND_HOST_SECONDS = 0.35e-3
 
 # Time of one plane of one row through each row-parallel kernel's
 # application on the card.  cuda_batched: plan.apply at m = n = 3840,
@@ -410,26 +421,47 @@ def cost_cuda_wave(p: Problem, plan: Plan) -> float:
     return max(secs, p.sequences * _LATENCY_FLOOR)
 
 
+def _mxu_sweep_seconds(p: Problem, n_b: int, k_b: int) -> float:
+    """The accumulated kernel's launches on the card: every block walks
+    its bands' slabs at the measured slab time of its padded width, and
+    blocks past one a streaming multiprocessor queue."""
+    bands, tiles, w = _tile_grid(p, n_b, k_b)
+    a, b = _MXU_SLAB_SECONDS
+    slabs = bands * tiles * math.ceil(w / MXU_SLAB)
+    rows = p.m if p.sequences > 1 else p.m_total
+    blocks = math.ceil(rows / MXU_ROWS)
+    return (p.sequences * slabs * (a + b * mxu_width(w))
+            * max(1.0, blocks / _SMS))
+
+
 def cost_cuda_mxu(p: Problem, plan: Plan) -> float:
     """Accumulated kernel: accumulated-path traffic at fused constants.
 
-    On the card the tile factors are built eagerly (not in a kernel), so
-    their setup is priced by its vectorised steps at the measured
-    :data:`_FACTOR_STEP_SECONDS`, once per sequence, on top of the
-    kernel's GEMM sweep; off the card the reference's formula holds.
+    On the card the GEMM sweep is priced by the kernel's measured slab
+    time (:data:`_MXU_SLAB_SECONDS`), plus the padded copy of the target
+    that feeds each band.  Each band's tile factors are one
+    ``cuda_batched`` launch over ``T`` identity targets of ``w`` rows
+    with ``n_b * k_b`` live planes each, at that kernel's measured plane
+    rate, plus the packing traffic; they are paid once per sequence.
+    The host's calls for each band (:data:`_MXU_BAND_HOST_SECONDS`) set
+    the pace where the card's work is shorter.  Off the card the
+    reference's formula holds.
     """
     if p.platform != "cuda":
         return max(0.7 * _accumulated_seconds(p, plan) * _OFF_DEVICE_PENALTY,
                    p.sequences * _LATENCY_FLOOR)
     hw = p.hardware
-    c = _components_accumulated(p, plan)
-    sweep = 0.7 * _roofline_seconds(
-        c["stream_flops"] / hw.mxu_flops,
-        (c["setup_bytes"] + c["stream_bytes"]) / hw.hbm_bw)
     n_b, k_b = plan.n_b or 128, plan.k_b or 128
-    steps = _bands(p.k, k_b) * (n_b + k_b - 1)
-    return max(sweep + p.sequences * steps * _FACTOR_STEP_SECONDS,
-               p.sequences * _LATENCY_FLOOR)
+    c = _components_accumulated(p, plan)
+    bands, tiles, w = _tile_grid(p, n_b, k_b)
+    sweep = (_mxu_sweep_seconds(p, n_b, k_b)
+             + c["stream_bytes"] / hw.hbm_bw)
+    factors = (bands * _row_chain_seconds(n_b * k_b, tiles * w,
+                                          _BATCHED_PLANE_SECONDS)
+               + c["setup_bytes"] / p.sequences / hw.hbm_bw)
+    device = sweep + p.sequences * factors + _MXU_BAND_HOST_SECONDS
+    host = p.sequences * bands * _MXU_BAND_HOST_SECONDS
+    return max(device, host, p.sequences * _LATENCY_FLOOR)
 
 
 def _components_cuda_batched(p: Problem, plan: Plan) -> Dict[str, float]:

@@ -52,6 +52,32 @@ PLAN_DICT_FORMAT = 1
 _NP_DTYPES = {"float32": np.float32, "float64": np.float64}
 
 
+def _hypot(x, y):
+    """``hypot(x, y)`` as ``jnp.hypot`` computes it, bit for bit in float32.
+
+    ``jnp.hypot`` takes ``max * sqrt(1 + (min / max)^2)``, and XLA on the
+    CPU contracts ``1 + r^2`` into one fused multiply-add, which
+    ``torch.hypot`` (another algorithm) and the same formula in plain
+    float32 round differently.  Here ``r^2 + 1`` is summed in float64
+    (``r^2`` is exact there) and rounded once to float32, and the square
+    root is taken in float64 and rounded to float32 (correctly rounded,
+    as a float32 root is).  Zeros and infinities follow ``jnp.hypot``.
+    Other dtypes keep ``torch.hypot``.
+    """
+    if x.dtype != torch.float32:
+        return torch.hypot(x, y)
+    ax, ay = x.abs(), y.abs()
+    hi, lo = torch.maximum(ax, ay), torch.minimum(ax, ay)
+    zero = hi == 0
+    r = lo / torch.where(zero, torch.ones_like(hi), hi)
+    r64 = r.double()
+    t = (r64 * r64 + 1.0).float()
+    h = hi * torch.sqrt(t.double()).float()
+    h = torch.where(zero, hi, h)
+    return torch.where(torch.isposinf(ax) | torch.isposinf(ay),
+                       torch.full_like(h, float("inf")), h)
+
+
 def resolve_device(device) -> torch.device:
     """``torch.device(device)``, refusing a CUDA device when there is none."""
     device = torch.device(device)
@@ -163,7 +189,7 @@ class RotationSequence:
             cos = torch.where(drift, torch.where(pos, cos / r, one), cos)
             sin = torch.where(drift, torch.where(pos, sin / r, 0 * one), sin)
         elif normalize:
-            r = torch.hypot(cos, sin)
+            r = _hypot(cos, sin)
             safe = r > 0
             rs = torch.where(safe, r, one)
             cos = torch.where(safe, cos / rs, one)

@@ -12,8 +12,8 @@ from __future__ import annotations
 
 __all__ = [
     "WARP", "SMEM_PER_BLOCK", "SMEM_STATIC", "REGS_PER_THREAD",
-    "WAVE_KB", "WAVE_WARPS", "WAVE_ROWS", "MXU_MAX_W", "BATCHED_M_BLK",
-    "round_up", "wave_smem_bytes",
+    "WAVE_KB", "WAVE_WARPS", "WAVE_ROWS", "MXU_ROWS", "MXU_SLAB",
+    "MXU_MAX_W", "BATCHED_M_BLK", "round_up", "wave_smem_bytes", "mxu_width",
 ]
 
 WARP = 32
@@ -28,9 +28,13 @@ REGS_PER_THREAD = 255
 WAVE_KB = 16
 WAVE_WARPS = 12
 WAVE_ROWS = 32
-# widest tile factor the accumulated kernel holds: 8 columns per lane
-# (its rows per block and shared-memory slab are constants of the source)
-MXU_MAX_W = 8 * WARP
+# the accumulated kernel's block: MXU_ROWS rows of A, Q_t streamed in
+# slabs of MXU_SLAB rows, at a padded width of 64, 128 or MXU_MAX_W
+# columns (the constants its source is compiled for, kRows and kSlab; its
+# ring and cluster are the source's alone)
+MXU_ROWS = 32
+MXU_SLAB = 32
+MXU_MAX_W = 256
 # rows of A per block of the fused batched kernel, one thread a row (the
 # block size its source is compiled for, kThreads): small blocks spread
 # one request over many SMs (a 1024-row request over 16).  The row's
@@ -56,3 +60,10 @@ def wave_smem_bytes(warps: int = WAVE_WARPS) -> int:
     """
     chunk = min(2 * WAVE_KB, 128 // WAVE_KB)
     return warps * (3 * WAVE_KB * chunk * 4 + 32 * WAVE_ROWS) * _F32
+
+
+def mxu_width(w: int) -> int:
+    """The accumulated kernel's padded width for tiles of width ``w``: the
+    narrowest of its register micro-tiles (64, 128, 256 columns) that
+    holds them."""
+    return next(wp for wp in (64, 128, MXU_MAX_W) if w <= wp)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.limits import MXU_MAX_W
@@ -26,7 +27,7 @@ _I = ctypes.c_int
 
 def _lib():
     fn = _build.load().rotseq_mxu_f32
-    fn.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+    fn.argtypes = [_P] * 4 + [_I] * 5 + [_P]
     fn.restype = _I
     return fn
 
@@ -61,12 +62,17 @@ def rotseq_mxu(fresh, Q, init):
     if n_b < 1 or w > MXU_MAX_W:
         raise ValueError(f"n_b + k_b = {w}: the kernel takes tiles of "
                          f"width at most {MXU_MAX_W}")
+    # the kernel reads Q through a TMA descriptor, whose row stride must
+    # be a multiple of 16 bytes: pad a narrow factor with zeros
+    ldq = -(-w // 4) * 4
+    if ldq != w:
+        Q = F.pad(Q, (0, ldq - w, 0, ldq - w))
     fn = _lib()
     out = torch.empty_like(fresh)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(fresh.data_ptr(), Q.data_ptr(), init.data_ptr(),
-                out.data_ptr(), T, n_b, k_b, M, stream)
+                out.data_ptr(), T, n_b, k_b, M, ldq, stream)
     if rc != 0:
         raise RuntimeError(f"rotseq_mxu launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -4,9 +4,10 @@ On ``"cpu"`` the port's hardware row is the reference's, so the four
 backends both packages share cost exactly the same.  On ``"cuda"`` (an
 H100) ``method="auto"`` must land on a CUDA kernel, never on an eager
 plain backend, and where the kernels' applications were measured on the
-card it must order them as the measurements did: ``cuda_wave`` before
-``cuda_batched`` before ``cuda_mxu`` at the paper's shape, ``cuda_wave``
-for one ``1024 x 1024`` target, ``cuda_batched`` for the serving bucket.
+card it must order them as the measurements did: ``cuda_mxu`` before
+``cuda_wave`` before ``cuda_batched`` at the paper's shape, ``cuda_wave``
+for one ``1024 x 1024`` target, ``cuda_batched`` for the serving bucket,
+``cuda_mxu`` for a shared-sequence batch of 8 paper-shape targets.
 """
 import dataclasses
 import pathlib
@@ -81,11 +82,12 @@ def test_auto_on_the_card_picks_a_kernel_at_paper_shape():
     treg.clear_plan_cache()
     plan = treg.select_plan(3840, 3840, 180, platform="cuda")
     # measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): plan.apply
-    # through cuda_wave 1.95 ms (its rotseq_wave line; 2.08 in the
-    # main_path line of the same run), cuda_batched 7.00 ms, cuda_mxu
-    # 62.04 ms
-    assert plan.method == "cuda_wave"
-    assert plan.kwargs() == {"k_b": limits.WAVE_KB}
+    # through cuda_mxu 1.75 ms at 64/64 and 1.79 at 128/128 (its
+    # rotseq_mxu line), cuda_wave 1.94-1.98 ms, cuda_batched 6.62-6.67 ms
+    # (the main_path and planner lines of the same run)
+    assert plan.method == "cuda_mxu"
+    assert plan.kwargs() in ({"n_b": 64, "k_b": 64},
+                             {"n_b": 128, "k_b": 128})
     plan = treg.select_plan(3000, 1000, 37, platform="cuda", signs=True)
     assert plan.method in ("cuda_wave", "cuda_mxu", "cuda_batched")
     # a bucket of small per-request problems (the reference's demo
@@ -99,14 +101,19 @@ def test_auto_on_the_card_picks_a_kernel_at_paper_shape():
         spec = treg.get_backend(method)
         cand = spec.candidates(prob)[0]
         assert spec.cost(prob, cand) >= 1e3 * 2e-6   # floor, penalised
-    # the accumulated kernel's eager factors: 127 vectorised steps a band
-    # at 64/64, priced at their measured time on the card; the two
-    # row-parallel kernels at their measured plane rates
+    # the accumulated kernel at its measured slab time, its factors one
+    # fused launch a band at that kernel's plane rate, plus the host's
+    # calls of the first band; the two row-parallel kernels at their
+    # measured plane rates
     paper = treg.Problem(m=3840, n=3840, k=180, platform="cuda")
     mxu = treg.cost_cuda_mxu(paper, treg.Plan("cuda_mxu", n_b=64, k_b=64))
+    mxu128 = treg.cost_cuda_mxu(paper,
+                                treg.Plan("cuda_mxu", n_b=128, k_b=128))
     wave = treg.cost_cuda_wave(paper, treg.Plan("cuda_wave", k_b=16))
     fused = treg.cost_cuda_batched(paper, treg.Plan("cuda_batched"))
-    assert mxu > 36e-3 and mxu > fused > wave
+    assert max(mxu, mxu128) < wave < fused
+    assert mxu == pytest.approx(1.75e-3, rel=0.1)
+    assert mxu128 == pytest.approx(1.79e-3, rel=0.1)
     assert wave == pytest.approx(1.95e-3, rel=0.02)
     assert fused == pytest.approx(6.62e-3, rel=0.02)
     # where no kernel is eligible (float64) a plain backend still plans
@@ -116,6 +123,30 @@ def test_auto_on_the_card_picks_a_kernel_at_paper_shape():
     assert cpu.method == jreg.select_plan(3840, 3840, 180,
                                           platform="cpu").method
     assert not cpu.method.startswith("cuda")
+
+
+def test_shared_batch_pays_the_factors_once():
+    """A shared-sequence batch of 8 paper-shape targets: the tile factors
+    are built once for ``8 * 3840`` rows.  On the card (chip_smoke.py's
+    planner line, NVIDIA H100 80GB HBM3, 700 W) ``cuda_mxu`` took 8.52
+    ms at 64/64 and 10.25 at 128/128, ``cuda_batched`` 12.73 and
+    ``cuda_wave`` 15.09: ``auto`` plans ``cuda_mxu``, and prices the
+    other two above it."""
+    treg.clear_plan_cache()
+    plan = treg.select_plan(3840, 3840, 180, platform="cuda", batch=8)
+    assert plan.method == "cuda_mxu"
+    batch = treg.Problem(m=3840, n=3840, k=180, platform="cuda", batch=8)
+    wave = treg.cost_cuda_wave(batch, treg.Plan("cuda_wave", k_b=16))
+    mxu = treg.cost_cuda_mxu(batch, treg.Plan("cuda_mxu", n_b=128,
+                                               k_b=128))
+    fused = treg.cost_cuda_batched(batch, treg.Plan("cuda_batched"))
+    assert min(wave, fused) > mxu
+    assert mxu == pytest.approx(8.52e-3, rel=0.2)
+    # the factors are paid once: 8 targets cost less than 8 single ones
+    one = treg.cost_cuda_mxu(treg.Problem(m=3840, n=3840, k=180,
+                                          platform="cuda"),
+                             treg.Plan("cuda_mxu", n_b=128, k_b=128))
+    assert mxu < 8 * one
 
 
 def test_refit_orders_the_single_request_as_measured():

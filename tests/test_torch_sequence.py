@@ -71,13 +71,8 @@ def test_from_waves_bitwise(normalize, n=13, k=6):
     t = RotationSequence.from_waves(C, S, G, normalize=normalize,
                                     device="cpu")
     j = JSeq.from_waves(C, S, G, normalize=normalize)
-    if normalize is True:
-        # torch.hypot and jnp.hypot are different algorithms: the
-        # divided pairs may differ in the last bit (ROADMAP Queue 3)
-        for a, b in ((t.cos, j.cos), (t.sin, j.sin)):
-            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
-                                       atol=np.finfo(np.float32).eps)
-        j = JSeq(_j(t.cos.numpy()), _j(t.sin.numpy()), j.sign, j.reflect)
+    # normalize=True: the port's float32 hypot is jnp.hypot's algorithm,
+    # with its fused 1 + r^2, so the divided pairs agree bit for bit too
     _same(t, j)
     if normalize != False:  # noqa: E712 (the literal option)
         assert t.cos[0, 0] == 1.0 and t.sin[0, 0] == 0.0
