@@ -29,10 +29,14 @@ staircases, a gradient through ``apply_batched`` and ``StreamEngine``
 run with the launch counts set to 0 just before and read just after.
 Then the LM serving path at the full width of SmolLM-135M (seeded random
 weights, bf16 activations): the fused RoPE kernel is held bit for bit
-against its plain version at the decode, prefill and a ragged shape in
-float32 and bfloat16; ``ServeEngine`` greedy-decodes 8 prompts with the
-RoPE launches counted (one a layer a decode step); and the same float32
-model decodes on the card and on the host, whose tokens must agree.
+against its plain version at every shape of ``ROPE_SHAPES`` in float32
+and bfloat16, each on the path (vector or scalar) it names, and timed on
+the device by CUPTI beside the launch floor and on the host a wrapper
+call; ``ServeEngine`` greedy-decodes 8 prompts with the RoPE launches
+counted (one a layer a decode step) and the ``rope_tables`` calls
+counted (none after the first step), and its decode step is profiled;
+and the same float32 model decodes on the card and on the host, whose
+tokens must agree.
 Every phase prints one JSON line and raises on failure.  The line before
 the last holds the card's name and power limit, the last ``{"ok": true,
 "device": {...}}``.  Exits non-zero, with no result, when there is no
@@ -44,6 +48,7 @@ import copy
 import dataclasses
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -85,13 +90,23 @@ STREAM_REQUESTS = 64
 # prompts, 32 new tokens each; its float32 twin on the card and the host
 LM_ARCH = "smollm-135m"
 LM_BATCH, LM_MAX_LEN, LM_MAX_NEW = 8, 128, 32
+LM_RUNS = 4   # serving runs timed; the first counts the launches
 PROMPT_LEN = (4, 11)
 PARITY_BATCH, PARITY_MAX_NEW = 2, 8
 PARITY_RTOL = 1e-3   # per step: max|card - host| <= PARITY_RTOL * max|host|
-# RoPE at the decode shape of the serving run, a prefill and a ragged one:
-# (B, S, Hq, Hk, D)
+# RoPE at the decode shape of the serving run, a prefill and a ragged
+# one, llama3-405b's heads on one 4096-token sequence, gemma3's head dim,
+# a head dim the vector path cannot take, and the decode shape as a view
+# one element into its buffer: (B, S, Hq, Hk, D)
 ROPE_SHAPES = {"decode": (8, 1, 9, 3, 64), "prefill": (8, 2048, 9, 3, 64),
-               "ragged": (8, 300, 9, 3, 64)}
+               "ragged": (8, 300, 9, 3, 64),
+               "llama_prefill": (1, 4096, 64, 8, 128),
+               "gemma3": (8, 512, 8, 4, 256), "scalar_d10": (2, 16, 4, 2, 10),
+               "misaligned": (8, 1, 9, 3, 64)}
+ROPE_OFFSET = {"misaligned": 1}   # elements q starts into its buffer
+# the path each shape must take on the card, in both dtypes
+ROPE_PATH = {"scalar_d10": "scalar", "misaligned": "scalar"}
+ROPE_HOST_CALLS = 400    # wrapper calls a round timed on the host
 
 
 def emit(**row):
@@ -632,48 +647,161 @@ def serving_phase(bctx, kernels) -> dict:
     return counts
 
 
+def rope_inputs(dev, label: str, dtype, gen):
+    """``(q, k, cos, sin)`` of the ``ROPE_SHAPES`` case ``label`` on
+    ``dev``, q starting ``ROPE_OFFSET[label]`` elements into its buffer."""
+    import torch
+    from repro_torch.kernels.rope.ref import rope_tables
+    b, s, hq, hk, d = ROPE_SHAPES[label]
+    q = torch.randn((b, s, hq, d), generator=gen).to(dev, dtype)
+    k = torch.randn((b, s, hk, d), generator=gen).to(dev, dtype)
+    off = ROPE_OFFSET.get(label, 0)
+    if off:
+        buf = torch.empty(q.numel() + off, device=dev, dtype=dtype)
+        buf[off:].copy_(q.reshape(-1))
+        q = buf[off:].view(q.shape)
+    c, sn = rope_tables(torch.arange(s, device=dev), d, dtype=dtype)
+    return q, k, c, sn
+
+
+def rope_bound(label: str, elt: int):
+    """``(ms, "bytes" or "operations")``: q and k read and written once,
+    the tables read once, 6 flops a pair."""
+    b, s, hq, hk, d = ROPE_SHAPES[label]
+    nbytes = (2.0 * b * s * (hq + hk) * d + 2.0 * s * (d // 2)) * elt
+    return bound(6.0 * b * s * (hq + hk) * (d // 2), nbytes)
+
+
+def rope_reps(label: str) -> int:
+    return 200 if ROPE_SHAPES[label][1] == 1 else 20
+
+
+def device_us(cases, reps_of, floor_reps: int = 200):
+    """Device microseconds a launch from one ``torch.profiler`` (CUPTI)
+    window: each ``(key, fn)`` of ``cases`` (``fn`` launches one kernel
+    whose name holds "rope") runs ``reps_of(key)`` times in turn, then a
+    one-element ``add_`` ``floor_reps`` times, the launch floor.  The
+    RoPE kernels are attributed in launch order.  ``{key: {mean_us,
+    min_us}, "floor": ...}``; ``None`` where the trace does not hold
+    exactly those launches (no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    one = torch.zeros(1, device="cuda")
+    for _, fn in cases:
+        fn()
+    one.add_(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for key, fn in cases:
+            for _ in range(reps_of(key)):
+                fn()
+        for _ in range(floor_reps):
+            one.add_(1)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    hits = [e for e in events if "rope" in e.name]
+    rest = [e for e in events if "rope" not in e.name]
+    plan = [(key, reps_of(key)) for key, _ in cases]
+    if len(hits) != sum(n for _, n in plan) or len(rest) != floor_reps:
+        return None
+    out, at = {}, 0
+    for key, n in plan + [("floor", floor_reps)]:
+        group = hits[at:at + n] if key != "floor" else rest
+        at += n
+        us = [e.time_range.elapsed_us() for e in group]
+        out[key] = dict(mean_us=sum(us) / n, min_us=min(us))
+    return out
+
+
+def host_us(fn, calls: int, rounds: int = 5) -> list:
+    """Host microseconds a call of ``fn`` in each of ``rounds`` rounds of
+    ``calls`` calls with no synchronise among them, after a warm-up call;
+    the card is synchronised between rounds."""
+    import torch
+    fn()
+    out = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) * 1e6 / calls)
+    torch.cuda.synchronize()
+    return out
+
+
 def rope_phase(dev) -> dict:
     """Hold the fused RoPE kernel against its plain version, bit for bit,
-    in float32 and bfloat16 at every shape of ``ROPE_SHAPES``; time it."""
+    in float32 and bfloat16 at every shape of ``ROPE_SHAPES``, each on the
+    path ``ROPE_PATH`` names (by the wrapper's per-path counts); time each
+    launch on the device by CUPTI beside the launch floor, and a wrapper
+    call on the host at decode."""
     import torch
     from repro_torch.kernels.rope import kernel as rope_k
-    from repro_torch.kernels.rope.ref import apply_rope_ref, rope_tables
+    from repro_torch.kernels.rope.ref import apply_rope_ref
     gen = torch.Generator().manual_seed(SEED + 5)
-    rows = {}
+    rows, cases = {}, []
     for label, (b, s, hq, hk, d) in ROPE_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
-            q = torch.randn((b, s, hq, d), generator=gen).to(dev, dtype)
-            k = torch.randn((b, s, hk, d), generator=gen).to(dev, dtype)
-            c, sn = rope_tables(torch.arange(s, device=dev), d, dtype=dtype)
+            key = f"{label}/{str(dtype).split('.')[-1]}"
+            q, k, c, sn = rope_inputs(dev, label, dtype, gen)
+            before = dict(rope_k.PATH_LAUNCHES)
             oq, ok = rope_k.rope(q, k, c, sn)
             pq, pk = apply_rope_ref(q, c, sn), apply_rope_ref(k, c, sn)
             torch.cuda.synchronize()
+            took = [p for p, n in rope_k.PATH_LAUNCHES.items()
+                    if n != before[p]]
+            want = ROPE_PATH.get(label, "vector")
+            check(took == [want], f"rope {key}: took {took}, not {want}")
             err = max(max_abs(oq.float(), pq.float()),
                       max_abs(ok.float(), pk.float()))
             check(torch.equal(oq, pq) and torch.equal(ok, pk),
-                  f"rope {label} {dtype}: kernel != plain version "
-                  f"(max|d| {err})")
+                  f"rope {key}: kernel != plain version (max|d| {err})")
             check(bool(torch.isfinite(oq).all() and torch.isfinite(ok).all()),
-                  f"rope {label} {dtype}: non-finite")
-            reps = 200 if s == 1 else 20
-            ms = time_ms(lambda: rope_k.rope(q, k, c, sn), reps)
+                  f"rope {key}: non-finite")
+            reps = rope_reps(label)
             plain_ms = time_ms(lambda: (apply_rope_ref(q, c, sn),
                                         apply_rope_ref(k, c, sn)), reps)
-            elt = q.element_size()
-            nbytes = (2.0 * b * s * (hq + hk) * d + 2.0 * s * (d // 2)) * elt
-            b_ms, b_by = bound(6.0 * b * s * (hq + hk) * (d // 2), nbytes)
-            rows[f"{label}/{str(dtype).split('.')[-1]}"] = dict(
-                shape=[b, s, hq, hk, d], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            events_ms = time_ms(lambda: rope_k.rope(q, k, c, sn), reps)
+            b_ms, b_by = rope_bound(label, q.element_size())
+            rows[key] = dict(shape=[b, s, hq, hk, d],
+                             q_offset=ROPE_OFFSET.get(label, 0), path=want,
+                             max_abs_err=err, events_ms=events_ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            cases.append((key, lambda q=q, k=k, c=c, sn=sn:
+                          rope_k.rope(q, k, c, sn)))
+            if key == "decode/bfloat16":
+                host = host_us(lambda: rope_k.rope(q, k, c, sn),
+                               ROPE_HOST_CALLS)
+    launches = rope_k.LAUNCHES
+    dev_us = device_us(cases, lambda key: rope_reps(key.split("/")[0]))
+    check(rope_k.LAUNCHES - launches == sum(
+        rope_reps(key.split("/")[0]) + 1 for key, _ in cases),
+        "rope launches in the profiler window")
+    for key, row in rows.items():
+        us = None if dev_us is None else dev_us[key]
+        row["device_us"] = us
+        row["bound_share"] = (None if us is None else
+                              row["bound_ms"] * 1e3 / us["mean_us"])
     emit(phase="rope", bitwise_vs_plain=True, shapes=rows,
+         launch_floor_us=None if dev_us is None else dev_us["floor"],
+         host_us_per_call_decode_bf16=min(host), host_us_rounds=host,
+         host_calls=ROPE_HOST_CALLS,
+         path_launches=dict(rope_k.PATH_LAUNCHES),
          library_ms=None, library="none: no single PyTorch call computes "
          "half-split RoPE")
     main = rows["decode/bfloat16"]
+    ms = (main["events_ms"] if main["device_us"] is None
+          else main["device_us"]["mean_us"] / 1e3)
     return dict(
         name="rope", route="cuda", source="src/repro_torch/csrc/rope.cu",
         replaces="src/repro/kernels/rope/kernel.py:50",
         max_abs_err=max(r["max_abs_err"] for r in rows.values()),
-        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        ms=ms, plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=None)
 
 
@@ -685,12 +813,19 @@ def lm_prompts(vocab: int, batch: int):
     return [rng.integers(0, vocab, size=int(n)).tolist() for n in lens]
 
 
-def lm_serving_phase(dev, kernels) -> dict:
-    """SmolLM-135M at full width through ``ServeEngine`` on the card, with
-    every kernel's launches counted over the serving run."""
+def lm_decode_numbers(dev, kernels) -> dict:
+    """SmolLM-135M at full width through ``ServeEngine`` on the card: a
+    warm-up ``generate`` from an empty RoPE table cache, then ``LM_RUNS``
+    timed ones (every kernel's launches counted over the first), then a
+    profiled one.  ``rope_tables`` calls are counted by decode step in the
+    warm-up and in all over the timed runs.  ms a step is the runs'
+    median by the wall clock, which moves from run to run with the
+    host's other load; the host's own work a step is read beside it as
+    this thread's CPU time (which also counts the spin of each step's
+    wait for its tokens)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
+    from repro_torch.models import attention, build_model
     from repro_torch.serve import ServeEngine
     cfg = get_config(LM_ARCH)
     t0 = time.perf_counter()
@@ -699,56 +834,107 @@ def lm_serving_phase(dev, kernels) -> dict:
     init_s = time.perf_counter() - t0
     prompts = lm_prompts(cfg.vocab, LM_BATCH)
     eng = ServeEngine(model, cfg, batch=LM_BATCH, max_len=LM_MAX_LEN)
-    finite = []
-    step = eng._step
+    finite, built, at = [], [], [0]
+    step, fresh = eng._step, attention.rope_tables
 
     def checked(*args):
         logits, cache = step(*args)
         finite.append(torch.isfinite(logits).all())
+        at[0] += 1
         return logits, cache
 
+    def counted(*args, **kw):
+        built.append(at[0])
+        return fresh(*args, **kw)
+
     eng._step = checked
-    eng.generate(prompts, max_new=2)      # warm-up: cuBLAS, allocator
-    finite.clear()
-    for k in kernels.values():
-        k.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs = eng.generate(prompts, max_new=LM_MAX_NEW)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = {name: k.LAUNCHES for name, k in kernels.items()}
+    attention.rope_tables = counted
+    try:
+        if hasattr(attention, "_ROPE"):
+            attention._ROPE.clear()
+        eng.generate(prompts, max_new=2)      # warm-up: cuBLAS, allocator
+        warm = [built.count(i) for i in range(eng.steps)]
+        finite.clear()
+        built.clear()
+        runs, cpu = [], []
+        for run in range(LM_RUNS):
+            if run == 0:
+                for k in kernels.values():
+                    k.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), time.thread_time()
+            outs = eng.generate(prompts, max_new=LM_MAX_NEW)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+            cpu.append(time.thread_time() - c0)
+            if run == 0:
+                counts = {name: k.LAUNCHES for name, k in kernels.items()}
+                first = outs
+            check(outs == first, "serving runs gave different tokens")
+    finally:
+        attention.rope_tables = fresh
     steps = eng.steps
+    tokens = sum(len(o) for o in outs)
+    seconds = statistics.median(runs)
+    ms_per_step = seconds * 1e3 / steps
+    prof = profile_decode(eng, prompts)
+    return dict(
+        cfg=cfg, prompts=prompts, outs=outs, finite=finite, counts=counts,
+        warm_up=warm, rope_tables_calls=len(built), row=dict(
+            arch=cfg.name, dtype=cfg.dtype, n_layers=cfg.n_layers,
+            d_model=cfg.d_model, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, vocab=cfg.vocab, batch=LM_BATCH,
+            max_len=LM_MAX_LEN, max_new=LM_MAX_NEW,
+            prompt_lens=[len(p) for p in prompts], decode_steps=steps,
+            tokens=tokens, seconds=seconds, tokens_per_s=tokens / seconds,
+            ms_per_step=ms_per_step,
+            ms_per_step_runs=[s * 1e3 / steps for s in runs],
+            host_cpu_ms_per_step=statistics.median(cpu) * 1e3 / steps,
+            host_cpu_ms_per_step_runs=[s * 1e3 / steps for s in cpu],
+            init_seconds=init_s, launches=counts,
+            rope_launches_per_step=counts.get("rope", 0) / steps,
+            rope_tables_calls_per_step=len(built) / (steps * LM_RUNS),
+            warm_up_rope_tables_by_step=warm,
+            device_launches_per_step=prof["launches_per_step"],
+            device_ms_per_step=prof["device_ms_per_step"],
+            device_idle_share=(
+                None if prof["device_ms_per_step"] is None else
+                1.0 - prof["device_ms_per_step"] / ms_per_step),
+            first_outputs=outs[0][:8], profile=prof))
+
+
+def lm_serving_phase(dev, kernels) -> dict:
+    """SmolLM-135M at full width through ``ServeEngine`` on the card, with
+    every kernel's launches counted over the serving run; no decode step
+    after the warm-up's first builds a RoPE table."""
+    import torch
+    run = lm_decode_numbers(dev, kernels)
+    cfg, prompts, outs, counts = (run["cfg"], run["prompts"], run["outs"],
+                                  run["counts"])
+    steps = run["row"]["decode_steps"]
     want_steps = max(len(p) for p in prompts) - 1 + LM_MAX_NEW
     check(steps == want_steps, f"{steps} decode steps, expected {want_steps}")
     check(counts["rope"] == cfg.n_layers * steps,
           f"rope launches {counts['rope']} != {cfg.n_layers} x {steps}")
+    by_step = run["warm_up"]
+    check(by_step[0] >= 1 and not any(by_step[1:])
+          and run["rope_tables_calls"] == 0,
+          f"rope_tables calls by warm-up step {by_step}, "
+          f"{run['rope_tables_calls']} in the serving runs")
     check(all(len(o) == LM_MAX_NEW and all(0 <= t < cfg.vocab for t in o)
               for o in outs), "generated tokens out of range or short")
-    check(bool(torch.stack(finite).all()), "non-finite logits")
-    tokens = sum(len(o) for o in outs)
-    ms_per_step = seconds * 1e3 / steps
-    prof = profile_decode(eng, prompts)
-    emit(phase="lm_serving", arch=cfg.name, dtype=cfg.dtype,
-         n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
-         n_kv_heads=cfg.n_kv_heads, vocab=cfg.vocab, batch=LM_BATCH,
-         max_len=LM_MAX_LEN, max_new=LM_MAX_NEW,
-         prompt_lens=[len(p) for p in prompts], decode_steps=steps,
-         tokens=tokens, seconds=seconds, tokens_per_s=tokens / seconds,
-         ms_per_step=ms_per_step, init_seconds=init_s,
-         launches=counts, rope_launches_per_step=counts["rope"] / steps,
-         first_outputs=outs[0][:8], profile=prof,
-         device_idle_share=(None if prof["device_ms_per_step"] is None else
-                            1.0 - prof["device_ms_per_step"] / ms_per_step))
-    return dict(counts=counts, ms_per_step=ms_per_step)
+    check(bool(torch.stack(run["finite"]).all()), "non-finite logits")
+    emit(phase="lm_serving", **run["row"])
+    return dict(counts=counts, ms_per_step=run["row"]["ms_per_step"])
 
 
 def profile_decode(eng, prompts) -> dict:
     """Device time of the decode steps of a one-token ``generate``, by
-    kernel, from ``torch.profiler`` (CUPTI): per step in all, RoPE's, and
-    the kernels that take most.  Only the device's own events (kernels,
-    copies) are summed: a host-side op's device time repeats theirs.
-    ``None`` where the trace holds no device time."""
+    kernel, from ``torch.profiler`` (CUPTI): per step in all, RoPE's, the
+    device launches (kernels and copies) a step, and the kernels that take
+    most.  Only the device's own events are summed: a host-side op's
+    device time repeats theirs.  ``None`` where the trace holds no device
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -763,11 +949,13 @@ def profile_decode(eng, prompts) -> dict:
     total = sum(us for _, us, _ in rows)
     if total == 0:
         return dict(steps=steps, device_ms_per_step=None,
-                    rope_device_ms_per_step=None, top=[])
-    rope = sum(us for key, us, _ in rows if "rope_kernel" in key)
+                    rope_device_ms_per_step=None, launches_per_step=None,
+                    top=[])
+    rope = sum(us for key, us, _ in rows if "rope_" in key)
     top = sorted(rows, key=lambda r: -r[1])[:8]
     return dict(steps=steps, device_ms_per_step=total / 1e3 / steps,
                 rope_device_ms_per_step=rope / 1e3 / steps,
+                launches_per_step=sum(n for _, _, n in rows) / steps,
                 top=[dict(name=key[:80], ms_per_step=us / 1e3 / steps,
                           calls_per_step=n / steps) for key, us, n in top])
 

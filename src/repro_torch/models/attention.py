@@ -7,8 +7,10 @@ float32; ``F.scaled_dot_product_attention`` is not used, since its
 accumulation order differs from the reference's.  RoPE goes through
 the fused kernel (:func:`repro_torch.kernels.rope.ops.apply_rope`): one
 launch for q and k together on the card, the plain reference on the
-CPU.  Both full-sequence (train/prefill) and single-token cached
-(decode) paths are provided.
+CPU.  Its cos/sin tables are row slices of one table a ``(head_dim,
+base, dtype, device)`` (:func:`rope_rows`), so a decode step builds none
+after its first.  Both full-sequence (train/prefill) and single-token
+cached (decode) paths are provided.
 """
 from __future__ import annotations
 
@@ -20,10 +22,16 @@ from repro_torch.kernels.rope.ops import apply_rope, rope_tables
 
 from .layers import dense, dense_init, rmsnorm, rmsnorm_init, softcap
 
-__all__ = ["gqa_init", "gqa_attention", "gqa_decode", "attn_mask"]
+__all__ = ["gqa_init", "gqa_attention", "gqa_decode", "attn_mask",
+           "rope_rows"]
 
 _FLASH_CHUNK = 512
 _MASKED = -1e30
+_ROPE_ROWS = 256  # positions of a RoPE table when it is first built
+# (head_dim, base, dtype, device) -> (cos, sin) over positions 0 .. L-1;
+# values of a pure function of the key, so sharing them between models
+# and calls changes no result
+_ROPE = {}
 
 
 def gqa_init(gen, cfg):
@@ -53,7 +61,29 @@ def attn_mask(q_len: int, kv_len: int, window: Optional[int] = None,
     return m
 
 
-def _proj_qkv(p, cfg, x, positions):
+def rope_rows(start: int, count: int, head_dim: int, base: float, dtype,
+              device):
+    """cos/sin tables ``(count, head_dim // 2)`` of positions ``start ..
+    start + count - 1``: contiguous row slices of one table a ``(head_dim,
+    base, dtype, device)``, built by ``rope_tables`` over positions ``0 ..
+    L - 1`` and built again at double the size when a position past ``L``
+    is asked for.  ``rope_tables`` is elementwise in the position, so the
+    rows equal tables built for those positions alone, bit for bit
+    (``tests/test_torch_rope.py``)."""
+    key = (head_dim, float(base), dtype, device)
+    tabs = _ROPE.get(key)
+    end = start + count
+    if tabs is None or tabs[0].shape[0] < end:
+        size = _ROPE_ROWS if tabs is None else tabs[0].shape[0]
+        while size < end:
+            size *= 2
+        tabs = rope_tables(torch.arange(size, device=device), head_dim,
+                           base, dtype=dtype)
+        _ROPE[key] = tabs
+    return tabs[0][start:end], tabs[1][start:end]
+
+
+def _proj_qkv(p, cfg, x, start: int, base: float):
     B, S, d = x.shape
     H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = dense(p["wq"], x).reshape(B, S, H, Dh)
@@ -63,8 +93,7 @@ def _proj_qkv(p, cfg, x, positions):
         q = rmsnorm(p["qn"], q)
         k = rmsnorm(p["kn"], k)
     if cfg.pos_type == "rope":
-        base = positions.get("rope_base", cfg.rope_base)
-        cos, sin = rope_tables(positions["pos"], Dh, base, dtype=q.dtype)
+        cos, sin = rope_rows(start, S, Dh, base, q.dtype, x.device)
         q, k = apply_rope(q, k, cos, sin)
     return q, k, v
 
@@ -143,10 +172,8 @@ def _sdpa(q, k, v, mask, scale, cap=0.0, *, causal=True, window=None,
 
 def gqa_attention(p, cfg, x, *, window=None, rope_base=None, q_offset=0):
     """Full-sequence causal attention (train / prefill)."""
-    B, S, _ = x.shape
-    pos = torch.arange(S, device=x.device) + q_offset
-    q, k, v = _proj_qkv(p, cfg, x, {
-        "pos": pos, "rope_base": rope_base or cfg.rope_base})
+    S = x.shape[1]
+    q, k, v = _proj_qkv(p, cfg, x, q_offset, rope_base or cfg.rope_base)
     mask = (attn_mask(S, S, window=window, device=x.device)
             if S < _FLASH_CHUNK else None)
     o = _sdpa(q, k, v, mask, cfg.head_dim ** -0.5, causal=True,
@@ -170,9 +197,7 @@ def gqa_decode(p, cfg, x, k_cache, v_cache, idx: int, *, window=None,
     cache is clamped to the last one.
     """
     T = k_cache.shape[1]
-    q, k, v = _proj_qkv(p, cfg, x, {
-        "pos": torch.full((1,), idx, device=x.device),
-        "rope_base": rope_base or cfg.rope_base})
+    q, k, v = _proj_qkv(p, cfg, x, idx, rope_base or cfg.rope_base)
     ring = window is not None and T <= window
     slot = idx % T if ring else min(idx, T - 1)
     k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
