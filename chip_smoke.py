@@ -27,8 +27,20 @@ and its ptxas report must show no spills; then
 signed and reflector requests), ``apply_batched`` on the ``seq.T``
 staircases, a gradient through ``apply_batched`` and ``StreamEngine``
 run with the launch counts set to 0 just before and read just after.
-Then the LM serving path at the full width of SmolLM-135M (seeded random
-weights, bf16 activations): the fused RoPE kernel is held bit for bit
+Then the eigensolver path (``repro_torch.eig``, paper SS5.1), float32,
+each part with the launch counts set to 0 just before it:
+each solver run once with its stages timed inside that run:
+``eigh_givens`` at ``n = 1024`` (QR, ``k_delay = 32``, ``auto``) against
+float64 ``np.linalg.eigvalsh`` (eigenvalues, orthogonality, residual),
+its flushes timed back to back on the device, and ``torch.linalg.eigh``
+timed beside it; ``svd_givens`` of a ``(1024, 512)`` matrix against
+``np.linalg.svd``; Jacobi at ``n = 512`` with the reference's residual
+bar; and a batched buffer of 8 row-permuted identities fed the QR
+recording, each slice held to the 2D result.  Every accumulator the
+solvers flushed is held to the same recording flushed through the
+pick's plain version on the card, and every part fails if the picked
+kernel never launched.  Then the LM serving path at the full width of SmolLM-135M
+(seeded random weights, bf16 activations): the fused RoPE kernel is held bit for bit
 against its plain version at every shape of ``ROPE_SHAPES`` in float32
 and bfloat16, each on the path (vector or scalar) it names, and timed on
 the device by CUPTI beside the launch floor and on the host a wrapper
@@ -44,6 +56,7 @@ CUDA device or no ``src/repro_torch`` beside this script.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -107,6 +120,15 @@ ROPE_OFFSET = {"misaligned": 1}   # elements q starts into its buffer
 # the path each shape must take on the card, in both dtypes
 ROPE_PATH = {"scalar_d10": "scalar", "misaligned": "scalar"}
 ROPE_HOST_CALLS = 400    # wrapper calls a round timed on the host
+
+# the eigensolver path (paper SS5.1), float32: eigh_givens at the width
+# of benchmarks/bench_eig.py's largest size, the SVD of a tall matrix,
+# Jacobi at half the width, and a batch of 8 bases fed the QR recording
+EIG_N, EIG_K_DELAY = 1024, 32
+SVD_SHAPE = (1024, 512)
+JACOBI_N, JACOBI_CYCLES = 512, 8
+EIG_BATCH = 8
+EIG_TOL = 1e-4   # the reference's oracle bars (tests/test_eig.py, n = 256)
 
 
 def emit(**row):
@@ -645,6 +667,345 @@ def serving_phase(bctx, kernels) -> dict:
          stream_requests_per_s=rates["stream"], launches=counts,
          seconds=seconds)
     return counts
+
+
+@contextlib.contextmanager
+def recorded(module, *names):
+    """For the span of the block, wrap the functions (or classes)
+    ``names`` of ``module`` so that each call appends its seconds, to a
+    synchronise, and its result to ``seen[name]``: one run of a solver
+    gives its stages' times and recordings."""
+    import torch
+    seen = {name: [] for name in names}
+    orig = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            seen[name].append((time.perf_counter() - t0, out))
+            return out
+        return timed
+
+    for name, fn in orig.items():
+        setattr(module, name, wrap(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in orig.items():
+            setattr(module, name, fn)
+
+
+def same_family(got, want, methods, what: str) -> float:
+    """``got`` against ``want``: bit for bit (``torch.equal``, where +0
+    and -0 are equal) when every method is of the rotation family,
+    within ``MXU_TOL`` relative when one is ``cuda_mxu``/``accumulated``.
+    Returns the error (0.0 when equal)."""
+    import torch
+    if any(m in ("cuda_mxu", "accumulated") for m in methods):
+        err = rel_err(got, want)
+        check(err <= MXU_TOL, f"{what}: rel err {err} > {MXU_TOL}")
+        return err
+    check(torch.equal(got, want), f"{what}: not bit for bit")
+    return 0.0
+
+
+def plain_of(method: str) -> str:
+    """The plain version of a rotation kernel's backend."""
+    return {"cuda_mxu": "accumulated"}.get(method, "blocked")
+
+
+def plain_replay(buf, recordings, what: str) -> dict:
+    """Flush ``recordings`` (host ``(C, S)`` pairs in push order) into a
+    fresh identity through the plain version of ``buf``'s pick, at its
+    tiles, on the card, and hold ``buf``'s accumulator to the result."""
+    import torch
+    from repro_torch import RotationSequence
+    from repro_torch.eig import DelayedRotationBuffer
+    (plan,) = buf._plans.values()
+    check(plan.method in KERNEL_OF, f"{what}: auto planned {plan.method}")
+    got = buf.value
+    plain = plain_of(plan.method)
+    eye = torch.eye(got.shape[-1], dtype=got.dtype, device=got.device)
+    t0 = time.perf_counter()
+    pbuf = DelayedRotationBuffer(eye, k_delay=buf.k_delay, method=plain,
+                                 **dict(plan.kwargs))
+    for C, S in recordings:
+        pbuf.push_sequence(RotationSequence(torch.from_numpy(C),
+                                            torch.from_numpy(S)))
+    want = pbuf.value
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    err = same_family(got, want, [plan.method],
+                      f"{what}: {plan.method} flushes vs {plain}")
+    return dict(method=plan.method, tiles=dict(plan.kwargs),
+                flushes=buf.flushes, plain=plain, plain_flush_ms=ms,
+                err_vs_plain=err)
+
+
+def eig_qr(dev, kernels) -> dict:
+    """``eigh_givens(H, method="qr")`` at ``EIG_N`` float32, run once with
+    its kernel launches counted and its stages timed inside that run (the
+    recorders, then the delayed flushes to a synchronise); the flushes'
+    applications timed back to back on the device; the same recording
+    flushed through the pick's plain version on the card;
+    ``torch.linalg.eigh``."""
+    import numpy as np
+    import torch
+    import repro_torch.eig.api as eig_api
+    from repro_torch import RotationSequence
+    from repro_torch.eig import eigh_givens
+    n = EIG_N
+    rng = np.random.default_rng(SEED + 5)
+    X = rng.standard_normal((n, n)).astype(np.float32)
+    H = (X + X.T) / 2
+    for k in kernels.values():
+        k.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with recorded(eig_api, "tridiagonalize", "tridiag_qr",
+                  "DelayedRotationBuffer") as seen:
+        w, V = eigh_givens(H, k_delay=EIG_K_DELAY, apply_method="auto",
+                           device=dev)
+        torch.cuda.synchronize()
+    eigh_s = time.perf_counter() - t0
+    counts = {name: k.LAUNCHES for name, k in kernels.items()}
+    ((tri_s, tri),) = seen["tridiagonalize"]
+    ((qr_s, qr),) = seen["tridiag_qr"]
+    ((_, buf),) = seen["DelayedRotationBuffer"]
+    check(qr.converged, "tridiag_qr did not converge")
+    # what follows the recorders: the buffer's pushes, one copy an array
+    # a flush, and the applications
+    wall_ms = (eigh_s - tri_s - qr_s) * 1e3
+    # the composed recording eigh_givens pushed: tridiagonalization
+    # waves, then one wave a QR sweep
+    C = np.concatenate([tri.cos, qr.cos], 1)
+    S = np.concatenate([tri.sin, qr.sin], 1)
+    waves = C.shape[1]
+    live = int(((C != 1.0) | (S != 0.0)).sum())
+
+    ref = np.linalg.eigvalsh(H.astype(np.float64))
+    scale = float(np.abs(ref).max())
+    w_err = float(np.abs(w.cpu().double().numpy() - ref).max())
+    check(w_err <= EIG_TOL * scale, f"eigenvalues max|d| {w_err}")
+    Vd = V.double()
+    eye64 = torch.eye(n, dtype=torch.float64, device=dev)
+    orth = float((Vd.T @ Vd - eye64).abs().max())
+    check(orth <= EIG_TOL, f"max|V^T V - I| {orth}")
+    H64 = torch.from_numpy(H).to(dev, torch.float64)
+    resid = float((Vd.T @ H64 @ Vd - torch.diag(w.double())).abs().max())
+    check(resid <= EIG_TOL * scale * n ** 0.5, f"residual {resid}")
+
+    replay = plain_replay(buf, [(C, S)], "eigh_qr")
+    (plan,) = buf._plans.values()
+    check(counts[KERNEL_OF[plan.method]] > 0,
+          f"{KERNEL_OF[plan.method]} never launched during the eig flushes")
+    V_raw = buf.value
+    # the flushes' applications alone, back to back on the device
+    chunks = [plan.rebind(RotationSequence(
+        torch.from_numpy(C[:, i:i + EIG_K_DELAY]).float().to(dev),
+        torch.from_numpy(S[:, i:i + EIG_K_DELAY]).float().to(dev)).pad_to(
+            EIG_K_DELAY)) for i in range(0, waves, EIG_K_DELAY)]
+    eye = torch.eye(n, device=dev)
+
+    def run():
+        out = eye
+        for pl in chunks:
+            out = pl.apply_direct(out)
+        return out
+
+    same_family(run(), V_raw, [plan.method], "flushes back to back")
+    device_ms = time_ms(run, 3)
+    del chunks
+
+    Hd = torch.from_numpy(H).to(dev)
+    lib_ms = time_ms(lambda: torch.linalg.eigh(Hd), 3)
+    nbytes = 4.0 * buf.flushes * (2 * n * n + 2 * (n - 1) * EIG_K_DELAY)
+    b_ms, b_by = bound(6.0 * n * (n - 1) * waves, nbytes)
+    live_ms, live_by = bound(6.0 * n * live, nbytes)
+    emit(phase="eig", part="eigh_qr", n=n, k_delay=EIG_K_DELAY,
+         host_s={"tridiagonalize": tri_s, "tridiag_qr": qr_s},
+         waves={"tridiagonalize": tri.cos.shape[1], "tridiag_qr": qr.sweeps},
+         live_planes=live, plan=replay, eigh_givens_s=eigh_s,
+         launches=counts, flush_wall_ms=wall_ms, flush_device_ms=device_ms,
+         device_ms_per_flush=device_ms / buf.flushes, bound_ms=b_ms,
+         bound_by=b_by, bound_live_ms=live_ms, bound_live_by=live_by,
+         torch_linalg_eigh_ms=lib_ms, eigenvalue_err=w_err, scale=scale,
+         orth_err=orth, residual=resid, tol=EIG_TOL)
+    return dict(C=C, S=S, V_raw=V_raw, method=plan.method)
+
+
+def eig_svd(dev, kernels) -> None:
+    """``svd_givens`` of a seeded ``SVD_SHAPE`` float32 matrix, run once
+    with its stages timed inside that run: singular values against
+    ``np.linalg.svd``, orthogonality, reconstruction, and each side's
+    flushes replayed through the pick's plain version on the card."""
+    import numpy as np
+    import torch
+    import repro_torch.eig.api as eig_api
+    from repro_torch.eig import svd_givens
+    m, n = SVD_SHAPE
+    A = np.random.default_rng(SEED + 6).standard_normal((m, n)).astype(
+        np.float32)
+    for k in kernels.values():
+        k.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with recorded(eig_api, "bidiagonalize", "bidiag_qr",
+                  "DelayedRotationBuffer") as seen:
+        U, s, Vt = svd_givens(A, k_delay=EIG_K_DELAY, device=dev)
+        torch.cuda.synchronize()
+    svd_s = time.perf_counter() - t0
+    counts = {name: k.LAUNCHES for name, k in kernels.items()}
+    ((bd_s, bd),) = seen["bidiagonalize"]
+    ((bq_s, bq),) = seen["bidiag_qr"]
+    (_, ubuf), (_, vbuf) = seen["DelayedRotationBuffer"]
+    check(bq.converged, "bidiag_qr did not converge")
+    sr = np.linalg.svd(A.astype(np.float64), compute_uv=False)
+    smax = float(sr.max())
+    s_err = float(np.abs(s.cpu().double().numpy() - sr).max())
+    check(s_err <= EIG_TOL * smax, f"singular values max|d| {s_err}")
+    Ud, Vd = U.double(), Vt.double()
+    eye64 = torch.eye(n, dtype=torch.float64, device=dev)
+    orth = max(float((Ud.T @ Ud - eye64).abs().max()),
+               float((Vd @ Vd.T - eye64).abs().max()))
+    check(orth <= EIG_TOL, f"svd orthogonality {orth}")
+    A64 = torch.from_numpy(A).to(dev, torch.float64)
+    rec = float((Ud @ torch.diag(s.double()) @ Vd - A64).abs().max())
+    check(rec <= EIG_TOL * smax, f"svd reconstruction {rec}")
+    # the recordings each buffer was pushed, in svd_givens' order
+    left = plain_replay(ubuf, [
+        (bd.cos_left, bd.sin_left),
+        (eig_api._embed_planes(bq.cos_left, m - 1, 1.0),
+         eig_api._embed_planes(bq.sin_left, m - 1, 0.0))], "svd left")
+    right = plain_replay(vbuf, [(bd.cos_right, bd.sin_right),
+                                (bq.cos_right, bq.sin_right)], "svd right")
+    for side in (left, right):
+        check(counts[KERNEL_OF[side["method"]]] > 0,
+              f"{KERNEL_OF[side['method']]} never launched during the svd "
+              f"flushes")
+    Ad = A64.float()
+    lib_ms = time_ms(lambda: torch.linalg.svd(Ad, full_matrices=False), 3)
+    emit(phase="eig", part="svd", shape=[m, n], k_delay=EIG_K_DELAY,
+         host_s={"bidiagonalize": bd_s, "bidiag_qr": bq_s},
+         waves={"left": bd.cos_left.shape[1] + bq.sweeps,
+                "right": bd.cos_right.shape[1] + bq.sweeps},
+         flushes=ubuf.flushes + vbuf.flushes, plan={"left": left,
+                                                    "right": right},
+         svd_givens_s=svd_s, launches=counts, sv_err=s_err, s_max=smax,
+         orth_err=orth, reconstruction_err=rec, tol=EIG_TOL,
+         torch_linalg_svd_ms=lib_ms)
+
+
+def eig_jacobi(dev, kernels) -> None:
+    """``eigh_givens(method="jacobi")`` at ``JACOBI_N``, run once: a loop
+    of torch operations a wave on the card, then one planned application
+    of the sign-carrying recording, whose result is held to the pick's
+    plain version on the card; eigenvalues, orthogonality and residual at
+    the reference's bars (``1e-4 * n``, ``1e-5 * n``, ``2e-4 * n``)."""
+    import numpy as np
+    import torch
+    import repro_torch.core.jacobi as jac
+    from repro_torch.eig import eigh_givens
+    n = JACOBI_N
+    X = np.random.default_rng(SEED + 7).standard_normal((n, n)).astype(
+        np.float32)
+    H = (X + X.T) / 2
+    for k in kernels.values():
+        k.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with recorded(jac, "jacobi_eigh", "jacobi_apply_basis") as seen:
+        w, V = eigh_givens(H, method="jacobi", cycles=JACOBI_CYCLES,
+                           device=dev)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {name: k.LAUNCHES for name, k in kernels.items()}
+    ((loop_s, res),) = seen["jacobi_eigh"]
+    ((apply_s, V_raw),) = seen["jacobi_apply_basis"]
+    # the plan jacobi_apply_basis resolved (the cost model is
+    # deterministic), and its plain version at the same tiles
+    plan = res.rotation_sequence().plan(like=V_raw, method="auto",
+                                        n_b=None, k_b=None)
+    check(plan.method in KERNEL_OF, f"auto planned {plan.method} for the "
+          f"Jacobi basis")
+    check(counts[KERNEL_OF[plan.method]] > 0,
+          f"{KERNEL_OF[plan.method]} never launched applying the Jacobi "
+          f"basis")
+    plain = plain_of(plan.method)
+    t1 = time.perf_counter()
+    V_plain = jac.jacobi_apply_basis(res, method=plain, **dict(plan.kwargs))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    err_plain = same_family(V_raw, V_plain, [plan.method],
+                            f"Jacobi basis: {plan.method} vs {plain}")
+    ref = np.linalg.eigvalsh(H.astype(np.float64))
+    w_err = float(np.abs(w.cpu().double().numpy() - ref).max())
+    check(w_err <= 1e-4 * n, f"Jacobi eigenvalues max|d| {w_err}")
+    Vd = V.double()
+    orth = float((Vd.T @ Vd - torch.eye(n, dtype=torch.float64,
+                                        device=dev)).abs().max())
+    check(orth <= 1e-5 * n, f"Jacobi max|V^T V - I| {orth}")
+    H64 = torch.from_numpy(H).to(dev, torch.float64)
+    resid = float((Vd.T @ H64 @ Vd - torch.diag(w.double())).abs().max())
+    check(resid <= 2e-4 * n, f"Jacobi residual {resid}")
+    emit(phase="eig", part="eigh_jacobi", n=n, cycles=JACOBI_CYCLES,
+         waves=JACOBI_CYCLES * n, seconds=seconds, loop_s=loop_s,
+         apply_s=apply_s, launches=counts,
+         plan={"method": plan.method, "tiles": dict(plan.kwargs)},
+         plain=plain, plain_ms=plain_ms, err_vs_plain=err_plain,
+         eigenvalue_err=w_err, scale=float(np.abs(ref).max()),
+         orth_err=orth, residual=resid,
+         tol={"eigenvalues": 1e-4 * n, "orth": 1e-5 * n,
+              "residual": 2e-4 * n})
+
+
+def eig_batched(dev, kernels, rec: dict) -> None:
+    """A ``(EIG_BATCH, EIG_N, EIG_N)`` buffer of row-permuted identities
+    fed the QR recording: each slice equals the 2D flushes' result with
+    its rows permuted (bit for bit on the rotation family)."""
+    import torch
+    from repro_torch import RotationSequence
+    from repro_torch.core import registry
+    from repro_torch.eig import DelayedRotationBuffer
+    n = EIG_N
+    gen = torch.Generator().manual_seed(SEED + 8)
+    perms = [torch.randperm(n, generator=gen).to(dev)
+             for _ in range(EIG_BATCH)]
+    eye = torch.eye(n, device=dev)
+    M = torch.stack([eye[p] for p in perms])
+    seq = RotationSequence(torch.from_numpy(rec["C"]),
+                           torch.from_numpy(rec["S"]))
+    for k in kernels.values():
+        k.LAUNCHES = 0
+    t0 = time.perf_counter()
+    buf = DelayedRotationBuffer(M, k_delay=EIG_K_DELAY)
+    out = buf.push_sequence(seq).value
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = {name: k.LAUNCHES for name, k in kernels.items()}
+    (plan,) = buf._plans.values()
+    check(plan.method in KERNEL_OF, f"auto planned {plan.method} for the "
+          f"batched accumulator")
+    check(counts[KERNEL_OF[plan.method]] > 0,
+          f"{KERNEL_OF[plan.method]} never launched on the batched flushes")
+    err = max(same_family(out[i], rec["V_raw"][p],
+                          [plan.method, rec["method"]], f"slice {i}")
+              for i, p in enumerate(perms))
+    emit(phase="eig", part="batched", shape=[EIG_BATCH, n, n],
+         k_delay=EIG_K_DELAY, flushes=buf.flushes,
+         plan={"method": plan.method, "tiles": dict(plan.kwargs),
+               "route": registry.get_backend(plan.method).capability
+               .batch_via},
+         launches=counts, wall_ms=wall_ms, err_vs_2d=err,
+         bitwise_vs_2d=err == 0.0)
+
+
+def eig_phase(dev, kernels) -> None:
+    """The eigensolver path: QR eigh, SVD, Jacobi and a batched buffer,
+    each with the kernels' launches counted from 0."""
+    rec = eig_qr(dev, kernels)
+    eig_svd(dev, kernels)
+    eig_jacobi(dev, kernels)
+    eig_batched(dev, kernels, rec)
 
 
 def rope_inputs(dev, label: str, dtype, gen):
@@ -1187,6 +1548,10 @@ def main() -> int:
     served = serving_phase(bctx, {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
                                   "rotseq_batched": batched_k})
     entries["rotseq_batched"]["launches"] = served["rotseq_batched"]
+
+    # -- the eigensolver path: recorded rotations flushed in batches ------
+    eig_phase(dev, {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
+                    "rotseq_batched": batched_k})
 
     # -- the LM serving path: SmolLM-135M through ServeEngine -------------
     entries["rope"] = rope_phase(dev)

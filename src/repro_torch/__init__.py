@@ -3,7 +3,9 @@
 Applies a recorded sequence of planar rotations to a matrix,
 ``A <- A @ Q``, through ``seq.plan(like=A).apply(A)``, and serves many
 such requests batched by shape (``repro_torch.serve``, through
-``plan.apply_batched``): on an NVIDIA H100 by hand-written CUDA kernels
+``plan.apply_batched``), and records such sequences in eigensolvers
+and an SVD whose vectors accumulate through the same plans
+(``repro_torch.eig``): on an NVIDIA H100 by hand-written CUDA kernels
 (``kernels/``), on the CPU by their plain PyTorch versions.  Imports
 ``torch`` and ``numpy`` only.
 """

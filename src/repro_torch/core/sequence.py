@@ -197,6 +197,43 @@ class RotationSequence:
         return cls(cos, sin, sign, reflect)
 
     @classmethod
+    def from_pairs(cls, waves, *, reflect: bool = False,
+                   device=None) -> "RotationSequence":
+        """Build from an iterable of per-wave columns.
+
+        Each element is ``(c, s)`` or ``(c, s, g)`` with 1D columns of a
+        common length ``n-1``; waves are stacked along ``K`` in order.
+        A ``None`` ``g`` is an all-rotation wave; if any wave carries
+        signs, the missing ones are filled with rotations (reflectors
+        under ``reflect=True``).  Columns are placed as ``from_waves``
+        places them (``device``, the card by default for numpy).
+        """
+        waves = list(waves)
+        if not waves:
+            raise ValueError("from_pairs needs at least one wave; use "
+                             "RotationSequence.identity for an empty one")
+        cs, ss, gs = [], [], []
+        for w in waves:
+            c, s, g = (*w, None) if len(w) == 2 else w
+            # the first wave fixes the device of the rest
+            c = _as_tensor(c, cs[0].device if cs else device).reshape(-1)
+            cs.append(c)
+            ss.append(_as_tensor(s, c.device).reshape(-1))
+            gs.append(None if g is None
+                      else _as_tensor(g, c.device).reshape(-1))
+        planes = cs[0].shape[0]
+        for c, s in zip(cs, ss):
+            if c.shape[0] != planes or s.shape[0] != planes:
+                raise ValueError(
+                    f"inconsistent wave lengths: {c.shape[0]} vs {planes}")
+        sign = None
+        if any(g is not None for g in gs):
+            fill = cs[0].new_full((planes,), _REFL if reflect else _ROT)
+            sign = torch.stack([fill if g is None else g for g in gs], dim=1)
+        return cls.from_waves(torch.stack(cs, dim=1), torch.stack(ss, dim=1),
+                              sign, reflect=reflect, normalize=False)
+
+    @classmethod
     def identity(cls, n: int, k: int, *, dtype=torch.float32,
                  device="cuda") -> "RotationSequence":
         """``k`` identity waves on ``n`` columns (exact no-op)."""

@@ -47,7 +47,9 @@ def test_no_jax_or_reference_imports_in_the_port():
                  "models/layers.py", "models/attention.py",
                  "models/transformer.py", "models/zoo.py",
                  "kernels/rope/ref.py", "kernels/rope/kernel.py",
-                 "kernels/rope/ops.py"):
+                 "kernels/rope/ops.py", "core/jacobi.py", "eig/__init__.py",
+                 "eig/api.py", "eig/delayed.py", "eig/qr_shift.py",
+                 "eig/svd.py", "eig/tridiag.py"):
         assert PORT / part in files
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if _banned(name)]
@@ -63,7 +65,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.rotseq_batched.ops, "
             "repro_torch.kernels.rope.ops, repro_torch.models, "
             "repro_torch.models.transformer, repro_torch.serve.lm, "
-            "repro_torch.launch.serve, repro_torch.configs; "
+            "repro_torch.launch.serve, repro_torch.configs, "
+            "repro_torch.eig, repro_torch.core.jacobi; "
             "[__import__('repro_torch.configs.' + a.replace('-', '_')) "
             "for a in repro_torch.configs.ARCHS]; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] "

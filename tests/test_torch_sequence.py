@@ -111,6 +111,39 @@ def test_identity_and_k_live():
     assert (t @ s).k_live is None and (t @ t).k_live == 0
 
 
+def test_from_pairs_and_identity():
+    """Mirror of ``tests/test_sequence.py::test_from_pairs_and_identity``."""
+    waves = [(np.array([0.6, 1.0]), np.array([0.8, 0.0])),
+             (np.array([1.0, 0.0]), np.array([0.0, 1.0]))]
+    seq = RotationSequence.from_pairs(waves, device="cpu")
+    assert seq.shape == (2, 2) and seq.sign is None
+    ident = RotationSequence.identity(5, 3, device="cpu")
+    A = torch.from_numpy(
+        np.random.default_rng(1).standard_normal((4, 5)).astype(np.float32))
+    assert torch.equal(ident.apply(A, method="blocked"), A)
+    with pytest.raises(ValueError, match="at least one wave"):
+        RotationSequence.from_pairs([])
+
+
+@pytest.mark.parametrize("reflect", [False, True])
+def test_from_pairs_bitwise(reflect, n=9, k=4):
+    """Per-wave columns, some with signs and some ``None``, stack as the
+    reference stacks them (a missing sign column is a rotation, or a
+    reflector under ``reflect=True``); tensors stay on their device."""
+    C, S, G = _waves(n, k, 7, signs=True)
+    waves = [(C[:, p], S[:, p]) if p % 2 else (C[:, p], S[:, p], G[:, p])
+             for p in range(k)]
+    t = RotationSequence.from_pairs(waves, reflect=reflect, device="cpu")
+    _same(t, JSeq.from_pairs(waves, reflect=reflect))
+    plain = RotationSequence.from_pairs(
+        [(torch.from_numpy(C[:, p]), torch.from_numpy(S[:, p]), None)
+         for p in range(k)])
+    _same(plain, JSeq.from_pairs([(C[:, p], S[:, p]) for p in range(k)]))
+    with pytest.raises(ValueError, match="inconsistent"):
+        RotationSequence.from_pairs([(C[:, 0], S[:, 0]),
+                                     (C[:-1, 1], S[:-1, 1])], device="cpu")
+
+
 @pytest.mark.parametrize("signs,reflect", [(False, False), (True, False),
                                            (False, True)])
 def test_sequence_from_reference_bitwise(signs, reflect, n=10, k=4):
