@@ -39,7 +39,21 @@ bar; and a batched buffer of 8 row-permuted identities fed the QR
 recording, each slice held to the 2D result.  Every accumulator the
 solvers flushed is held to the same recording flushed through the
 pick's plain version on the card, and every part fails if the picked
-kernel never launched.  Then the LM serving path at the full width of SmolLM-135M
+kernel never launched.
+Then measured autotune (``select_plan(..., autotune=True)``) at the
+planner's three points, the serving bucket and the eig flush, every
+kernel plan a candidate: the model's pick, each candidate's ms, the
+pick, the kernels' launches and the seconds autotune took; the pick's
+result held to ``cuda_wave``'s and its application within
+``AUTOTUNE_SLACK`` of the fastest kernel's; no candidate skipped.  Then
+the persisted store (one entry a measured key; loaded again as
+``persisted``, in this process and a fresh one, with no new measurement;
+a nearby shape borrows the paper shape's plan), and
+``RotationService``/``DelayedRotationBuffer(autotune=True)`` against
+their ``autotune=False`` results.  The plan cache points at a fresh
+file for the run (``REPRO_PLAN_CACHE``), so no plan persisted before
+changes a pick.
+Then the LM serving path at the full width of SmolLM-135M
 (seeded random weights, bf16 activations): the fused RoPE kernel is held bit for bit
 against its plain version at every shape of ``ROPE_SHAPES`` in float32
 and bfloat16, each on the path (vector or scalar) it names, and timed on
@@ -60,10 +74,12 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -129,6 +145,14 @@ SVD_SHAPE = (1024, 512)
 JACOBI_N, JACOBI_CYCLES = 512, 8
 EIG_BATCH = 8
 EIG_TOL = 1e-4   # the reference's oracle bars (tests/test_eig.py, n = 256)
+
+# measured autotune: every kernel plan a candidate (cuda_wave's band,
+# cuda_mxu's three tile pairs, cuda_batched), the pick at most this much
+# slower than the fastest kernel's application, and a shape near the
+# paper's that must borrow its measured plan
+AUTOTUNE_TOP = 5
+AUTOTUNE_SLACK = 1.10
+NEIGHBOUR = (3000, 3000, 150)
 
 
 def emit(**row):
@@ -376,13 +400,11 @@ def mxu_phase(ctx, ptxas: dict) -> dict:
         tiles=MXU_TILES, best=best)
 
 
-def planner_phase(ctx, seq) -> None:
-    """``auto``'s pick at the paper shape, one ``1024 x 1024`` target and
-    a shared-sequence batch of ``PLANNER_BATCH`` paper-shape targets (the
-    tile factors paid once), each against every rotation kernel's
-    application on the same inputs; a pick's result is held to
-    ``cuda_wave``'s (bit for bit, or within ``MXU_TOL`` for
-    ``cuda_mxu``)."""
+def planner_points(ctx, seq) -> dict:
+    """The planner's points, ``{label: (sequence, target, batched)}``:
+    the paper shape, one seeded ``1024 x 1024`` target at 41 waves and a
+    seeded shared-sequence batch of ``PLANNER_BATCH`` paper-shape
+    targets."""
     import torch
     from repro_torch import random_sequence
     dev = ctx["A"].device
@@ -390,9 +412,18 @@ def planner_phase(ctx, seq) -> None:
     one = torch.randn((1024, 1024), generator=gen).to(dev)
     seq_one = random_sequence(1024, 41, generator=gen, device=dev)
     batch = torch.randn((PLANNER_BATCH, M, N), generator=gen).to(dev)
-    points = {"paper": (seq, ctx["A"], False),
-              "1024^2 k41": (seq_one, one, False),
-              f"{PLANNER_BATCH}x{M}^2 shared": (seq, batch, True)}
+    return {"paper": (seq, ctx["A"], False),
+            "1024^2 k41": (seq_one, one, False),
+            f"{PLANNER_BATCH}x{M}^2 shared": (seq, batch, True)}
+
+
+def planner_phase(ctx, seq) -> None:
+    """``auto``'s pick at the planner's points (the tile factors paid once
+    for the shared batch), each against every rotation kernel's
+    application on the same inputs; a pick's result is held to
+    ``cuda_wave``'s (bit for bit, or within ``MXU_TOL`` for
+    ``cuda_mxu``)."""
+    points = planner_points(ctx, seq)
     rows = {}
     for label, (sq, X, batched) in points.items():
         auto = sq.plan(like=X)
@@ -414,7 +445,7 @@ def planner_phase(ctx, seq) -> None:
         rows[label] = dict(auto=auto.method, auto_kwargs=dict(auto.kwargs),
                            err_vs_cuda_wave=err, apply_ms=ms, fastest=best,
                            auto_vs_fastest=ms["auto"] / ms[best])
-    del batch
+    del points
     emit(phase="planner", points=rows)
 
 
@@ -999,13 +1030,297 @@ def eig_batched(dev, kernels, rec: dict) -> None:
          bitwise_vs_2d=err == 0.0)
 
 
-def eig_phase(dev, kernels) -> None:
+def eig_phase(dev, kernels) -> dict:
     """The eigensolver path: QR eigh, SVD, Jacobi and a batched buffer,
-    each with the kernels' launches counted from 0."""
+    each with the kernels' launches counted from 0.  Returns the QR
+    recording and its basis."""
     rec = eig_qr(dev, kernels)
     eig_svd(dev, kernels)
     eig_jacobi(dev, kernels)
     eig_batched(dev, kernels, rec)
+    return rec
+
+
+def alone_ms(fns: dict, seconds: float = 0.5) -> dict:
+    """``{name: median ms of one call of fns[name] alone}``: each call
+    between two CUDA events with a synchronize before and after, as
+    autotune times a candidate; the functions take turns, one call each
+    a round in a seeded random order, for at least 5 rounds and
+    ``seconds`` in all (at most 51 rounds), so a slow spell of the host
+    falls on all of them and none always follows the same one."""
+    import random
+    first = {name: time_ms(fn, 1) for name, fn in fns.items()}
+    rounds = max(5, min(51, int(seconds * 1e3 / sum(first.values()))))
+    ts = {name: [] for name in fns}
+    names = list(fns)
+    order = random.Random(SEED)
+    for _ in range(rounds):
+        order.shuffle(names)
+        for name in names:
+            ts[name].append(time_ms(fns[name], 1, warm=False))
+    return {name: statistics.median(t) for name, t in ts.items()}
+
+
+@contextlib.contextmanager
+def measured_candidates():
+    """For the span of the block, record every candidate the registry's
+    autotune times: ``(problem, plan, seconds)``, seconds ``None`` for a
+    candidate its backend refused (a skipped one)."""
+    from repro_torch.core import registry
+    seen = []
+    orig = registry._measure_plans
+
+    def measure(problem, plans):
+        secs = orig(problem, plans)
+        seen.extend((problem, p, t) for p, t in zip(plans, secs))
+        return secs
+
+    registry._measure_plans = measure
+    try:
+        yield seen
+    finally:
+        registry._measure_plans = orig
+
+
+def tiles_of(plan) -> dict:
+    return {key: val for key, val in (("n_b", plan.n_b), ("k_b", plan.k_b))
+            if val is not None}
+
+
+def plan_problem(sq, X, seqs) -> dict:
+    """``select_plan``'s arguments for ``sq`` over target ``X`` (a 3D
+    ``X`` with ``seqs``: one sequence a target)."""
+    b, m = (1, X.shape[0]) if X.ndim == 2 else X.shape[:2]
+    return dict(m=m, n=sq.n, k=sq.k, dtype="float32",
+                platform=X.device.type,
+                signs=sq.sign is not None, batch=b,
+                shared_sequence=seqs is None, live_planes=sq.k_live)
+
+
+def applier(pl, X, seqs):
+    if X.ndim == 2:
+        return lambda: pl.apply(X)
+    return lambda: pl.apply_batched(X, sequences=seqs)
+
+
+def autotune_point(label, sq, X, seqs, model, kernels, seen) -> dict:
+    """Autotune one point on the card, every kernel plan a candidate:
+    the candidates' ms, the launches and seconds of the measurements;
+    the pick's result held to ``cuda_wave``'s; the pick's, the model
+    pick's and each kernel's fastest measured plan's applications timed
+    alone in turns (``alone_ms``, the quantity autotune ranks by) and
+    back to back (``time_ms``)."""
+    import torch
+    from repro_torch.core import registry
+    prob = plan_problem(sq, X, seqs)
+    shared = seqs is None
+    for k in kernels.values():
+        k.LAUNCHES = 0
+    seen.clear()
+    t0 = time.perf_counter()
+    best = registry.select_plan(**prob, autotune=True,
+                                autotune_top=AUTOTUNE_TOP)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: k.LAUNCHES for name, k in kernels.items()}
+    skipped = [(p.method, tiles_of(p)) for _, p, t in seen if t is None]
+    timed = [(p, secs) for _, p, secs in seen if secs is not None]
+    check(not skipped, f"autotune {label}: skipped candidates {skipped}")
+    check(best.source == "measured", f"autotune {label}: {best.source}")
+    for name in ("rotseq_wave", "rotseq_mxu", "rotseq_batched"):
+        check(launches[name] > 0, f"autotune {label}: {name} never "
+              f"launched during the measurements")
+    tuned = sq.plan(like=X, shared_sequence=shared)
+    check(tuned.plan == best, f"autotune {label}: seq.plan gave "
+          f"{tuned.plan}, not the measured {best}")
+    wave = sq.plan(like=X, method="cuda_wave", shared_sequence=shared,
+                   **WAVE_TILES)
+    err = same_family(applier(tuned, X, seqs)(), applier(wave, X, seqs)(),
+                      [tuned.method], f"autotune {label}: the pick vs "
+                      f"cuda_wave")
+    # each kernel's fastest measured plan, and the pick, timed here
+    fastest = {}
+    for p, secs in sorted(timed, key=lambda t: t[1]):
+        fastest.setdefault(p.method, p)
+    check(set(fastest) >= set(KERNEL_OF),
+          f"autotune {label}: measured {sorted(fastest)}")
+    # the pick is its backend's fastest measured plan: its plan.apply
+    # stands for that backend; the model's pick is timed beside them
+    fns = {meth: applier(tuned if meth == best.method else sq.plan(
+        like=X, method=meth, shared_sequence=shared, n_b=p.n_b,
+        k_b=p.k_b), X, seqs) for meth, p in fastest.items()}
+    model_key = model.method if model.method in fastest and tiles_of(
+        fastest[model.method]) == tiles_of(model) else "model"
+    if model_key == "model":
+        fns["model"] = applier(sq.plan(
+            like=X, method=model.method, shared_sequence=shared,
+            n_b=model.n_b, k_b=model.k_b), X, seqs)
+    alone = alone_ms(fns)
+    b2b = {name: time_ms(fn, 3) for name, fn in fns.items()}
+    for times in (alone, b2b):
+        times["pick"], times["model"] = times[best.method], times[model_key]
+    # every kernel plan timed here (the model's pick is one too)
+    floor = min(alone[name] for name in (*KERNEL_OF, "model"))
+    row = dict(
+        problem={key: prob[key] for key in ("m", "n", "k", "batch",
+                                            "shared_sequence",
+                                            "live_planes")},
+        model={"method": model.method, "tiles": tiles_of(model),
+               "est_ms": model.est_seconds * 1e3},
+        candidates=[{"method": p.method, "tiles": tiles_of(p),
+                     "ms": secs * 1e3} for p, secs in timed],
+        pick={"method": best.method, "tiles": tiles_of(best),
+              "ms": best.est_seconds * 1e3},
+        launches=launches, autotune_s=seconds, err_vs_cuda_wave=err,
+        apply_ms_alone=alone, apply_ms_back_to_back=b2b,
+        pick_vs_fastest_kernel=alone["pick"] / floor,
+        model_vs_pick=alone["model"] / alone["pick"],
+        model_vs_pick_back_to_back=b2b["model"] / b2b["pick"])
+    check(alone["pick"] <= AUTOTUNE_SLACK * floor,
+          f"autotune {label}: the pick's application is more than "
+          f"{AUTOTUNE_SLACK} x the fastest kernel's: {json.dumps(row)}")
+    return row
+
+
+def autotune_persistence(points: dict, platform: str, seen) -> dict:
+    """The store after the points: one entry a measured key; cleared and
+    loaded, every entry ``persisted``; autotune at the paper shape then
+    measures nothing; a fresh process plans the paper shape from the
+    store; ``NEIGHBOUR`` borrows the paper shape's plan."""
+    import os
+    from repro_torch.core import registry
+    path = registry.plan_cache_path()
+    with open(path) as f:
+        keys = [tuple(e["key"]) for e in json.load(f)["plans"]]
+    measured = {key for key, p in registry._PLAN_CACHE.items()
+                if p.source == "measured"}
+    check(len(keys) == len(set(keys)) == len(points)
+          and set(keys) == measured,
+          f"plan store holds {keys}, measured {sorted(measured)}")
+    paper = registry.select_plan(M, N, K, platform=platform)
+    registry.clear_plan_cache()
+    loaded = registry.load_plan_cache()
+    sources = {p.source for p in registry._PLAN_CACHE.values()}
+    check(loaded == len(points) and sources == {"persisted"},
+          f"loaded {loaded} plans, sources {sources}")
+    seen.clear()
+    again = registry.select_plan(M, N, K, platform=platform,
+                                 autotune=True, autotune_top=AUTOTUNE_TOP)
+    check(again.source == "persisted" and not seen,
+          f"paper shape after loading: {again.source}, {len(seen)} "
+          f"measurements")
+    same = (again.method, again.n_b, again.k_b) == (paper.method,
+                                                    paper.n_b, paper.k_b)
+    check(same, f"persisted {again} != measured {paper}")
+    code = ("import json\n"
+            "from repro_torch.core import api, registry as r\n"
+            f"p = r.select_plan({M}, {N}, {K}, platform={platform!r})\n"
+            "print(json.dumps([p.source, p.method, p.n_b, p.k_b]))\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=300, check=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC))).stdout.splitlines()[-1]
+    fresh = json.loads(out)
+    check(fresh == ["persisted", paper.method, paper.n_b, paper.k_b],
+          f"a fresh process planned the paper shape as {fresh}")
+    near = registry.select_plan(*NEIGHBOUR, platform=platform)
+    check(near.source == "interpolated"
+          and (near.method, near.n_b, near.k_b) == (paper.method, paper.n_b,
+                                                    paper.k_b),
+          f"{NEIGHBOUR} planned {near}")
+    return dict(path_entries=len(keys), loaded=loaded,
+                paper_after_load=again.source, measured_after_load=len(seen),
+                fresh_process=fresh, neighbour=list(NEIGHBOUR),
+                neighbour_plan={"source": near.source, "method": near.method,
+                                "tiles": tiles_of(near)})
+
+
+def autotune_entry_points(bctx, rec, seen) -> dict:
+    """``RotationService(autotune=True)`` over the serving bucket and a 2D
+    ``DelayedRotationBuffer(autotune=True)`` fed the QR recording, each
+    measuring with the cache cleared, against ``autotune=False``."""
+    import torch
+    from repro_torch import RotationSequence
+    from repro_torch.core import registry
+    from repro_torch.eig import DelayedRotationBuffer
+    from repro_torch.serve import RotationService
+    A, seqs = bctx["A"], bctx["seqs"]
+    bucket = [(s, A[i]) for i, s in enumerate(seqs)]
+    registry.clear_plan_cache()
+    base_svc = RotationService(slots=B, store=False)
+    base = base_svc.apply_many(bucket)
+    (base_plan,) = base_svc._plans.values()
+    seen.clear()
+    svc = RotationService(slots=B, autotune=True, store=False)
+    outs = svc.apply_many(bucket)
+    (svc_plan,) = svc._plans.values()
+    check(svc_plan.plan.source == "measured" and seen,
+          "RotationService(autotune=True) measured nothing")
+    svc_err = max(same_family(o, b, [svc_plan.method, base_plan.method],
+                              f"RotationService autotune request {i}")
+                  for i, (o, b) in enumerate(zip(outs, base)))
+    svc_measured = len(seen)
+    registry.clear_plan_cache()
+    seen.clear()
+    buf = DelayedRotationBuffer(torch.eye(EIG_N, device=A.device),
+                                k_delay=EIG_K_DELAY, autotune=True)
+    V = buf.push_sequence(RotationSequence(
+        torch.from_numpy(rec["C"]), torch.from_numpy(rec["S"]))).value
+    (buf_plan,) = buf._plans.values()
+    check(buf_plan.plan.source == "measured" and seen
+          and len({id(prob) for prob, _, _ in seen}) == 1,
+          "DelayedRotationBuffer(autotune=True) did not measure once")
+    buf_err = same_family(V, rec["V_raw"], [buf_plan.method, rec["method"]],
+                          "DelayedRotationBuffer autotune vs the eig phase")
+    return dict(
+        rotation_service={"model": base_plan.method,
+                          "autotuned": svc_plan.method,
+                          "tiles": dict(svc_plan.kwargs),
+                          "measured": svc_measured, "err": svc_err},
+        delayed_buffer={"model": rec["method"], "autotuned": buf_plan.method,
+                        "tiles": dict(buf_plan.kwargs),
+                        "flushes": buf.flushes, "measured": len(seen),
+                        "err": buf_err})
+
+
+def autotune_phase(ctx, seq, bctx, rec, kernels) -> None:
+    """Measured autotune on the card at five points, float32, every kernel
+    plan a candidate: the planner's three, the serving bucket (one
+    sequence a request, live planes known) and the eig flush
+    ``(EIG_N, EIG_N, EIG_K_DELAY)`` (the first 32 waves of the QR
+    recording on an identity); then the persisted store round trip and
+    the entry points.  It runs after every phase that checks ``auto``'s
+    model pick (the LM phases after it plan no rotation): measured plans
+    are reused by plain ``auto`` calls and lent to nearby shapes."""
+    import torch
+    from repro_torch import RotationSequence
+    from repro_torch.core import registry
+    dev = ctx["A"].device
+    t0 = time.perf_counter()
+    points = {label: (sq, X, None)
+              for label, (sq, X, _) in planner_points(ctx, seq).items()}
+    points["serving bucket"] = (bctx["padded"][0], bctx["A"],
+                                bctx["padded"])
+    points[f"eig flush {EIG_N}^2 k{EIG_K_DELAY}"] = (RotationSequence(
+        torch.from_numpy(rec["C"][:, :EIG_K_DELAY]).float().to(dev),
+        torch.from_numpy(rec["S"][:, :EIG_K_DELAY]).float().to(dev)),
+        torch.eye(EIG_N, device=dev), None)
+    # the model's picks, before anything is measured
+    registry.clear_plan_cache()
+    model = {label: registry.select_plan(**plan_problem(sq, X, seqs))
+             for label, (sq, X, seqs) in points.items()}
+    check(all(p.source == "model" for p in model.values()),
+          "the model's picks were not the model's")
+    registry.clear_plan_cache()
+    with measured_candidates() as seen:
+        rows = {label: autotune_point(label, sq, X, seqs, model[label],
+                                      kernels, seen)
+                for label, (sq, X, seqs) in points.items()}
+        persistence = autotune_persistence(points, dev.type, seen)
+        entry = autotune_entry_points(bctx, rec, seen)
+    emit(phase="autotune", autotune_top=AUTOTUNE_TOP, slack=AUTOTUNE_SLACK,
+         points=rows, persistence=persistence, entry_points=entry,
+         seconds=time.perf_counter() - t0)
 
 
 def rope_inputs(dev, label: str, dtype, gen):
@@ -1370,6 +1685,15 @@ def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no port package under {SRC}", file=sys.stderr)
         return 1
+    # a fresh plan cache: plans persisted by an earlier run on this
+    # machine would change auto's picks in every phase
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        os.environ["REPRO_PLAN_CACHE"] = os.path.join(tmp, "plans.json")
+        return run()
+
+
+def run() -> int:
+    import torch
     sys.path.insert(0, str(SRC))
     from repro_torch import RotationSequence, random_sequence
     from repro_torch.core.accumulate import rot_sequence_accumulated
@@ -1550,8 +1874,13 @@ def main() -> int:
     entries["rotseq_batched"]["launches"] = served["rotseq_batched"]
 
     # -- the eigensolver path: recorded rotations flushed in batches ------
-    eig_phase(dev, {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
-                    "rotseq_batched": batched_k})
+    rec = eig_phase(dev, {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
+                          "rotseq_batched": batched_k})
+
+    # -- measured autotune, after every phase that checks auto's pick ------
+    autotune_phase(ctx, seq, bctx, rec, {"rotseq_wave": wave_k,
+                                         "rotseq_mxu": mxu_k,
+                                         "rotseq_batched": batched_k})
 
     # -- the LM serving path: SmolLM-135M through ServeEngine -------------
     entries["rope"] = rope_phase(dev)

@@ -13,7 +13,8 @@ callers that hold them.  ``method`` is one of:
   ``cuda_mxu``      CUDA accumulated kernel (counterpart of ``pallas_mxu``)
   ``cuda_batched``  CUDA fused batched kernel, one launch per batch of
                     targets (counterpart of ``rotseq_batched``)
-  ``auto``          the registry's cost model picks backend + tiles
+  ``auto``          the registry picks backend + tiles (cost model, or
+                    measured with ``autotune=True``)
 
 The CUDA backends run their kernels on CUDA tensors and their plain
 versions on CPU tensors; off the card the cost model penalises them so
@@ -145,17 +146,24 @@ registry.register(BackendSpec(
 
 METHODS = registry.registered_methods()
 
+# persisted plans are checked against the registry, so they load once
+# every backend above is registered, not when the registry is imported
+registry.load_plan_cache()
+
 
 def apply_rotation_sequence(A, C, S, *, method: str = "accumulated",
                             n_b: int | None = None, k_b: int | None = None,
-                            reflect: bool = False, G=None, **kw):
+                            reflect: bool = False, G=None,
+                            autotune: bool = False, **kw):
     """Apply the rotation sequence ``(C, S)`` to ``A`` from the right.
 
     Wraps the loose arrays in a :class:`RotationSequence` and runs one
     freshly resolved plan with the backend's own autograd
-    (``apply_direct``).  Empty sequences are the identity under every
-    method.
+    (``apply_direct``).  ``autotune=True`` measures the candidate plans
+    under ``method="auto"``.  Empty sequences are the identity under
+    every method.
     """
     seq = RotationSequence(C, S, G, reflect)
-    plan = seq.plan(like=A, method=method, n_b=n_b, k_b=k_b, **kw)
+    plan = seq.plan(like=A, method=method, n_b=n_b, k_b=k_b,
+                    autotune=autotune, **kw)
     return plan.apply_direct(A)

@@ -134,10 +134,11 @@ def jacobi_apply_basis(res: JacobiResult, M=None, *, method="auto",
 
     ``jacobi_apply_basis(res)`` returns the eigenvector matrix ``V``;
     ``jacobi_apply_basis(res, G)`` computes ``G @ V`` without forming
-    ``V``.  Dispatch goes through ``seq.plan``: ``method="auto"`` lets
-    the cost model pick the backend and tiles (the sign-carrying
-    sequence restricts it to backends that take signs); a named method
-    keeps the seed tiles ``n_b=64, k_b=16``.
+    ``V``.  Dispatch goes through ``seq.plan``, which also takes the
+    other keywords (``autotune=True``, say): ``method="auto"`` lets the
+    cost model pick the backend and tiles (the sign-carrying sequence
+    restricts it to backends that take signs); a named method keeps the
+    seed tiles ``n_b=64, k_b=16``.
     """
     seq = res.rotation_sequence()
     if M is None:

@@ -31,10 +31,15 @@ plane rate measured on an H100 (:data:`_WAVE_PLANE_SECONDS`,
 launch takes the planes of one chain times the time of one, for as many
 rows as the card runs at once (:data:`repro_torch.hw.RESIDENT_ROWS`).
 
-The persisted plan cache, cross-shape interpolation, measured autotune
-and sharded communication term are not ported yet; of the persistence
-layer only what the serve-plan store needs is here (:func:`plan_cache_path`
-and the versioned JSON helpers).
+Measured autotune (``select_plan(..., autotune=True)``) times the top
+modeled plans on the problem's own platform (CUDA events on the card) and
+caches the fastest as ``source="measured"``; measured plans persist to a
+JSON store keyed by the torch/CUDA build (:func:`save_plan_cache`,
+:func:`load_plan_cache`) and lend their decision to unmeasured shapes of
+the same class nearby (cross-shape interpolation).  Not ported yet: the
+sharded slot of the plan key and its communication term (ROADMAP Queue 1
+item 9) and the plan-cache counters and ``resolve`` span (item 10);
+:func:`plan_cache_stats` is a plain dict.
 """
 from __future__ import annotations
 
@@ -43,8 +48,10 @@ import json
 import math
 import os
 import tempfile
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.hw import PLATFORMS, RESIDENT_ROWS, Hardware
@@ -60,7 +67,8 @@ __all__ = [
     "cost_accumulated", "cost_cuda_wave", "cost_cuda_mxu",
     "cost_cuda_batched",
     "select_plan", "plan_cache_stats", "clear_plan_cache",
-    "cost_components", "plan_cache_path",
+    "cost_components", "plan_cache_path", "save_plan_cache",
+    "load_plan_cache",
 ]
 
 # A CUDA kernel asked for off the card runs its plain version, orders of
@@ -593,6 +601,9 @@ def cuda_mxu_tiles(p: Problem) -> List[Plan]:
 
 _PLAN_CACHE: Dict[tuple, Plan] = {}
 _CACHE_STATS = {"hits": 0, "misses": 0}
+# plan sources that come from a measurement on this torch/CUDA build: the
+# ones written to disk, lent to nearby shapes and taken by autotune as is
+_PERSISTED_SOURCES = ("measured", "persisted")
 
 
 def plan_cache_stats() -> dict:
@@ -605,6 +616,8 @@ def clear_plan_cache() -> None:
 
 
 def _plan_key(problem: Problem) -> tuple:
+    """``(m, n, k, dtype, platform, signs, batch, shared_sequence)``, plus
+    ``("live", live_planes)`` when the live planes are known."""
     key = (problem.m, problem.n, problem.k, problem.dtype,
            problem.platform, problem.signs, problem.batch,
            problem.shared_sequence)
@@ -613,6 +626,25 @@ def _plan_key(problem: Problem) -> tuple:
         # share an entry with the dense grid of the same shape
         key = key + ("live", problem.live_planes)
     return key
+
+
+def _split_key(key: tuple):
+    """Decode a :func:`_plan_key`: ``((m, n, k, batch), class,
+    live_fraction)``.
+
+    ``class`` is ``(dtype, platform, signs, shared_sequence)``: a shared
+    sequence and one sequence a request are distinct classes, as dense
+    and live-annotated keys are (``live_fraction`` is ``None`` for a
+    dense key, else the live planes over ``(n-1) * k``).  Raises
+    ``ValueError`` for a tuple of another layout (the reference's, say).
+    """
+    if len(key) not in (8, 10) or (len(key) == 10 and key[8] != "live"):
+        raise ValueError(f"not a plan key of this package: {key!r}")
+    m, n, k, dtype, platform, signs, batch, shared = key[:8]
+    frac = None
+    if len(key) == 10:
+        frac = max(1, int(key[9])) / max(1, (n - 1) * k)
+    return (m, n, k, batch), (dtype, platform, signs, shared), frac
 
 
 def _modeled_plans(problem: Problem) -> List[Plan]:
@@ -638,25 +670,293 @@ def _modeled_plans(problem: Problem) -> List[Plan]:
     return plans
 
 
+# --------------------------------------------------------------------------
+# cross-shape interpolation
+# --------------------------------------------------------------------------
+
+# Largest summed |log(m/m')| + |log(n/n')| + |log(k/k')| + |log(b/b')|
+# (+ the live-fraction term) at which a measured plan still transfers:
+# about 4x a dimension.  Further out the regime can differ (resident vs
+# streaming, latency- vs issue-bound) and the cost model is the better
+# guess.
+_INTERP_MAX_LOGDIST = 3 * math.log(4.0)
+
+
+def _interpolated_plan(problem: Problem, key: tuple) -> Optional[Plan]:
+    """Borrow the nearest measured plan for an unmeasured shape.
+
+    The donor is a measured or persisted entry of the same class
+    (:func:`_split_key`) whose backend this problem is eligible for,
+    nearest by log-distance over ``(m, n, k, batch)`` (plus the
+    live-fraction ratio between live-annotated keys) and within
+    :data:`_INTERP_MAX_LOGDIST`.  The borrowed plan keeps the donor's
+    backend and tiles, is re-costed by the model for this problem, and
+    is marked ``source="interpolated"``: never persisted, upgraded in
+    place by a later ``autotune=True`` call.
+    """
+    eligible = {spec.name for spec in eligible_backends(problem)}
+    best: Optional[Plan] = None
+    best_dist = _INTERP_MAX_LOGDIST
+    (m1, n1, k1, b1), cls1, frac1 = _split_key(key)
+    for cached_key, plan in _PLAN_CACHE.items():
+        if plan.source not in _PERSISTED_SOURCES:
+            continue
+        (m2, n2, k2, b2), cls2, frac2 = _split_key(cached_key)
+        if cls2 != cls1 or (frac2 is None) != (frac1 is None):
+            continue
+        if plan.method not in eligible or min(m2, n2, k2, b2) < 1:
+            continue
+        dist = (abs(math.log(m1 / m2)) + abs(math.log(n1 / n2))
+                + abs(math.log(k1 / k2)) + abs(math.log(b1 / b2)))
+        if frac1 is not None:
+            dist += abs(math.log(frac1 / frac2))
+        if dist < best_dist:
+            best, best_dist = plan, dist
+    if best is None:
+        return None
+    # the donor's measured time belongs to the donor's shape
+    borrowed = dataclasses.replace(best, source="interpolated")
+    return dataclasses.replace(
+        borrowed, est_seconds=get_backend(best.method).cost(problem,
+                                                            borrowed))
+
+
+# --------------------------------------------------------------------------
+# measured autotune
+# --------------------------------------------------------------------------
+
+def _can_measure(platform: str) -> bool:
+    """Whether this process can time a problem of ``platform``: the host
+    always, the card only where there is one."""
+    return platform == "cpu" or (platform == "cuda"
+                                 and torch.cuda.is_available())
+
+
+def _priced_off_device(method: str, platform: str) -> bool:
+    """Whether ``method`` carries :data:`_OFF_DEVICE_PENALTY` on
+    ``platform``: a CUDA kernel off the card, a plain backend on it."""
+    return get_backend(method).capability.needs_kernel != (platform
+                                                           == "cuda")
+
+
+def _synthetic_waves(problem: Problem, rng):
+    """One ``(C, S, G)`` float64 numpy draw matching the problem record.
+
+    Drawn exactly as the reference draws it, so the same generator gives
+    the same waves bit for bit.  ``problem.signs`` adds a per-entry sign
+    grid, so sign-carrying plans are timed on the path they will serve;
+    a ``live_planes`` bound identity-pads the trailing waves, so the
+    plane-skipping backend is timed on about the live grid it will run.
+    """
+    th = rng.standard_normal((problem.n - 1, problem.k))
+    Cn, Sn = np.cos(th), np.sin(th)
+    if problem.live_planes is not None \
+            and problem.live_planes < problem.planes_total:
+        live_waves = math.ceil(problem.live_planes
+                               / max(1, problem.n - 1))
+        Cn[:, live_waves:] = 1.0
+        Sn[:, live_waves:] = 0.0
+    Gn = None
+    if problem.signs:
+        Gn = np.where(rng.random((problem.n - 1, problem.k)) < 0.5,
+                      1.0, -1.0)
+        # identity padding stays a rotation (a padded reflector is live)
+        Gn[(Cn == 1.0) & (Sn == 0.0)] = -1.0
+    return Cn, Sn, Gn
+
+
+# Autotune times its candidates in turns, one call of each a round, for
+# at least _MEASURE_MIN_ROUNDS rounds (the reference's two calls) and
+# this many seconds a candidate in all (at most _MEASURE_MAX_ROUNDS
+# rounds): a candidate of a fraction of a millisecond on the card is
+# paced by its host work, which varies from spell to spell on a shared
+# host, so candidates timed one after another, two calls each, can rank
+# by the spell they fell in.
+_MEASURE_SECONDS = 0.02
+_MEASURE_MIN_ROUNDS = 2
+_MEASURE_MAX_ROUNDS = 200
+
+
+def _time_call(fn: Callable, device: torch.device) -> float:
+    """Seconds of one call of ``fn``.  On the card the call lies between
+    two CUDA events with a synchronize before the first and after the
+    second, so the time holds the backend's own host work between its
+    launches; on the host, ``time.perf_counter`` around the call."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / 1e3
+
+
+def _time_medians(fns: List[Callable],
+                  device: torch.device) -> List[float]:
+    """Median seconds of one call of each of ``fns``, which were called
+    once each already (the warm call): rounds of one call each, in a
+    seeded random order a round (so no function always follows the same
+    one, whose traffic leaves the caches in one state), at least
+    :data:`_MEASURE_MIN_ROUNDS` rounds and more while the rounds took
+    under :data:`_MEASURE_SECONDS` a function."""
+    ts: List[List[float]] = [[] for _ in fns]
+    order = np.random.default_rng(0)
+    rounds = 0
+    while rounds < _MEASURE_MIN_ROUNDS or (
+            sum(map(sum, ts)) < _MEASURE_SECONDS * len(fns)
+            and rounds < _MEASURE_MAX_ROUNDS):
+        for i in order.permutation(len(fns)):
+            ts[i].append(_time_call(fns[i], device))
+        rounds += 1
+    return [sorted(t)[len(t) // 2] for t in ts]
+
+
+def _synthetic_workload(problem: Problem):
+    """``(bind, device)``: the problem's synthetic inputs on its device,
+    drawn once from ``default_rng(0)`` as the reference draws them for
+    each candidate, and ``bind(plan)``, one application at ``plan``'s
+    tiles.
+
+    A shared-sequence batch runs flattened through ``spec.fn`` as the
+    ``(batch*m, n)`` problem dispatch runs.  A per-request batch runs
+    ``batch`` distinct sequences through ``SequencePlan.apply_batched(A,
+    sequences=..., direct=True)``: the route (fused launch, vmap or
+    loop) and the per-sequence setup that serving pays.  The waves match
+    the problem record (:func:`_synthetic_waves`).
+    """
+    # deferred: sequence.py imports this module
+    from repro_torch.core import sequence as _sequence
+
+    device = torch.device(problem.platform)
+    dt = getattr(torch, problem.dtype)
+    rng = np.random.default_rng(0)
+
+    def put(x):
+        return None if x is None else torch.from_numpy(x).to(device, dt)
+
+    if problem.sequences > 1:
+        A = put(rng.standard_normal((problem.batch, problem.m, problem.n)))
+        seqs = []
+        for _ in range(problem.batch):
+            Cn, Sn, Gn = _synthetic_waves(problem, rng)
+            seq = _sequence.RotationSequence(put(Cn), put(Sn), put(Gn))
+            if problem.live_planes is not None:
+                seq = dataclasses.replace(seq, k_live=min(
+                    problem.live_planes, problem.planes_total))
+            seqs.append(seq)
+
+        def bind(plan: Plan) -> Callable:
+            sp = _sequence.SequencePlan(
+                seqs[0], plan.method, tuple(sorted(plan.kwargs().items())),
+                plan)
+            return lambda: sp.apply_batched(A, sequences=seqs, direct=True)
+    else:
+        A = put(rng.standard_normal((problem.m_total, problem.n)))
+        C, S, G = (put(x) for x in _synthetic_waves(problem, rng))
+
+        def bind(plan: Plan) -> Callable:
+            spec, kw = get_backend(plan.method), plan.kwargs()
+            return lambda: spec.fn(A, C, S, reflect=False, G=G, **kw)
+    return bind, device
+
+
+def _measure_plans(problem: Problem,
+                   plans: List[Plan]) -> List[Optional[float]]:
+    """Median seconds of one real application at each plan's tiles, the
+    candidates timed in turns (:func:`_time_medians`) after one warm call
+    each; ``None`` for a plan whose backend refused the arguments with
+    ``ValueError`` on that warm call (its own checks, before a launch).
+    Any other exception propagates."""
+    bind, device = _synthetic_workload(problem)
+    fns: List[Optional[Callable]] = []
+    for plan in plans:
+        fn = bind(plan)
+        try:
+            fn()
+        except ValueError:
+            fn = None
+        fns.append(fn)
+    timed = iter(_time_medians([fn for fn in fns if fn is not None],
+                               device))
+    return [None if fn is None else next(timed) for fn in fns]
+
+
+def _autotune_candidates(problem: Problem, plans: List[Plan],
+                         cached: Optional[Plan], top: int) -> List[Plan]:
+    """The plans autotune measures: the top ``top`` modeled ones; for a
+    per-request batch also the best plan of every other eligible backend
+    that is not priced off its device; and an interpolated entry being
+    upgraded."""
+    candidates = plans[:max(1, top)]
+    if problem.sequences > 1:
+        seen = {pl.method for pl in candidates}
+        for pl in plans:
+            if pl.method not in seen \
+                    and not _priced_off_device(pl.method, problem.platform):
+                seen.add(pl.method)
+                candidates.append(pl)
+    if cached is not None and cached.source == "interpolated" and not any(
+            (pl.method, pl.n_b, pl.k_b)
+            == (cached.method, cached.n_b, cached.k_b) for pl in candidates):
+        candidates.append(cached)
+    return candidates
+
+
 def select_plan(m: int, n: int, k: int, *, dtype: str = "float32",
                 platform: str = "cuda", signs: bool = False,
                 batch: int = 1, shared_sequence: bool = True,
-                live_planes: Optional[int] = None) -> Plan:
+                live_planes: Optional[int] = None, autotune: bool = False,
+                autotune_top: int = 3) -> Plan:
     """Pick ``(method, n_b, k_b)`` for a problem, with caching.
 
-    Cost-model ranking, cached per ``(m, n, k, dtype, platform, signs,
-    batch, shared_sequence)`` plus ``("live", live_planes)`` when the
-    live planes are known.
+    Plans are cached per :func:`_plan_key`.  A miss first borrows the
+    nearest measured plan of its class (:func:`_interpolated_plan`,
+    ``source="interpolated"``), else ranks by the cost model
+    (``source="model"``).
+
+    ``autotune=True`` takes a measured or persisted entry as it is and
+    otherwise measures: the top ``autotune_top`` modeled plans, an
+    interpolated entry being upgraded, and for a per-request batch
+    (``shared_sequence=False``) the best plan of each other eligible
+    backend, timed through the batched route on ``batch`` distinct
+    sequences (:func:`_measure_plans`).  The fastest is cached as
+    ``source="measured"`` (reused by later plain calls) and written
+    through :func:`save_plan_cache`.
+    Measurement needs the problem's platform here (``"cpu"``, or
+    ``"cuda"`` with a card); elsewhere ``autotune`` ranks by the model.
+
+    Three port rules differ from the reference:
+
+    * The candidates are timed in turns, one call of each a round, on
+      inputs drawn once, not one candidate after another: on the card's
+      shared host the spell a candidate fell in could rank it.
+
+    * The per-request widening takes only backends that are not priced
+      with :data:`_OFF_DEVICE_PENALTY` on the platform.  The penalised
+      ones are eager step loops on the card (or a kernel's plain
+      version on the host), seconds a call at a serving bucket, and
+      cannot win.
+    * A candidate is skipped only when its backend refuses the
+      arguments with ``ValueError`` in its own checks, before a launch.
+      Any other exception (a failed build or launch) propagates: a
+      kernel fault never hands the pick to another backend.
     """
     batch = max(1, int(batch))
     shared_sequence = bool(shared_sequence) or batch <= 1
+    autotune = autotune and _can_measure(platform)
     problem = Problem(m=m, n=n, k=k, dtype=dtype, platform=platform,
                       signs=signs, batch=batch,
                       shared_sequence=shared_sequence,
                       live_planes=live_planes)
     key = _plan_key(problem)
     cached = _PLAN_CACHE.get(key)
-    if cached is not None:
+    if cached is not None and (not autotune
+                               or cached.source in _PERSISTED_SOURCES):
         _CACHE_STATS["hits"] += 1
         return cached
     _CACHE_STATS["misses"] += 1
@@ -664,24 +964,46 @@ def select_plan(m: int, n: int, k: int, *, dtype: str = "float32",
         # zero rotations: application is a no-op
         best = Plan(method="blocked" if signs else "unoptimized",
                     est_seconds=0.0)
-    else:
-        plans = _modeled_plans(problem)
-        if not plans:
-            raise ValueError(f"no registered backend is eligible for "
-                             f"{problem}")
-        best = plans[0]
+        _PLAN_CACHE[key] = best
+        return best
+    if not autotune:
+        borrowed = _interpolated_plan(problem, key)
+        if borrowed is not None:
+            _PLAN_CACHE[key] = borrowed
+            return borrowed
+    plans = _modeled_plans(problem)
+    if not plans:
+        raise ValueError(f"no registered backend is eligible for "
+                         f"{problem}")
+    best = plans[0]
+    if autotune:
+        candidates = _autotune_candidates(problem, plans, cached,
+                                          autotune_top)
+        timed = [dataclasses.replace(plan, est_seconds=secs,
+                                     source="measured")
+                 for plan, secs in zip(candidates,
+                                       _measure_plans(problem, candidates))
+                 if secs is not None]
+        if timed:
+            best = min(timed, key=lambda pl: pl.est_seconds)
     _PLAN_CACHE[key] = best
+    if best.source == "measured":
+        save_plan_cache()  # no-op when persistence is off
     return best
 
 
 # --------------------------------------------------------------------------
-# versioned JSON stores (the serve-plan store)
+# versioned JSON stores (the plan cache and the serve-plan store)
 # --------------------------------------------------------------------------
 #
 # ``REPRO_PLAN_CACHE`` overrides the path, as in the reference; the empty
 # string, ``off``, ``0`` or ``none`` turn persistence off (the test suite
 # does, through tests/conftest.py).  Stores are keyed by the running torch
-# and CUDA versions: a decision made under one build does not transfer.
+# and CUDA versions: a measurement made under one build does not transfer.
+# The key names no card: a plan measured on another card of the same
+# build loads as it is (as the reference's "gpu" does).
+
+_PLAN_CACHE_FORMAT = 1
 
 _PLAN_CACHE_ENV = "REPRO_PLAN_CACHE"
 
@@ -736,3 +1058,72 @@ def _atomic_write_json(path: str, payload: dict,
     except OSError:
         return None
     return path
+
+
+def save_plan_cache(path: Optional[str] = None) -> Optional[str]:
+    """Write every measured or persisted plan to disk, atomically.
+
+    Entries already on disk (same format and build) that this process
+    does not hold are merged in first, a best-effort courtesy to other
+    processes autotuning other shapes: the unlocked read-merge-replace
+    can lose a plan to a race, which is then measured again, never
+    corrupted.  Returns the path written, or ``None`` when persistence
+    is off, there is nothing to save or the write failed.
+    """
+    path = path or plan_cache_path()
+    if path is None:
+        return None
+    merged: Dict[tuple, dict] = {}
+    on_disk = _read_versioned_json(path, _PLAN_CACHE_FORMAT)
+    if on_disk is not None:
+        for entry in on_disk.get("plans", []):
+            try:
+                merged[tuple(entry["key"])] = entry
+            except (KeyError, TypeError):
+                continue
+    for key, plan in _PLAN_CACHE.items():
+        if plan.source in _PERSISTED_SOURCES:
+            merged[key] = {"key": list(key), "method": plan.method,
+                           "n_b": plan.n_b, "k_b": plan.k_b,
+                           "est_seconds": plan.est_seconds}
+    if not merged:
+        return None
+    payload = {"format": _PLAN_CACHE_FORMAT, "torch": _version_str(),
+               "plans": list(merged.values())}
+    return _atomic_write_json(path, payload, prefix=".plans.")
+
+
+def load_plan_cache(path: Optional[str] = None) -> int:
+    """Merge persisted plans into the in-memory cache; returns the count.
+
+    A missing, corrupt or stale file (another format, torch or CUDA
+    build) loads nothing.  Entries of another key layout or for a
+    backend not registered are dropped, and an in-memory measured entry
+    wins over disk.  Call it once every backend is registered
+    (``core/api.py`` does, at import).
+    """
+    path = path or plan_cache_path()
+    if path is None:
+        return 0
+    payload = _read_versioned_json(path, _PLAN_CACHE_FORMAT)
+    if payload is None:
+        return 0
+    loaded = 0
+    for entry in payload.get("plans", []):
+        try:
+            key = tuple(entry["key"])
+            _split_key(key)
+            cached = _PLAN_CACHE.get(key)
+            plan = Plan(method=str(entry["method"]), n_b=entry.get("n_b"),
+                        k_b=entry.get("k_b"),
+                        est_seconds=float(entry.get("est_seconds", 0.0)),
+                        source="persisted")
+        except (KeyError, TypeError, ValueError):
+            continue
+        if plan.method not in _REGISTRY:
+            continue
+        if cached is not None and cached.source == "measured":
+            continue
+        _PLAN_CACHE[key] = plan
+        loaded += 1
+    return loaded

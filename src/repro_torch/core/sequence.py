@@ -8,8 +8,9 @@ Mirror of :mod:`repro.core.sequence` in PyTorch.
   ``seq1 @ seq2`` concatenates waves, ``seq[i:j]`` slices them and
   :meth:`~RotationSequence.pad_to` identity-pads.
 * ``plan = seq.plan(like=A)`` resolves the backend registry once
-  (capability filter, SS6 cost model, plan cache) for the device of
-  ``A``; ``plan.apply(A)`` then calls the chosen backend directly.
+  (capability filter, SS6 cost model or measured autotune, plan cache)
+  for the device of ``A``; ``plan.apply(A)`` then calls the chosen
+  backend directly.
 * ``plan.apply`` is a :class:`torch.autograd.Function`: application is
   linear in ``A``, so its backward is one application of ``seq.T``
   through the same planned backend.  The sequence is a constant.
@@ -365,9 +366,10 @@ class RotationSequence:
 
     # -- execution ---------------------------------------------------------
     def plan(self, like=None, *, m: Optional[int] = None,
-             method: str = "auto", batch: Optional[int] = None,
-             shared_sequence: bool = True, n_b: Optional[int] = None,
-             k_b: Optional[int] = None, **kw) -> "SequencePlan":
+             method: str = "auto", autotune: bool = False,
+             batch: Optional[int] = None, shared_sequence: bool = True,
+             n_b: Optional[int] = None, k_b: Optional[int] = None,
+             **kw) -> "SequencePlan":
         """Resolve the registry once into a frozen :class:`SequencePlan`.
 
         ``like`` (a tensor) supplies the row count, dtype and device of
@@ -379,9 +381,12 @@ class RotationSequence:
         ``b`` times.  The sequence's ``k_live`` reaches the cost model as
         its live planes.  Without ``like`` the sequence's own dtype and
         device stand in.  ``method="auto"`` runs the capability filter
-        and cost model through the plan cache; a named method keeps the
-        seed tiles (``n_b=64, k_b=16``, those a tiled backend takes).
-        Explicit ``n_b``/``k_b`` override both.
+        and cost model through the plan cache, or with ``autotune=True``
+        measures the candidates on the target's device
+        (:func:`~repro_torch.core.registry.select_plan`); a named method
+        keeps the seed tiles (``n_b=64, k_b=16``, those a tiled backend
+        takes).  Explicit ``n_b``/``k_b`` override both.  Other keywords
+        reach the backend.
         """
         _ensure_backends()
         like_shape = getattr(like, "shape", None)
@@ -409,7 +414,8 @@ class RotationSequence:
             plan = registry.select_plan(
                 m, n, k, dtype=dtype, platform=torch.device(device).type,
                 signs=self.sign is not None, batch=batch,
-                shared_sequence=shared_sequence, live_planes=self.k_live)
+                shared_sequence=shared_sequence, live_planes=self.k_live,
+                autotune=autotune)
             planned = plan.kwargs()
             if n_b is not None:
                 planned["n_b"] = n_b

@@ -36,7 +36,7 @@ import torch
 from repro_torch.core.sequence import (RotationSequence, _as_tensor,
                                        resolve_device)
 
-from .delayed import DelayedRotationBuffer, refuse_unported
+from .delayed import DelayedRotationBuffer
 from .qr_shift import tridiag_qr
 from .svd import bidiag_qr, bidiagonalize
 from .tridiag import _host64, tridiagonalize
@@ -81,7 +81,9 @@ def eigh_givens(A, *, method: str = "qr", k_delay: int = 32,
       k_delay: delayed-application batch depth (waves per flush).
       apply_method: dispatch method for the basis accumulation
         (``"auto"``: the registry's cost model).
-      autotune: not ported yet (raises ``NotImplementedError``).
+      autotune: measure the candidate plans of the basis accumulation
+        when it is first planned (the first flush, or the Jacobi
+        application).
       cycles: Jacobi cycles (``method="jacobi"`` only).
       tol / max_sweeps: QR deflation threshold and sweep budget.
       device: where an array input goes (default the card); a tensor
@@ -90,7 +92,6 @@ def eigh_givens(A, *, method: str = "qr", k_delay: int = 32,
     Returns ``EighResult(eigenvalues, eigenvectors)`` with ascending
     eigenvalues, ``A @ V == V @ diag(w)`` to the dtype's accuracy.
     """
-    refuse_unported(autotune=autotune)
     n = A.shape[0]
     if tuple(A.shape) != (n, n):
         raise ValueError(f"eigh_givens expects square input, got "
@@ -105,7 +106,7 @@ def eigh_givens(A, *, method: str = "qr", k_delay: int = 32,
 
         H = _as_tensor(A, dev).to(dtype)
         res = jacobi_eigh(H, cycles=cycles)
-        V = jacobi_apply_basis(res, method=apply_method)
+        V = jacobi_apply_basis(res, method=apply_method, autotune=autotune)
         w = res.eigenvalues
         order = torch.argsort(w, stable=True)
         return EighResult(w[order], V[:, order])
@@ -117,7 +118,8 @@ def eigh_givens(A, *, method: str = "qr", k_delay: int = 32,
     qr = tridiag_qr(tri.diag, tri.offdiag, tol=tol, max_sweeps=max_sweeps)
     _warn_unconverged("eigh_givens", qr.converged, qr.sweeps)
     buf = DelayedRotationBuffer(torch.eye(n, dtype=dtype, device=dev),
-                                k_delay=k_delay, method=apply_method)
+                                k_delay=k_delay, method=apply_method,
+                                autotune=autotune)
     # V = Q_tri @ U_qr: both recordings share the (n-1, .) plane layout,
     # so they stream through the buffer as one composed sequence
     buf.push_sequence(RotationSequence(torch.from_numpy(tri.cos),
@@ -140,14 +142,13 @@ def svd_givens(A, *, k_delay: int = 32, apply_method: str = "auto",
     full_matrices=False)``'s conventions: descending non-negative ``s``,
     ``A ~= U @ diag(s) @ Vt``.  With ``full_matrices=True`` the trailing
     null-space columns of the tall factor are kept.  Placement and dtype
-    as in :func:`eigh_givens`.
+    as in :func:`eigh_givens`, and so is ``autotune``.
     """
-    refuse_unported(autotune=autotune)
     m, n = A.shape
     dtype, dev = _target(A, device)
     if m < n:
         r = svd_givens(A.T, k_delay=k_delay, apply_method=apply_method,
-                       tol=tol, max_sweeps=max_sweeps,
+                       autotune=autotune, tol=tol, max_sweeps=max_sweeps,
                        full_matrices=full_matrices, device=device)
         return SvdResult(r.Vt.T, r.s, r.U.T)
     if n == 0:
@@ -162,7 +163,7 @@ def svd_givens(A, *, k_delay: int = 32, apply_method: str = "auto",
     def accumulate(size, *recordings):
         buf = DelayedRotationBuffer(
             torch.eye(size, dtype=dtype, device=dev), k_delay=k_delay,
-            method=apply_method)
+            method=apply_method, autotune=autotune)
         for C, S in recordings:
             buf.push_sequence(RotationSequence(torch.from_numpy(C),
                                                torch.from_numpy(S)))

@@ -7,9 +7,10 @@ eigen/singular-vector accumulator in bulk: a
 device and queues waves until ``k_delay`` are pending, then flushes
 them as one :class:`~repro_torch.core.sequence.RotationSequence`
 through a cached frozen :class:`~repro_torch.core.sequence.SequencePlan`.
-The registry is consulted on the first flush of each ``(k, signs)``
-shape only; every later flush rebinds the plan to the fresh waves and
-calls the chosen backend directly (on the card, one of the hand-written
+The registry (cost model and plan cache, or measured autotune) is
+consulted on the first flush of each ``(k, signs)`` shape only; every
+later flush rebinds the plan to the fresh waves and calls the chosen
+backend directly (on the card, one of the hand-written
 kernels: ``cuda_wave`` or ``cuda_mxu`` for a ``(m, n)`` accumulator,
 ``cuda_batched`` or a flattened route for ``(b, m, n)``).
 
@@ -18,8 +19,8 @@ an exact no-op) so every flush presents the same ``(n-1, k_delay)``
 problem and reuses the same plan.
 
 Not ported yet: the ``mesh``/``row_axes`` sharded flush (ROADMAP Queue 1
-item 9), measured autotune (item 15) and the telemetry spans and
-counters (item 10); ``stats`` counts what the counters counted.
+item 9) and the telemetry spans and counters (item 10); ``stats``
+counts what the counters counted.
 """
 from __future__ import annotations
 
@@ -33,16 +34,12 @@ from repro_torch.core.sequence import RotationSequence, _as_tensor
 __all__ = ["DelayedRotationBuffer"]
 
 
-def refuse_unported(*, autotune: bool = False, mesh=None,
-                    row_axes=("data",)) -> None:
+def refuse_unported(*, mesh=None, row_axes=("data",)) -> None:
     """Raise for the reference's options the port does not have yet."""
     if mesh is not None or tuple(row_axes) != ("data",):
         raise NotImplementedError(
             "sharded accumulation (mesh=..., row_axes=...) is not ported "
             "yet (ROADMAP Queue 1 item 9)")
-    if autotune:
-        raise NotImplementedError(
-            "measured autotune is not ported yet (ROADMAP Queue 1 item 15)")
 
 
 class DelayedRotationBuffer:
@@ -56,19 +53,21 @@ class DelayedRotationBuffer:
         on its device; an array goes to the card.
       k_delay: waves buffered per flush (the SS5.1 delay depth).
       method: dispatch method for the flushes; ``"auto"`` consults the
-        registry's cost model once per flush shape.
+        registry once per flush shape.
+      autotune: measure the candidate plans when a flush shape is first
+        resolved (``"auto"`` only); later flushes rebind that plan.
       pad_flush: identity-pad a partial flush to ``k_delay`` waves.
       apply_kw: extra plan keywords (explicit ``n_b``/``k_b``, say)
         forwarded to ``RotationSequence.plan``.
 
-    ``autotune=True``, ``mesh`` and a ``row_axes`` other than the
-    default raise ``NotImplementedError``.
+    ``mesh`` and a ``row_axes`` other than the default raise
+    ``NotImplementedError``.
     """
 
     def __init__(self, M, *, k_delay: int = 32, method: str = "auto",
                  autotune: bool = False, pad_flush: bool = True,
                  mesh=None, row_axes=("data",), **apply_kw):
-        refuse_unported(autotune=autotune, mesh=mesh, row_axes=row_axes)
+        refuse_unported(mesh=mesh, row_axes=row_axes)
         if k_delay < 1:
             raise ValueError(f"k_delay must be >= 1, got {k_delay}")
         self._M = _as_tensor(M, None)
@@ -78,6 +77,7 @@ class DelayedRotationBuffer:
                 f"got {tuple(self._M.shape)}")
         self.k_delay = int(k_delay)
         self.method = method
+        self.autotune = bool(autotune)
         self.pad_flush = bool(pad_flush)
         self.apply_kw = dict(apply_kw)
         self.planes = self._M.shape[-1] - 1
@@ -202,7 +202,8 @@ class DelayedRotationBuffer:
             # basis of the (b, m, n) stack: a shared-sequence batch, so
             # the registry prices per-sequence setup once
             plan = seq.plan(like=self._M, method=self.method,
-                            shared_sequence=True, **self.apply_kw)
+                            autotune=self.autotune, shared_sequence=True,
+                            **self.apply_kw)
             self._plans[plan_key] = plan
         else:
             plan = plan.rebind(seq)

@@ -15,9 +15,10 @@ holds every result against per-request application)::
 
 ``--stream`` drives the continuous-batching ``StreamEngine`` over the
 same stream instead (``--check``: bit for bit against the synchronous
-service).  ``--device`` is ``cuda`` by default; the reference's
-``--metrics-json``, ``--trace`` and ``--autotune`` wait for the
-telemetry and autotune slices.
+service).  ``--autotune`` measures the candidate plans of each bucket
+when it is first resolved.  ``--device`` is ``cuda`` by default; the
+reference's ``--metrics-json`` and ``--trace`` wait for the telemetry
+slice (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -61,7 +62,7 @@ def _run_lm(args, device) -> None:
 
 def _run_rotations(args, device) -> None:
     requests = synthetic_stream(args.requests, seed=args.seed, device=device)
-    svc = RotationService(slots=args.slots)
+    svc = RotationService(slots=args.slots, autotune=args.autotune)
     t0 = _clock(device)
     outs = svc.apply_many(requests)
     dt = _clock(device) - t0
@@ -85,7 +86,7 @@ def _run_rotations(args, device) -> None:
 
 def _run_stream(args, device) -> None:
     requests = synthetic_stream(args.requests, seed=args.seed, device=device)
-    with StreamEngine(slots=args.slots) as eng:
+    with StreamEngine(slots=args.slots, autotune=args.autotune) as eng:
         t0 = _clock(device)
         tickets = [eng.submit(seq, A) for seq, A in requests]
         outs = [t.result(timeout=600.0) for t in tickets]
@@ -122,6 +123,9 @@ def main(argv=None):
                     help="rotation mode: per-bucket batch capacity")
     ap.add_argument("--check", action="store_true",
                     help="rotation mode: verify against per-request apply")
+    ap.add_argument("--autotune", action="store_true",
+                    help="rotation mode: measure candidate plans when a "
+                         "bucket is first resolved")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)

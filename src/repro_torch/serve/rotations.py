@@ -36,8 +36,9 @@ accuracy.  The contract assumes finite targets without ``-0.0``: the
 fused kernel leaves NaN/inf/``-0.0`` untouched where a multiplied-
 through identity would change them.
 
-Not ported yet: the ``mesh`` argument (sharded buckets), measured
-autotune, and the telemetry hooks; ``stats`` counts what they counted.
+Not ported yet: the ``mesh`` argument (sharded buckets, ROADMAP Queue 1
+item 9) and the telemetry hooks (item 10); ``stats`` counts what they
+counted.
 """
 from __future__ import annotations
 
@@ -140,6 +141,8 @@ class RotationService:
         requests so the batch keeps one shape.
       method: dispatch method of bucket plans (``"auto"`` prices the
         batched per-request problem through the registry).
+      autotune: measure the candidate plans when a bucket is first
+        resolved (``"auto"`` only).
       pad_waves: identity-pad each request's waves to the bucket's
         next-power-of-two ``k_pad``; with ``False`` the raw wave count
         is part of the bucket key.
@@ -152,12 +155,14 @@ class RotationService:
     """
 
     def __init__(self, *, slots: int = 8, method: str = "auto",
-                 pad_waves: bool = True, min_k_pad: int = 4, store=None,
-                 warm_start: bool = True, **plan_kw):
+                 autotune: bool = False, pad_waves: bool = True,
+                 min_k_pad: int = 4, store=None, warm_start: bool = True,
+                 **plan_kw):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         self.slots = int(slots)
         self.method = method
+        self.autotune = bool(autotune)
         self.pad_waves = bool(pad_waves)
         self.min_k_pad = int(min_k_pad)
         self.plan_kw = dict(plan_kw)
@@ -277,8 +282,8 @@ class RotationService:
             # one distinct sequence per slot: the registry prices the
             # per-sequence setup slots times
             plan = rep_seq.plan(like=like, method=self.method,
-                                batch=self.slots, shared_sequence=False,
-                                **self.plan_kw)
+                                autotune=self.autotune, batch=self.slots,
+                                shared_sequence=False, **self.plan_kw)
             self.stats["plans_resolved"] += 1
             self._warm[key] = plan.to_dict()
             self._save_store()

@@ -150,7 +150,8 @@ class StreamEngine:
         the round robin.
       start: start the threads now (``False`` lets tests drive the
         admission policies inertly).
-      service_kw: passed to the private ``RotationService``.
+      service_kw: passed to the private ``RotationService``
+        (``method=...``, ``autotune=True``, ``store=False``, say).
     """
 
     def __init__(self, service: Optional[RotationService] = None, *,

@@ -12,8 +12,9 @@ appliers and are held to the reference's within 1e-4 in float32
 
 The solver and buffer tests of ``tests/test_eig.py`` (lines 33-271) are
 mirrored against the port with the same oracle bars; its plan-cache
-tests wait for the persisted plan cache and its SOAP tests for the SOAP
-consumer (ROADMAP Queue 1 items 15 and 11).  Tests marked ``gpu`` hold
+tests are mirrored in ``tests/test_torch_autotune.py`` (with the
+solvers' ``autotune=True``), and its SOAP tests wait for the SOAP
+consumer (ROADMAP Queue 1 item 11).  Tests marked ``gpu`` hold
 delayed flushes to eager application on the card, bit for bit on the
 rotation family, and run ``eigh_givens`` at n = 256 there.
 """
@@ -477,12 +478,6 @@ def test_unported_options_raise():
         DelayedRotationBuffer(torch.eye(4), mesh=object())
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         DelayedRotationBuffer(torch.eye(4), row_axes=("model",))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        DelayedRotationBuffer(torch.eye(4), autotune=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        eigh_givens(torch.eye(4), autotune=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        svd_givens(torch.eye(4), autotune=True)
     with pytest.raises(ValueError, match="accumulator"):
         DelayedRotationBuffer(torch.zeros(4))
 
