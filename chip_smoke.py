@@ -53,6 +53,18 @@ a nearby shape borrows the paper shape's plan), and
 their ``autotune=False`` results.  The plan cache points at a fresh
 file for the run (``REPRO_PLAN_CACHE``), so no plan persisted before
 changes a pick.
+Then observability (``repro_torch.obs``, after autotune and before the
+LM phases): with obs on, one application at the paper shape under
+``cuda_wave``, ``cuda_mxu`` 64/64 and ``cuda_batched``, the serving
+bucket through ``RotationService`` and one eig flush ``(1024, 1024,
+32)``, each case's roofline ledger a backend (the model's seconds from
+the port's H100 record against seconds measured between two
+synchronizes: ``model_fraction``), the obs launch counters held to the
+kernels' ``LAUNCHES``, obs-on outputs to obs-off ones, and no
+``timing.sync`` with obs off; obs on against off back to back at one
+``1024 x 1024`` target; and the launcher with ``--metrics-json`` and
+``--trace`` in a child process, its ``serve.*`` counters held to the
+service's ``stats`` and its trace to the spans of a served run.
 Then the LM serving path at the full width of SmolLM-135M
 (seeded random weights, bf16 activations): the fused RoPE kernel is held bit for bit
 against its plain version at every shape of ``ROPE_SHAPES`` in float32
@@ -152,6 +164,12 @@ EIG_TOL = 1e-4   # the reference's oracle bars (tests/test_eig.py, n = 256)
 # paper's that must borrow its measured plan
 AUTOTUNE_TOP = 5
 AUTOTUNE_SLACK = 1.10
+# the check's own timing of each application alone: this many seconds of
+# rounds a point.  A host spell slows a host-paced kernel (cuda_mxu's
+# factor packing at 1024^2) more than another; 51 rounds (~75 ms at the
+# eig flush) once fell inside one and ranked a 3% tie as 15%.
+ALONE_SECONDS = 1.0
+ALONE_MAX_ROUNDS = 2000
 NEIGHBOUR = (3000, 3000, 150)
 
 
@@ -1041,16 +1059,18 @@ def eig_phase(dev, kernels) -> dict:
     return rec
 
 
-def alone_ms(fns: dict, seconds: float = 0.5) -> dict:
+def alone_ms(fns: dict, seconds: float = ALONE_SECONDS) -> dict:
     """``{name: median ms of one call of fns[name] alone}``: each call
     between two CUDA events with a synchronize before and after, as
     autotune times a candidate; the functions take turns, one call each
     a round in a seeded random order, for at least 5 rounds and
-    ``seconds`` in all (at most 51 rounds), so a slow spell of the host
-    falls on all of them and none always follows the same one."""
+    ``seconds`` in all (at most ``ALONE_MAX_ROUNDS``), so a slow spell of
+    the host falls on all of them, none always follows the same one, and
+    a spell shorter than half the window does not move a median."""
     import random
     first = {name: time_ms(fn, 1) for name, fn in fns.items()}
-    rounds = max(5, min(51, int(seconds * 1e3 / sum(first.values()))))
+    rounds = max(5, min(ALONE_MAX_ROUNDS,
+                        int(seconds * 1e3 / sum(first.values()))))
     ts = {name: [] for name in fns}
     names = list(fns)
     order = random.Random(SEED)
@@ -1321,6 +1341,200 @@ def autotune_phase(ctx, seq, bctx, rec, kernels) -> None:
     emit(phase="autotune", autotune_top=AUTOTUNE_TOP, slack=AUTOTUNE_SLACK,
          points=rows, persistence=persistence, entry_points=entry,
          seconds=time.perf_counter() - t0)
+
+
+# the observability phase: obs-on applications a case, and the 1024^2
+# point at which obs on (a synchronize before and after each dispatch)
+# is timed against obs off, back to back
+OBS_REPS = 5
+OBS_COST_REPS = 50
+OBS_TRACE_SPANS = {"plan", "resolve", "apply_batched", "admit", "drain"}
+# the obs launch counter of each kernel
+OBS_KERNEL = {"rotseq_wave": "rotseq", "rotseq_mxu": "rotseq_mxu",
+              "rotseq_batched": "rotseq_batched"}
+
+
+@contextlib.contextmanager
+def counted_syncs():
+    """Count the calls of ``repro_torch.obs.timing.sync`` in the block."""
+    from repro_torch.obs import timing
+    calls = [0]
+    orig = timing.sync
+
+    def sync(device):
+        calls[0] += 1
+        orig(device)
+
+    timing.sync = sync
+    try:
+        yield calls
+    finally:
+        timing.sync = orig
+
+
+def obs_case(label, run, kernels, exact: bool) -> dict:
+    """One case of the obs phase: ``run()`` with obs off (no
+    ``timing.sync`` allowed), then once with obs on unrecorded (its first
+    call allocates the buffers the off output still holds, which no model
+    prices), then ``OBS_REPS`` times with obs on, the
+    obs launch counters held to the change of each kernel's ``LAUNCHES``
+    and every obs-on output to the obs-off one (bit for bit, or within
+    ``MXU_TOL`` where ``exact`` is false).  Returns the case's roofline
+    ``by_backend``, counters and launches."""
+    import torch
+    from repro_torch import obs
+    run()                                   # warm: caches, plan, factors
+    with obs.override(False), counted_syncs() as calls:
+        off = run()
+    torch.cuda.synchronize()
+    check(calls[0] == 0, f"obs {label}: the disabled path called "
+          f"timing.sync {calls[0]} times")
+    with obs.override(True):
+        run()   # the obs-on path's own first call: allocations, records
+    obs.reset()
+    before = {name: k.LAUNCHES for name, k in kernels.items()}
+    errs = []
+    with obs.override(True), counted_syncs() as calls:
+        for _ in range(OBS_REPS):
+            on = run()
+            outs = zip(on, off) if isinstance(on, list) else [(on, off)]
+            errs.append(max((max_abs(a, b) if exact else rel_err(a, b))
+                            for a, b in outs))
+        snap = obs.snapshot()
+    launches = {name: k.LAUNCHES - before[name]
+                for name, k in kernels.items()}
+    counted = {name: snap["counters"].get(
+        f"kernels.{OBS_KERNEL[name]}.launches", 0) for name in kernels}
+    check(counted == launches, f"obs {label}: launch counters {counted} "
+          f"!= LAUNCHES deltas {launches}")
+    err = max(errs)
+    check(err == 0.0 if exact else err <= MXU_TOL,
+          f"obs {label}: obs-on output differs from obs-off by {err}")
+    check(calls[0] >= 2 * OBS_REPS, f"obs {label}: {calls[0]} synchronizes "
+          f"for {OBS_REPS} dispatches")
+    by = snap["roofline"]["by_backend"]
+    with obs.override(False):
+        off_ms = time_ms(run, OBS_REPS)
+    return dict(by_backend={meth: {key: agg[key] for key in (
+        "dispatches", "predicted_s", "measured_s", "model_fraction",
+        "setup_fraction", "predicted_flops", "predicted_bytes",
+        "planes_live", "planes_total")} for meth, agg in by.items()},
+        measured_ms=[d["measured_s"] * 1e3
+                     for d in snap["roofline"]["dispatches"]],
+        off_ms_back_to_back=off_ms, launches=launches, err=err,
+        counters={key: val for key, val in snap["counters"].items()
+                  if not key.startswith("kernels.")})
+
+
+def obs_launcher(dev) -> dict:
+    """``repro_torch.launch.serve --rotations --check --metrics-json F
+    --trace T`` on the card as a child process: the JSON loads, its
+    ``serve.*`` counters equal the service's ``stats`` and the trace
+    holds the spans of a served run."""
+    with tempfile.TemporaryDirectory(prefix="obs_launch_") as tmp:
+        metrics, trace = (os.path.join(tmp, "metrics.json"),
+                          os.path.join(tmp, "trace.json"))
+        env = dict(os.environ, PYTHONPATH=str(SRC), REPRO_PLAN_CACHE="off")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--rotations",
+             "--check", "--device", dev.type, "--metrics-json", metrics,
+             "--trace", trace], env=env, cwd=str(ROOT), capture_output=True,
+            text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        check(out.returncode == 0, f"obs launcher exit {out.returncode}: "
+              f"{out.stderr[-2000:]}")
+        with open(metrics) as f:
+            snap = json.load(f)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    stats = snap["meta"]["stats"]
+    c = snap["counters"]
+    serve = {key: c.get(f"serve.{key}", 0) for key in (
+        "requests", "batches", "slots_executed", "plans_resolved",
+        "warm_plans")}
+    serve["padded_slots"] = c.get("serve.pad_slots", 0)
+    want = {key: stats[key] for key in serve}
+    check(serve == want, f"obs launcher: serve counters {serve} != stats "
+          f"{want}")
+    names = {ev["name"] for ev in events}
+    check(OBS_TRACE_SPANS <= names, f"obs launcher: trace spans {names} "
+          f"lack {OBS_TRACE_SPANS - names}")
+    return dict(serve=serve, spans=sorted(names), events=len(events),
+                by_backend={meth: agg["model_fraction"] for meth, agg in
+                            snap["roofline"]["by_backend"].items()},
+                seconds=seconds)
+
+
+def obs_phase(ctx, seq, bctx, rec, kernels, kind: str, smi: str) -> None:
+    """``repro_torch.obs`` on the card: the roofline ledger of one
+    application at the paper shape under each rotation kernel, the
+    serving bucket through ``RotationService`` and one eig flush
+    ``(EIG_N, EIG_N, EIG_K_DELAY)``: each case's modeled seconds (the
+    port's H100 record) against measured seconds (host clock between two
+    synchronizes) a backend; obs counters against ``LAUNCHES``, obs-on
+    outputs against obs-off ones, no synchronize with obs off; obs on
+    against obs off back to back at one ``1024 x 1024`` target; and the
+    launcher's ``--metrics-json``/``--trace`` in a child process.  The
+    in-memory plan cache is cleared first, so ``auto`` plans by the model
+    and the autotune phase's measured picks stay out of the ledger."""
+    import torch
+    from repro_torch import RotationSequence, obs, random_sequence
+    from repro_torch.core import registry
+    from repro_torch.eig import DelayedRotationBuffer
+    from repro_torch.serve import RotationService
+    dev = ctx["A"].device
+    A = ctx["A"]
+    t0 = time.perf_counter()
+    registry.clear_plan_cache()
+    cases = {}
+    for meth, tiles in (("cuda_wave", WAVE_TILES),
+                        ("cuda_mxu", dict(n_b=64, k_b=64)),
+                        ("cuda_batched", {})):
+        pl = seq.plan(like=A, method=meth, **tiles)
+        label = f"paper {meth}" + ("/64" if meth == "cuda_mxu" else "")
+        cases[label] = obs_case(label, lambda pl=pl: pl.apply(A), kernels,
+                                exact=meth != "cuda_mxu")
+    bucket = [(s, bctx["A"][i]) for i, s in enumerate(bctx["seqs"])]
+
+    def serve():
+        return RotationService(slots=B, store=False).apply_many(bucket)
+
+    cases[f"serving bucket {B}x{MB}^2"] = obs_case("serving", serve,
+                                                   kernels, exact=True)
+    waves = RotationSequence(
+        torch.from_numpy(rec["C"][:, :EIG_K_DELAY]).float().to(dev),
+        torch.from_numpy(rec["S"][:, :EIG_K_DELAY]).float().to(dev))
+    eye = torch.eye(EIG_N, device=dev)
+
+    def flush():
+        buf = DelayedRotationBuffer(eye.clone(), k_delay=EIG_K_DELAY)
+        return buf.push_sequence(waves).value
+
+    flush_plan = waves.plan(like=eye)
+    cases[f"eig flush {EIG_N}^2 k{EIG_K_DELAY}"] = obs_case(
+        "eig flush", flush, kernels, exact=flush_plan.method != "cuda_mxu")
+    cases[f"eig flush {EIG_N}^2 k{EIG_K_DELAY}"]["method"] = \
+        flush_plan.method
+
+    # the cost of obs on at one 1024^2 target, back to back, in turns
+    gen = torch.Generator().manual_seed(SEED + 8)
+    one = torch.randn((1024, 1024), generator=gen).to(dev)
+    one_plan = random_sequence(1024, 41, generator=gen,
+                               device=dev).plan(like=one)
+    cost = {"off": [], "on": []}
+    for side in ("off", "on", "on", "off"):
+        with obs.override(side == "on"):
+            cost[side].append(time_ms(lambda: one_plan.apply(one),
+                                      OBS_COST_REPS))
+    obs.reset()
+    launcher = obs_launcher(dev)
+    emit(phase="obs", name=kind, nvidia_smi=smi, cases=cases,
+         cost_1024=dict(method=one_plan.method, reps=OBS_COST_REPS,
+                        ms_off=cost["off"], ms_on=cost["on"],
+                        on_over_off=statistics.median(cost["on"])
+                        / statistics.median(cost["off"])),
+         launcher=launcher, seconds=time.perf_counter() - t0)
 
 
 def rope_inputs(dev, label: str, dtype, gen):
@@ -1881,6 +2095,11 @@ def run() -> int:
     autotune_phase(ctx, seq, bctx, rec, {"rotseq_wave": wave_k,
                                          "rotseq_mxu": mxu_k,
                                          "rotseq_batched": batched_k})
+
+    # -- observability: the roofline ledger, counters, the launcher -------
+    obs_phase(ctx, seq, bctx, rec, {"rotseq_wave": wave_k,
+                                    "rotseq_mxu": mxu_k,
+                                    "rotseq_batched": batched_k}, kind, smi)
 
     # -- the LM serving path: SmolLM-135M through ServeEngine -------------
     entries["rope"] = rope_phase(dev)

@@ -36,10 +36,14 @@ modeled plans on the problem's own platform (CUDA events on the card) and
 caches the fastest as ``source="measured"``; measured plans persist to a
 JSON store keyed by the torch/CUDA build (:func:`save_plan_cache`,
 :func:`load_plan_cache`) and lend their decision to unmeasured shapes of
-the same class nearby (cross-shape interpolation).  Not ported yet: the
-sharded slot of the plan key and its communication term (ROADMAP Queue 1
-item 9) and the plan-cache counters and ``resolve`` span (item 10);
-:func:`plan_cache_stats` is a plain dict.
+the same class nearby (cross-shape interpolation).  With
+:mod:`repro_torch.obs` on, :func:`select_plan` counts
+``registry.plan_cache.{hits,misses,interpolated,autotune_upgrade}`` and
+opens a ``resolve`` span on a miss, as the reference does;
+:func:`plan_cache_stats` stays.  The cost model and the plan key read no
+clock: only autotune's measurements do, through
+:mod:`repro_torch.obs.timing`.  Not ported yet: the sharded slot of the
+plan key and its communication term (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -48,12 +52,12 @@ import json
 import math
 import os
 import tempfile
-import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.hw import PLATFORMS, RESIDENT_ROWS, Hardware
 from repro_torch.kernels.limits import (MXU_ROWS, MXU_SLAB, WAVE_KB,
                                         WAVE_WARPS, mxu_width)
@@ -68,7 +72,7 @@ __all__ = [
     "cost_cuda_batched",
     "select_plan", "plan_cache_stats", "clear_plan_cache",
     "cost_components", "plan_cache_path", "save_plan_cache",
-    "load_plan_cache",
+    "load_plan_cache", "dtype_name",
 ]
 
 # A CUDA kernel asked for off the card runs its plain version, orders of
@@ -118,6 +122,21 @@ _BATCHED_PLANE_SECONDS = 6.62e-3 / (3839 * 180)
 # --------------------------------------------------------------------------
 # problem / plan records
 # --------------------------------------------------------------------------
+
+def dtype_name(dtype) -> str:
+    """The name of a dtype-like, as the reference's ``str(jnp.dtype(x))``:
+    ``torch.float32``, ``np.float32``, ``np.dtype("f4")`` and ``"f4"``
+    all give ``"float32"``.  A string numpy does not know is taken as a
+    torch dtype name (``"bfloat16"``)."""
+    if isinstance(dtype, str):
+        try:
+            return np.dtype(dtype).name
+        except TypeError:
+            dtype = getattr(torch, dtype, dtype)
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
+    return np.dtype(dtype).name
+
 
 @dataclasses.dataclass(frozen=True)
 class Problem:
@@ -777,23 +796,9 @@ _MEASURE_MIN_ROUNDS = 2
 _MEASURE_MAX_ROUNDS = 200
 
 
-def _time_call(fn: Callable, device: torch.device) -> float:
-    """Seconds of one call of ``fn``.  On the card the call lies between
-    two CUDA events with a synchronize before the first and after the
-    second, so the time holds the backend's own host work between its
-    launches; on the host, ``time.perf_counter`` around the call."""
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        fn()
-        return time.perf_counter() - t0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize(device)
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize(device)
-    return start.elapsed_time(end) / 1e3
+# seconds of one call on the problem's device: CUDA events between two
+# synchronizes on the card, the host clock elsewhere
+_time_call = obs.timing.call_seconds
 
 
 def _time_medians(fns: List[Callable],
@@ -946,6 +951,7 @@ def select_plan(m: int, n: int, k: int, *, dtype: str = "float32",
       Any other exception (a failed build or launch) propagates: a
       kernel fault never hands the pick to another backend.
     """
+    dtype = dtype_name(dtype)
     batch = max(1, int(batch))
     shared_sequence = bool(shared_sequence) or batch <= 1
     autotune = autotune and _can_measure(platform)
@@ -958,35 +964,47 @@ def select_plan(m: int, n: int, k: int, *, dtype: str = "float32",
     if cached is not None and (not autotune
                                or cached.source in _PERSISTED_SOURCES):
         _CACHE_STATS["hits"] += 1
+        obs.inc("registry.plan_cache.hits")
         return cached
     _CACHE_STATS["misses"] += 1
+    obs.inc("registry.plan_cache.misses")
     if n < 2 or k < 1 or m < 1:
         # zero rotations: application is a no-op
         best = Plan(method="blocked" if signs else "unoptimized",
                     est_seconds=0.0)
         _PLAN_CACHE[key] = best
         return best
-    if not autotune:
-        borrowed = _interpolated_plan(problem, key)
-        if borrowed is not None:
-            _PLAN_CACHE[key] = borrowed
-            return borrowed
-    plans = _modeled_plans(problem)
-    if not plans:
-        raise ValueError(f"no registered backend is eligible for "
-                         f"{problem}")
-    best = plans[0]
-    if autotune:
-        candidates = _autotune_candidates(problem, plans, cached,
-                                          autotune_top)
-        timed = [dataclasses.replace(plan, est_seconds=secs,
-                                     source="measured")
-                 for plan, secs in zip(candidates,
-                                       _measure_plans(problem, candidates))
-                 if secs is not None]
-        if timed:
-            best = min(timed, key=lambda pl: pl.est_seconds)
-    _PLAN_CACHE[key] = best
+    with obs.span("resolve", m=m, n=n, k=k, batch=batch, dtype=dtype,
+                  platform=platform, autotune=autotune) \
+            if obs.enabled() else obs.NULL_SPAN as sp:
+        if not autotune:
+            borrowed = _interpolated_plan(problem, key)
+            if borrowed is not None:
+                _PLAN_CACHE[key] = borrowed
+                obs.inc("registry.plan_cache.interpolated")
+                sp.set(method=borrowed.method, source="interpolated")
+                return borrowed
+        plans = _modeled_plans(problem)
+        if not plans:
+            raise ValueError(f"no registered backend is eligible for "
+                             f"{problem}")
+        best = plans[0]
+        if autotune:
+            candidates = _autotune_candidates(problem, plans, cached,
+                                              autotune_top)
+            timed = [dataclasses.replace(plan, est_seconds=secs,
+                                         source="measured")
+                     for plan, secs in zip(
+                         candidates, _measure_plans(problem, candidates))
+                     if secs is not None]
+            if timed:
+                best = min(timed, key=lambda pl: pl.est_seconds)
+                if cached is not None:
+                    # a model or interpolated entry of this key was
+                    # replaced by a fresh measurement
+                    obs.inc("registry.plan_cache.autotune_upgrade")
+        _PLAN_CACHE[key] = best
+        sp.set(method=best.method, source=best.source)
     if best.source == "measured":
         save_plan_cache()  # no-op when persistence is off
     return best

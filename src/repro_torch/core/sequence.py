@@ -20,6 +20,13 @@ Mirror of :mod:`repro.core.sequence` in PyTorch.
   or looped otherwise, with the same transposed-sequence backward.
 * ``to_dict``/``from_dict`` serialise sequences and plan decisions (the
   serve-plan store); a plan dict is keyed by the torch/CUDA build.
+* With :mod:`repro_torch.obs` on, ``plan`` opens a ``plan`` span and
+  every ``apply``/``apply_direct``/``apply_batched`` an ``apply`` or
+  ``apply_batched`` span, counts ``sequence.applies``, observes
+  ``sequence.apply_seconds`` and appends a roofline record; the seconds
+  lie between two synchronizes of the target's device.  Under
+  ``torch.autograd.grad`` the forward records one dispatch and the
+  backward none; a tensor wrapped by ``torch.func`` records nothing.
 
 Tensors stay on the device they are given.  Constructors that build
 tensors from scratch (or from numpy) take ``device=``, by default the
@@ -33,6 +40,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import registry
 
 __all__ = ["RotationSequence", "SequencePlan", "resolve_device"]
@@ -98,8 +106,7 @@ def _as_tensor(x, device):
                            device=resolve_device(device or "cuda"))
 
 
-def _dtype_name(dtype) -> str:
-    return str(dtype).replace("torch.", "")
+_dtype_name = registry.dtype_name
 
 
 def _ensure_backends() -> None:
@@ -411,11 +418,14 @@ class RotationSequence:
             return SequencePlan(self, _IDENTITY, (), None)
 
         if method == "auto":
-            plan = registry.select_plan(
-                m, n, k, dtype=dtype, platform=torch.device(device).type,
-                signs=self.sign is not None, batch=batch,
-                shared_sequence=shared_sequence, live_planes=self.k_live,
-                autotune=autotune)
+            with obs.span("plan", m=m, n=n, k=k, batch=batch) \
+                    if obs.enabled() else obs.NULL_SPAN as sp:
+                plan = registry.select_plan(
+                    m, n, k, dtype=dtype, platform=torch.device(device).type,
+                    signs=self.sign is not None, batch=batch,
+                    shared_sequence=shared_sequence,
+                    live_planes=self.k_live, autotune=autotune)
+                sp.set(method=plan.method, source=plan.source)
             planned = plan.kwargs()
             if n_b is not None:
                 planned["n_b"] = n_b
@@ -472,9 +482,17 @@ class SequencePlan:
         if self.method == _IDENTITY:
             return A
         seq = self.sequence
-        return _PlannedApply.apply(A, _run_backend, self.method,
-                                   self.kwargs, seq.reflect, seq.cos,
-                                   seq.sin, seq.sign)
+        if not obs.enabled() or obs.traced(A):
+            return _PlannedApply.apply(A, _run_backend, self.method,
+                                       self.kwargs, seq.reflect, seq.cos,
+                                       seq.sin, seq.sign)
+        with obs.span("apply", method=self.method, m=int(A.shape[0]),
+                      n=int(A.shape[1])):
+            out, dt = _timed(A.device, _PlannedApply.apply, A, _run_backend,
+                             self.method, self.kwargs, seq.reflect, seq.cos,
+                             seq.sin, seq.sign)
+        self._record_dispatch(A, dt)
+        return out
 
     __call__ = apply
 
@@ -486,8 +504,15 @@ class SequencePlan:
         if self.method == _IDENTITY:
             return A
         seq = self.sequence
-        return _run_backend(self.method, self.kwargs, seq.reflect, A,
-                            seq.cos, seq.sin, seq.sign)
+        if not obs.enabled() or obs.traced(A):
+            return _run_backend(self.method, self.kwargs, seq.reflect, A,
+                                seq.cos, seq.sin, seq.sign)
+        with obs.span("apply", method=self.method, direct=True):
+            out, dt = _timed(A.device, _run_backend, self.method,
+                             self.kwargs, seq.reflect, A, seq.cos, seq.sin,
+                             seq.sign)
+        self._record_dispatch(A, dt)
+        return out
 
     def apply_batched(self, A, sequences=None, *, direct: bool = False):
         """Apply to a batch of targets ``A`` of shape ``(b, m, n)``.
@@ -523,6 +548,18 @@ class SequencePlan:
         if n != seq.n:
             raise ValueError(f"plan built for n={seq.n} targets; got "
                              f"A.shape={tuple(A.shape)}")
+        if not obs.enabled() or obs.traced(A):
+            return self._apply_batched_impl(A, sequences, direct)
+        with obs.span("apply_batched", method=self.method, batch=int(b),
+                      m=int(m), n=int(n)):
+            out, dt = _timed(A.device, self._apply_batched_impl, A,
+                             sequences, direct)
+        self._record_dispatch(A, dt, shared=sequences is None)
+        return out
+
+    def _apply_batched_impl(self, A, sequences, direct: bool):
+        seq = self.sequence
+        b = A.shape[0]
         if sequences is None:
             C, S, G = seq.cos, seq.sin, seq.sign
         else:
@@ -560,6 +597,42 @@ class SequencePlan:
             raise ValueError(
                 f"plan built for n={self.sequence.n} targets; "
                 f"got A.shape={tuple(A.shape)}")
+
+    def _record_dispatch(self, A, measured_s: float,
+                         shared: bool = True) -> None:
+        """Roofline-attribute one completed dispatch (obs on, concrete
+        ``A``): the SS6 model's predicted flops, bytes and seconds for this
+        problem, backend and tiles, priced by the platform record of
+        ``A``'s device (the H100 on the card), with per-sequence setup
+        priced per request when the batch carried its own sequences
+        (``shared=False``), beside the measured seconds."""
+        seq = self.sequence
+        if A.ndim == 3:
+            b, m = int(A.shape[0]), int(A.shape[1])
+        else:
+            b, m = 1, int(A.shape[0])
+        kw = dict(self.kwargs)
+        problem = registry.Problem(
+            m=m, n=seq.n, k=seq.k, dtype=_dtype_name(A.dtype),
+            platform=A.device.type, signs=seq.sign is not None, batch=b,
+            shared_sequence=shared, live_planes=seq.k_live)
+        rplan = self.plan if self.plan is not None else registry.Plan(
+            method=self.method, n_b=kw.get("n_b"), k_b=kw.get("k_b"))
+        comp = registry.cost_components(self.method, problem, rplan)
+        obs.roofline.record_dispatch(
+            backend=self.method, m_total=problem.m_total, n=seq.n, k=seq.k,
+            batch=b, dtype=problem.dtype,
+            tile={key: val for key, val in kw.items()
+                  if key in ("n_b", "k_b")},
+            planes_live=problem.planes_live,
+            planes_total=problem.planes_total,
+            predicted_flops=comp["flops"], predicted_bytes=comp["bytes"],
+            predicted_s=comp["seconds"], measured_s=measured_s,
+            predicted_setup_s=comp["setup"]["seconds"],
+            predicted_stream_s=comp["stream"]["seconds"],
+            shared_sequence=shared)
+        obs.inc("sequence.applies")
+        obs.observe("sequence.apply_seconds", measured_s)
 
     def rebind(self, sequence: RotationSequence) -> "SequencePlan":
         """Bind this (method, tiles) decision to a new same-shape sequence."""
@@ -702,6 +775,16 @@ def _stack_waves(seqs, plan_signed: bool):
     G = torch.stack([s._sign_array() for s in seqs]) if plan_signed \
         else None
     return C, S, G
+
+
+def _timed(device, run, *args):
+    """``run(*args)`` and its seconds on the host clock between two
+    synchronizes of ``device``: the card's work, not the enqueue."""
+    obs.timing.sync(device)
+    t0 = obs.timing.now()
+    out = run(*args)
+    obs.timing.sync(device)
+    return out, obs.timing.now() - t0
 
 
 def _run_backend(method: str, kwargs: Tuple[Tuple[str, Any], ...],

@@ -18,9 +18,12 @@ A partial final batch is identity-padded (``pad_to``: ``c=1, s=0`` is
 an exact no-op) so every flush presents the same ``(n-1, k_delay)``
 problem and reuses the same plan.
 
-Not ported yet: the ``mesh``/``row_axes`` sharded flush (ROADMAP Queue 1
-item 9) and the telemetry spans and counters (item 10); ``stats``
-counts what the counters counted.
+With :mod:`repro_torch.obs` on, a flush opens a ``flush`` span (and a
+``rebind`` span when it reuses a plan), counts ``eig.flushes`` and
+observes its wave count in the ``eig.waves_per_flush`` histogram
+(``unit="waves"``), as the reference does; ``stats`` keeps its counts
+either way.  Not ported yet: the ``mesh``/``row_axes`` sharded flush
+(ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.sequence import RotationSequence, _as_tensor
 
 __all__ = ["DelayedRotationBuffer"]
@@ -194,31 +198,36 @@ class DelayedRotationBuffer:
         if not self._pending:
             return self._M
         waves = self._pending
-        seq = self._pending_sequence()
-        plan_key = (seq.k, seq.sign is not None)
-        plan = self._plans.get(plan_key)
-        if plan is None:
-            # a batched accumulator applies ONE pending sequence to every
-            # basis of the (b, m, n) stack: a shared-sequence batch, so
-            # the registry prices per-sequence setup once
-            plan = seq.plan(like=self._M, method=self.method,
-                            autotune=self.autotune, shared_sequence=True,
-                            **self.apply_kw)
-            self._plans[plan_key] = plan
-        else:
-            plan = plan.rebind(seq)
-        # host-driven accumulation is never differentiated through: the
-        # direct paths skip the transposed-sequence backward
-        if self._M.ndim == 3:
-            self._M = plan.apply_batched(self._M, direct=True)
-        else:
-            self._M = plan.apply_direct(self._M)
-        self._c.clear()
-        self._s.clear()
-        self._g.clear()
-        self._pending = 0
-        self.stats["flushes"] += 1
-        self.stats["waves_per_flush"].append(waves)
+        with obs.span("flush", waves=waves, planes=self.planes) \
+                if obs.enabled() else obs.NULL_SPAN:
+            seq = self._pending_sequence()
+            plan_key = (seq.k, seq.sign is not None)
+            plan = self._plans.get(plan_key)
+            if plan is None:
+                # a batched accumulator applies ONE pending sequence to
+                # every basis of the (b, m, n) stack: a shared-sequence
+                # batch, so the registry prices per-sequence setup once
+                plan = seq.plan(like=self._M, method=self.method,
+                                autotune=self.autotune,
+                                shared_sequence=True, **self.apply_kw)
+                self._plans[plan_key] = plan
+            else:
+                with obs.span("rebind") if obs.enabled() else obs.NULL_SPAN:
+                    plan = plan.rebind(seq)
+            # host-driven accumulation is never differentiated through:
+            # the direct paths skip the transposed-sequence backward
+            if self._M.ndim == 3:
+                self._M = plan.apply_batched(self._M, direct=True)
+            else:
+                self._M = plan.apply_direct(self._M)
+            self._c.clear()
+            self._s.clear()
+            self._g.clear()
+            self._pending = 0
+            self.stats["flushes"] += 1
+            self.stats["waves_per_flush"].append(waves)
+        obs.inc("eig.flushes")
+        obs.observe("eig.waves_per_flush", waves, unit="waves")
         return self._M
 
     @property

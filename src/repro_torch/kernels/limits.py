@@ -13,7 +13,7 @@ from __future__ import annotations
 __all__ = [
     "WARP", "SMEM_PER_BLOCK", "SMEM_STATIC", "REGS_PER_THREAD",
     "WAVE_KB", "WAVE_WARPS", "WAVE_ROWS", "MXU_ROWS", "MXU_SLAB",
-    "MXU_MAX_W", "BATCHED_M_BLK", "round_up", "wave_smem_bytes", "mxu_width",
+    "MXU_MAX_W", "BATCHED_M_BLK", "BATCHED_KB", "round_up", "wave_smem_bytes", "mxu_width",
 ]
 
 WARP = 32
@@ -41,6 +41,9 @@ MXU_MAX_W = 256
 # window is in registers and the row streams through memory, so the
 # width n sets no limit.
 BATCHED_M_BLK = 64
+# waves a band of the fused batched kernel (kBand): each row streams
+# through memory once a band
+BATCHED_KB = 16
 
 _F32 = 4
 

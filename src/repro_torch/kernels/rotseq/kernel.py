@@ -2,25 +2,39 @@
 
 Counterpart of ``repro.kernels.rotseq.kernel.rotseq_wave_pallas``.  On a
 CPU tensor it runs the plain version; on a CUDA tensor it launches the
-kernel or raises, and never falls back.  ``LAUNCHES`` counts launches.
+kernel or raises, and never falls back.  ``LAUNCHES`` counts launches,
+and with :mod:`repro_torch.obs` on each launch also bumps
+``kernels.rotseq.launches`` at the same line.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import _build
-from repro_torch.kernels.limits import WAVE_KB
+from repro_torch.kernels.limits import WAVE_KB, WAVE_WARPS
 
 from .ref import rotseq_wave_ref
 
-__all__ = ["rotseq_wave", "LAUNCHES"]
+__all__ = ["rotseq_wave", "traffic_bytes", "LAUNCHES"]
 
 LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def traffic_bytes(n: int, M: int, K: int, itemsize: int = 4) -> int:
+    """Bytes one launch moves through memory: the packed operand read
+    and written once a pass (a pass runs ``WAVE_WARPS`` bands of
+    ``WAVE_KB`` waves, so ``K <= 192`` is one pass) and the three ``(K,
+    n-1)`` panels read once.  Not the reference's ``2·m·n·bands``: the
+    Pallas kernel makes a trip through memory a band."""
+    passes = math.ceil(math.ceil(K / WAVE_KB) / WAVE_WARPS)
+    return (2 * n * M * passes + 3 * K * max(n - 1, 0)) * itemsize
 
 
 def _lib():
@@ -84,4 +98,5 @@ def rotseq_wave(AT, Cw, Sw, Gw, *, k_b: int = WAVE_KB, n_b=None):
     if rc != 0:
         raise RuntimeError(f"rotseq_wave launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    obs.inc("kernels.rotseq.launches")
     return out

@@ -3,20 +3,24 @@
 Counterpart of ``repro.kernels.rotseq_batched.kernel.
 rotseq_batched_pallas``.  On a CPU tensor it runs the plain version; on
 a CUDA tensor it launches the kernel or raises, and never falls back.
-``LAUNCHES`` counts launches.
+``LAUNCHES`` counts launches, and with :mod:`repro_torch.obs` on each
+launch also bumps ``kernels.rotseq_batched.launches`` at the same line
+(``cuda_mxu``'s tile-factor launches too).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import _build
-from repro_torch.kernels.limits import BATCHED_M_BLK
+from repro_torch.kernels.limits import BATCHED_KB, BATCHED_M_BLK
 
 from .ref import rotseq_batched_ref, row_blocks
 
-__all__ = ["rotseq_batched", "LAUNCHES"]
+__all__ = ["rotseq_batched", "traffic_bytes", "LAUNCHES"]
 
 LAUNCHES = 0
 
@@ -27,6 +31,18 @@ _I = ctypes.c_int
 _MAX_ROW_BLOCKS = 65535
 # the kernel indexes one request's panel with 32-bit ints
 _MAX_PANEL = 2 ** 31
+
+
+def traffic_bytes(b: int, bs: int, n: int, m: int, K: int,
+                  itemsize: int = 4) -> int:
+    """Bytes one launch moves through memory, counted at full width:
+    each target ``(n, m)`` read and written once a band of
+    ``BATCHED_KB`` waves (a band touches only its hulls' columns, so
+    padded and staircase grids move less), the three ``(bs, K, n-1)``
+    panels read once and the int32 windows ``(bs, K)`` read once."""
+    bands = math.ceil(K / BATCHED_KB)
+    return ((2 * b * n * m * bands + 3 * bs * K * max(n - 1, 0)) * itemsize
+            + 2 * bs * K * 4)
 
 
 def _lib():
@@ -100,4 +116,5 @@ def rotseq_batched(AT, C, S, G, starts, counts):
     if rc != 0:
         raise RuntimeError(f"rotseq_batched launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    obs.inc("kernels.rotseq_batched.launches")
     return out, planes

@@ -11,9 +11,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.ref import sign_grid
 
-from .kernel import rotseq_batched
+from .kernel import rotseq_batched, traffic_bytes
 
 __all__ = ["rot_sequence_batched", "wave_windows", "count_live_planes"]
 
@@ -68,6 +69,13 @@ def rot_sequence_batched(A, C, S, *, reflect: bool = False, G=None,
 
     On a CUDA tensor this is one launch of the fused kernel; on a CPU
     tensor the same launch runs through its plain version.
+
+    With :mod:`repro_torch.obs` on, a call counts the planes its windows
+    apply and skip, as the reference does, and the bytes the kernel
+    moves (:func:`~.kernel.traffic_bytes`); the kernel wrapper counts the
+    launch on the card, and on the CPU this call counts one.  On the card
+    the planes are read after the launch, so the read waits for the
+    kernel rather than holding its launch back.
     """
     single = A.ndim == 2
     if single:
@@ -86,7 +94,23 @@ def rot_sequence_batched(A, C, S, *, reflect: bool = False, G=None,
     Cw, Sw, Gw = (x.to(A.dtype).transpose(1, 2).contiguous()
                   for x in (C, S, G))
     out, planes = rotseq_batched(AT, Cw, Sw, Gw, starts, counts)
+    if obs.enabled() and not obs.traced(A):
+        _account(A, bs, J, K, counts)
     out = out.transpose(1, 2).contiguous()
     if single:
         out = out[0]
     return (out, planes) if return_planes else out
+
+
+def _account(A, bs: int, J: int, K: int, counts) -> None:
+    """Count one call: the hull planes every target applies (shared
+    waves replay their windows on every target) and the rest of the
+    grid as skipped, as the reference's ``_record_launch`` does."""
+    b, n, m = A.shape[0], A.shape[2], A.shape[1]
+    applied = int(counts.sum()) * (b // bs)
+    if A.device.type == "cpu":   # the plain version: one a call
+        obs.inc("kernels.rotseq_batched.launches")
+    obs.inc("kernels.rotseq_batched.planes_applied", applied)
+    obs.inc("kernels.rotseq_batched.planes_skipped", J * K * b - applied)
+    obs.inc("kernels.rotseq_batched.bytes_moved",
+            traffic_bytes(b, bs, n, m, K, A.element_size()))

@@ -3,7 +3,8 @@
 Counterpart of ``repro.kernels.rotseq_mxu.kernel.rotseq_mxu_pallas``.
 On a CPU tensor it runs the plain version; on a CUDA tensor it launches
 the kernel or raises, and never falls back.  ``LAUNCHES`` counts
-launches.
+launches, and with :mod:`repro_torch.obs` on each launch also bumps
+``kernels.rotseq_mxu.launches`` at the same line.
 """
 from __future__ import annotations
 
@@ -12,17 +13,28 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.kernels import _build
 from repro_torch.kernels.limits import MXU_MAX_W
 
 from .ref import rotseq_mxu_ref
 
-__all__ = ["rotseq_mxu", "LAUNCHES"]
+__all__ = ["rotseq_mxu", "traffic_bytes", "LAUNCHES"]
 
 LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def traffic_bytes(M: int, T: int, n_b: int, k_b: int,
+                  itemsize: int = 4) -> int:
+    """Bytes one launch (one band) moves through memory: the fresh
+    stream ``(M, T·n_b)`` read and the result written once, the carry
+    ``(M, k_b)`` read once and the ``T`` factors ``(w, w)`` read once.
+    A row's carry stays on chip across the band's tiles."""
+    w = n_b + k_b
+    return (2 * M * T * n_b + M * k_b + T * w * w) * itemsize
 
 
 def _lib():
@@ -76,4 +88,5 @@ def rotseq_mxu(fresh, Q, init):
     if rc != 0:
         raise RuntimeError(f"rotseq_mxu launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    obs.inc("kernels.rotseq_mxu.launches")
     return out

@@ -14,11 +14,12 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core.accumulate import accumulate_tile_factors
 from repro_torch.core.blocked import num_tiles, pack_sheared
 from repro_torch.kernels.rotseq_batched.kernel import rotseq_batched
 
-from .kernel import rotseq_mxu
+from .kernel import rotseq_mxu, traffic_bytes
 
 __all__ = ["rot_sequence_mxu", "band_factors", "batched_band_factors",
            "band_panels", "band_windows", "band_inputs_natural"]
@@ -124,6 +125,13 @@ def rot_sequence_mxu(A, C, S, *, n_b: int = 128, k_b: int = 128,
     On a CUDA tensor every band is one launch of the fused batched
     kernel (its factors) and one of the accumulated kernel; on a CPU
     tensor the same bands run through their plain versions.
+
+    With :mod:`repro_torch.obs` on, a call counts its planes and the
+    bytes its accumulated launches move (:func:`~.kernel.traffic_bytes`
+    a band); the kernel wrappers count the launches on the card (the
+    factor launches under ``kernels.rotseq_batched.launches``), and on
+    the CPU this call counts one, as the reference counts in interpret
+    mode.
     """
     m, n = A.shape
     J, k = C.shape
@@ -131,6 +139,13 @@ def rot_sequence_mxu(A, C, S, *, n_b: int = 128, k_b: int = 128,
         raise ValueError(f"waves {tuple(C.shape)} do not fit A {(m, n)}")
     n_b = min(n_b, max(8, n))
     T = num_tiles(n, n_b, k_b)
+    if obs.enabled() and not obs.traced(A):
+        if A.device.type == "cpu":   # the plain version: one a call
+            obs.inc("kernels.rotseq_mxu.launches")
+        obs.inc("kernels.rotseq_mxu.planes_applied", J * k)
+        obs.inc("kernels.rotseq_mxu.bytes_moved",
+                -(-k // k_b) * traffic_bytes(m, T, n_b, k_b,
+                                             A.element_size()))
     for p0 in range(0, k, k_b):
         Q = band_factors(C, S, p0, k_b, n_b, T, reflect=reflect, G=G,
                          dtype=A.dtype)

@@ -16,17 +16,24 @@ holds every result against per-request application)::
 ``--stream`` drives the continuous-batching ``StreamEngine`` over the
 same stream instead (``--check``: bit for bit against the synchronous
 service).  ``--autotune`` measures the candidate plans of each bucket
-when it is first resolved.  ``--device`` is ``cuda`` by default; the
-reference's ``--metrics-json`` and ``--trace`` wait for the telemetry
-slice (ROADMAP Queue 1 item 10).
+when it is first resolved.  ``--device`` is ``cuda`` by default.
+
+With ``--metrics-json PATH`` the run executes with
+:mod:`repro_torch.obs` on and writes the metrics and roofline snapshot
+(plan-cache counters, the admit to result latency histogram, each
+backend's modeled against measured seconds) to ``PATH``; ``--trace
+PATH`` also writes a Chrome trace of the plan / resolve / admit / drain
+/ apply spans (Perfetto).  With obs on every dispatch on the card
+synchronizes before and after itself, so the run is slower than one
+without them.
 """
 from __future__ import annotations
 
 import argparse
-import time
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.core.sequence import resolve_device
 from repro_torch.models import build_model
@@ -36,9 +43,26 @@ from repro_torch.serve import (RotationService, ServeEngine, StreamEngine,
 
 def _clock(device) -> float:
     """Host seconds, after the card (if any) finished its queued work."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return time.perf_counter()
+    obs.timing.sync(device)
+    return obs.timing.now()
+
+
+def _write_obs(args, mode: str, requests: int, seconds: float,
+               stats: dict) -> None:
+    """Write the snapshot (the run's ``stats`` in its meta, for holding
+    the counters to them) and the trace the flags ask for."""
+    if args.metrics_json:
+        snap = obs.write_metrics_json(
+            args.metrics_json,
+            extra={"mode": mode, "requests": requests, "slots": args.slots,
+                   "seconds": seconds, "stats": dict(stats)})
+        lat = snap["histograms"].get("serve.request_latency_seconds", {})
+        print(f"metrics -> {args.metrics_json} "
+              f"(latency p50={lat.get('p50', 0) * 1e3:.2f} ms "
+              f"p99={lat.get('p99', 0) * 1e3:.2f} ms)")
+    if args.trace:
+        n_ev = obs.write_trace(args.trace)
+        print(f"trace -> {args.trace} ({n_ev} events)")
 
 
 def _run_lm(args, device) -> None:
@@ -82,6 +106,7 @@ def _run_rotations(args, device) -> None:
     print(f"buckets={len(svc._plans)} batches={s['batches']} "
           f"plans_resolved={s['plans_resolved']} "
           f"warm_plans={s['warm_plans']}")
+    _write_obs(args, "rotations", s["requests"], dt, s)
 
 
 def _run_stream(args, device) -> None:
@@ -102,6 +127,7 @@ def _run_stream(args, device) -> None:
           f"({s['completed'] / dt:.0f} req/s streamed; closes: "
           f"size={s['closes_size']} age={s['closes_age']} "
           f"drain={s['closes_drain']}; shed={s['shed']})")
+    _write_obs(args, "stream", s["completed"], dt, s)
 
 
 def main(argv=None):
@@ -126,10 +152,20 @@ def main(argv=None):
     ap.add_argument("--autotune", action="store_true",
                     help="rotation mode: measure candidate plans when a "
                          "bucket is first resolved")
+    ap.add_argument("--metrics-json", default=None,
+                    help="rotation mode: enable repro_torch.obs and write "
+                         "the metrics + roofline snapshot here")
+    ap.add_argument("--trace", default=None,
+                    help="rotation mode: enable span tracing and write "
+                         "Chrome trace JSON here (view in ui.perfetto.dev)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    if args.metrics_json or args.trace:
+        obs.set_enabled(True)
+        if args.trace:
+            obs.runtime.set_trace_path(args.trace)
 
     if args.rotations:
         (_run_stream if args.stream else _run_rotations)(args, device)

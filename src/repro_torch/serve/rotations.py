@@ -36,9 +36,14 @@ accuracy.  The contract assumes finite targets without ``-0.0``: the
 fused kernel leaves NaN/inf/``-0.0`` untouched where a multiplied-
 through identity would change them.
 
-Not ported yet: the ``mesh`` argument (sharded buckets, ROADMAP Queue 1
-item 9) and the telemetry hooks (item 10); ``stats`` counts what they
-counted.
+With :mod:`repro_torch.obs` on, the service counts
+``serve.{requests,batches,slots_executed,pad_slots,plans_resolved,
+warm_plans}``, sets the ``serve.queue_depth``, ``serve.bucket_fill_ratio``
+and ``serve.pad_slot_fraction`` gauges, observes each request's admit to
+finished-result seconds in ``serve.request_latency_seconds`` and opens
+``admit``/``drain`` spans, as the reference does; ``stats`` keeps its
+counts either way.  Not ported yet: the ``mesh`` argument (sharded
+buckets, ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import registry
 from repro_torch.core.sequence import (RotationSequence, SequencePlan,
                                        _dtype_name, resolve_device)
@@ -130,6 +136,7 @@ class _Pending:
     ticket: int
     seq: RotationSequence   # padded to the bucket's k_pad
     A: torch.Tensor
+    admit_t: Optional[float] = None   # obs on only
 
 
 class RotationService:
@@ -232,15 +239,24 @@ class RotationService:
         :meth:`drain` or :meth:`result`.
         """
         A = self._as_target(seq, A)
-        key = self._bucket_key(seq, A)
-        ticket = self._next_ticket
-        self._next_ticket += 1
-        self.stats["requests"] += 1
-        queue = self._queues.setdefault(key, [])
-        queue.append(_Pending(ticket, self._normalize(seq, key), A))
+        record = obs.enabled()
+        with obs.span("admit") if record else obs.NULL_SPAN:
+            key = self._bucket_key(seq, A)
+            ticket = self._next_ticket
+            self._next_ticket += 1
+            self.stats["requests"] += 1
+            obs.inc("serve.requests")
+            queue = self._queues.setdefault(key, [])
+            queue.append(_Pending(ticket, self._normalize(seq, key), A,
+                                  obs.timing.now() if record else None))
+            if record:
+                obs.gauge("serve.queue_depth", self._depth())
         if len(queue) >= self.slots:
             self._drain_bucket(key)
         return ticket
+
+    def _depth(self) -> int:
+        return sum(len(q) for q in self._queues.values())
 
     def apply_many(self, pairs) -> list:
         """Submit ``(seq, A)`` pairs, drain, return the results in
@@ -276,6 +292,7 @@ class RotationService:
             try:
                 plan = SequencePlan.from_dict(warm, rep_seq)
                 self.stats["warm_plans"] += 1
+                obs.inc("serve.warm_plans")
             except ValueError:
                 plan = None  # stale entry: plan through the registry
         if plan is None:
@@ -285,6 +302,7 @@ class RotationService:
                                 autotune=self.autotune, batch=self.slots,
                                 shared_sequence=False, **self.plan_kw)
             self.stats["plans_resolved"] += 1
+            obs.inc("serve.plans_resolved")
             self._warm[key] = plan.to_dict()
             self._save_store()
         self._plans[key] = plan
@@ -328,11 +346,20 @@ class RotationService:
         stream, so the stream dispatcher can assemble the next batch
         meanwhile.
         """
+        n_live = len(seqs)
         seqs, A, rep, pad = self.assemble_batch(key, seqs, targets)
         plan = self._bucket_plan(key, rep, A)
         out = plan.apply_batched(A, sequences=seqs)
         self.stats["batches"] += 1
         self.stats["slots_executed"] += self.slots
+        if obs.enabled():
+            obs.inc("serve.batches")
+            obs.inc("serve.slots_executed", self.slots)
+            obs.inc("serve.pad_slots", pad)
+            obs.gauge("serve.bucket_fill_ratio", n_live / self.slots)
+            obs.gauge("serve.pad_slot_fraction",
+                      self.stats["padded_slots"]
+                      / max(1, self.stats["slots_executed"]))
         return out, pad
 
     def bucket_plan_estimate(self, key: BucketKey) -> Optional[float]:
@@ -347,12 +374,24 @@ class RotationService:
     def _drain_bucket(self, key: BucketKey) -> None:
         while self._queues.get(key):
             queue = self._queues[key]
-            batch, self._queues[key] = (queue[:self.slots],
-                                        queue[self.slots:])
-            out, _ = self.execute_batch(key, [p.seq for p in batch],
-                                        [p.A for p in batch])
-            for i, p in enumerate(batch):
-                self._results[p.ticket] = out[i]
+            record = obs.enabled()
+            with obs.span("drain", m=key.m, n=key.n, k_pad=key.k_pad) \
+                    if record else obs.NULL_SPAN as sp:
+                batch, self._queues[key] = (queue[:self.slots],
+                                            queue[self.slots:])
+                out, pad = self.execute_batch(key, [p.seq for p in batch],
+                                              [p.A for p in batch])
+                for i, p in enumerate(batch):
+                    self._results[p.ticket] = out[i]
+                if record:
+                    sp.set(requests=len(batch), pad_slots=pad)
+                    obs.timing.sync(out.device)   # the results are done
+                    done_t = obs.timing.now()
+                    for p in batch:
+                        if p.admit_t is not None:
+                            obs.observe("serve.request_latency_seconds",
+                                        done_t - p.admit_t)
+                    obs.gauge("serve.queue_depth", self._depth())
 
     # -- serialised plan store ---------------------------------------------
     def _load_store(self) -> int:

@@ -18,24 +18,33 @@ fulfils the batch's tickets with row views of the result, so a ticket
 always resolves to a finished tensor on the device.  A batch that fails
 (in planning, launching or on the card) fails its tickets and never
 leaves them hanging.
+
+With :mod:`repro_torch.obs` on, the engine counts
+``serve.stream.{submitted,completed,shed,rejected,block_waits,
+closes_size,closes_age,closes_drain}``, sets ``serve.stream.pending`` at
+close and shed time, opens a ``stream.dispatch`` span a batch and
+observes each request's admit to finished-result seconds in
+``serve.request_latency_seconds`` from the dispatcher thread, after the
+batch's event has completed.  Every clock read goes through
+:mod:`repro_torch.obs.timing`.
 """
 from __future__ import annotations
 
 import math
 import queue
 import threading
-import time
 from collections import deque
 from typing import Deque, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.serve.rotations import BucketKey, RotationService
 
 __all__ = ["StreamEngine", "StreamTicket", "Backpressure",
            "DeadlineExceeded", "EngineClosed"]
 
-_now = time.perf_counter
+_now = obs.timing.now
 
 
 class Backpressure(RuntimeError):
@@ -222,9 +231,11 @@ class StreamEngine:
                         break
                 if self.backpressure in ("fail", "shed"):
                     self.stats["rejected"] += 1
+                    obs.inc("serve.stream.rejected")
                     raise Backpressure(
                         f"{self._pending} pending >= budget "
                         f"{self.max_pending} (policy={self.backpressure})")
+                obs.inc("serve.stream.block_waits")  # block: wait for room
                 self._space.wait()
                 if self._closing:
                     raise EngineClosed("engine closed while blocked on "
@@ -236,6 +247,7 @@ class StreamEngine:
             q.append(ticket)
             self._pending += 1
             self.stats["submitted"] += 1
+            obs.inc("serve.stream.submitted")
             # wake the scheduler only on a change it can act on: the
             # bucket reaching its size, or its first request (which arms
             # the age timer)
@@ -262,6 +274,8 @@ class StreamEngine:
         if shed:
             self._pending -= shed
             self.stats["shed"] += shed
+            obs.inc("serve.stream.shed", shed)
+            obs.gauge("serve.stream.pending", self._pending)
             self._space.notify_all()
         return shed
 
@@ -384,6 +398,9 @@ class StreamEngine:
             self._ring_idx = idx
             self._bursts[key] = self._bursts.get(key, 0) + 1
         self.stats[f"closes_{reason}"] += 1
+        if obs.enabled():
+            obs.inc(f"serve.stream.closes_{reason}")
+            obs.gauge("serve.stream.pending", self._pending)
         self._space.notify_all()
         return key, tickets, reason
 
@@ -423,22 +440,31 @@ class StreamEngine:
             self._execute(item)
 
     def _execute(self, item: _Batch) -> None:
-        key, tickets, _ = item
-        try:
-            out, _ = self.service.execute_batch(
-                key, [t.seq for t in tickets], [t.A for t in tickets])
-            if out.is_cuda:
-                # wait for this batch only: admission and the scheduler's
-                # next assembly keep running meanwhile
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(out.device))
-                done.synchronize()
-        except BaseException as e:  # fail the tickets, never hang callers
-            for t in tickets:
-                t._fail(e)
-            if not isinstance(e, Exception):
-                raise
-            return
-        for i, t in enumerate(tickets):
-            t._fulfill(out[i])
-        self.stats["completed"] += len(tickets)
+        key, tickets, reason = item
+        with obs.span("stream.dispatch", m=key.m, n=key.n, k_pad=key.k_pad) \
+                if obs.enabled() else obs.NULL_SPAN as sp:
+            try:
+                out, pad = self.service.execute_batch(
+                    key, [t.seq for t in tickets], [t.A for t in tickets])
+                if out.is_cuda:
+                    # wait for this batch only: admission and the
+                    # scheduler's next assembly keep running meanwhile
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(out.device))
+                    done.synchronize()
+            except BaseException as e:  # fail the tickets, never hang
+                for t in tickets:
+                    t._fail(e)
+                if not isinstance(e, Exception):
+                    raise
+                return
+            if obs.enabled():
+                sp.set(requests=len(tickets), pad_slots=pad, close=reason)
+                done_t = _now()
+                for t in tickets:
+                    obs.observe("serve.request_latency_seconds",
+                                done_t - t.admit_t)
+            for i, t in enumerate(tickets):
+                t._fulfill(out[i])
+            self.stats["completed"] += len(tickets)
+            obs.inc("serve.stream.completed", len(tickets))
