@@ -65,6 +65,16 @@ kernels' ``LAUNCHES``, obs-on outputs to obs-off ones, and no
 ``1024 x 1024`` target; and the launcher with ``--metrics-json`` and
 ``--trace`` in a child process, its ``serve.*`` counters held to the
 service's ``stats`` and its trace to the spans of a served run.
+Then sharded execution (``repro_torch.dist``) at one device, over a
+one-rank NCCL group and a ``(1, 1)`` ``("data", "model")`` mesh: the
+paper shape row-sharded under ``cuda_batched`` (one launch, bit for bit
+to the replicated plan, both timed), ``auto`` (replicated, with
+``seq.plan``'s pick), the serving bucket through ``apply_batched`` (one
+launch) and ``RotationService(mesh=)``, an eig flush through
+``DelayedRotationBuffer(mesh=)``, the column pipeline (``blocked`` at
+``1024 x 1024``, ``k = 32``, bit for bit; ``accumulated`` at the paper
+shape, within ``MXU_TOL``), one sharded application with obs on, and the
+H100 record's sharded-or-replicated decision at eight devices.
 Then the LM serving path at the full width of SmolLM-135M
 (seeded random weights, bf16 activations): the fused RoPE kernel is held bit for bit
 against its plain version at every shape of ``ROPE_SHAPES`` in float32
@@ -1537,6 +1547,217 @@ def obs_phase(ctx, seq, bctx, rec, kernels, kind: str, smi: str) -> None:
          launcher=launcher, seconds=time.perf_counter() - t0)
 
 
+DIST_REPS = 10      # applications a timing, in rounds rep, dist, dist, rep
+DIST_COL = (1024, 1024, 32)   # the column pipeline's blocked case
+# the two shapes of the reference's auto crossover test, at eight devices
+DIST_CROSSOVER = {"small": (64, 32, 8), "large": (2048, 512, 64)}
+
+
+def turns_ms(fns: dict, reps: int = DIST_REPS) -> dict:
+    """``{name: [ms, ms]}`` of two ``fns`` timed in turns a, b, b, a."""
+    (a, fa), (b, fb) = fns.items()
+    ms = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        ms[name].append(time_ms(fn, reps))
+    return ms
+
+
+def dist_mesh(dev):
+    """A one-rank process group on ``dev``'s backend (NCCL on the card,
+    gloo on the host) through a ``FileStore`` in the run's temporary
+    directory, and the ``(1, 1)`` ``("data", "model")`` mesh over it.
+    One collective checks that the backend came up."""
+    import datetime
+    import torch
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)   # the device NCCL's communicator binds
+    store = tdist.FileStore(os.path.join(os.environ["CHIP_SMOKE_TMP"],
+                                         "dist_store"), 1)
+    tdist.init_process_group(backend, store=store, rank=0, world_size=1,
+                             timeout=datetime.timedelta(seconds=120))
+    one = torch.ones(1, device=dev)
+    tdist.all_reduce(one)
+    check(float(one) == 1.0, f"{backend} all_reduce of one rank gave {one}")
+    return backend, init_device_mesh(dev.type, (1, 1),
+                                     mesh_dim_names=("data", "model"))
+
+
+def dist_phase(ctx, seq, bctx, rec, kernels, smi: str) -> None:
+    """``repro_torch.dist`` at ``D = 1`` on the card, over a one-rank NCCL
+    group and a ``(1, 1)`` mesh: the row path at the paper shape under
+    ``cuda_batched`` (one launch, bit for bit to the replicated plan, both
+    timed: the DTensor wrapping's cost), ``auto`` (replicated, with
+    ``seq.plan``'s pick), the serving bucket through ``apply_batched``
+    and ``RotationService(mesh=)``, an eig flush through
+    ``DelayedRotationBuffer(mesh=)``, the column pipeline (``blocked`` at
+    ``DIST_COL``, bit for bit; ``accumulated`` at the paper shape, within
+    ``MXU_TOL``), one sharded application with obs on, and the H100
+    record's ``auto`` decisions at the reference test's two shapes for
+    eight devices.  The group is destroyed at the end of the phase."""
+    import torch
+    import torch.distributed as tdist
+    from torch.distributed.tensor import DTensor
+    from repro_torch import RotationSequence, dist, obs, random_sequence
+    from repro_torch.core import registry
+    from repro_torch.eig import DelayedRotationBuffer
+    from repro_torch.serve import RotationService
+    batched_k = kernels["rotseq_batched"]
+    A = ctx["A"]
+    dev = A.device
+    t0 = time.perf_counter()
+    registry.clear_plan_cache()
+    backend, mesh = dist_mesh(dev)
+    try:
+        # -- the row path at the paper shape ------------------------------
+        rep = seq.plan(like=A, method="cuda_batched")
+        sh = dist.plan_sharded(seq, like=A, mesh=mesh, method="cuda_batched")
+        want = rep.apply(A)
+        batched_k.LAUNCHES = 0
+        got = sh.apply(A)
+        torch.cuda.synchronize()
+        row_launches = batched_k.LAUNCHES
+        check(row_launches == 1, f"dist row: {row_launches} rotseq_batched "
+              f"launches for one sharded application")
+        check(torch.equal(got.full_tensor(), want),
+              "dist row: sharded != replicated")
+        row_ms = turns_ms({"replicated": lambda: rep.apply(A),
+                           "sharded": lambda: sh.apply(A)})
+        row = dict(shape=[M, N, K], launches=row_launches,
+                   placements=[str(p) for p in got.placements], ms=row_ms,
+                   sharded_over_replicated=statistics.median(
+                       row_ms["sharded"])
+                   / statistics.median(row_ms["replicated"]))
+        del got, want
+
+        # -- auto at one device ------------------------------------------
+        auto = dist.plan_sharded(seq, like=A, mesh=mesh)
+        pick = seq.plan(like=A).method
+        check(not auto.execute_sharded and auto.method == pick,
+              f"dist auto at D = 1: {auto} (seq.plan picks {pick})")
+
+        # -- the serving bucket -------------------------------------------
+        bA, padded = bctx["A"], bctx["padded"]
+        brep = padded[0].plan(like=bA, method="cuda_batched",
+                              shared_sequence=False)
+        bsh = dist.plan_sharded(padded[0], like=bA, mesh=mesh,
+                                method="cuda_batched", shared_sequence=False)
+        bwant = brep.apply_batched(bA, sequences=padded)
+        batched_k.LAUNCHES = 0
+        bgot = bsh.apply_batched(bA, sequences=padded)
+        torch.cuda.synchronize()
+        bucket_launches = batched_k.LAUNCHES
+        check(bucket_launches == 1, f"dist bucket: {bucket_launches} "
+              f"launches")
+        check(torch.equal(bgot.full_tensor(), bwant),
+              "dist bucket: sharded != replicated")
+        bucket_ms = turns_ms({
+            "replicated": lambda: brep.apply_batched(bA, sequences=padded),
+            "sharded": lambda: bsh.apply_batched(bA, sequences=padded)})
+        del bgot, bwant
+        requests = [(s, bA[i]) for i, s in enumerate(bctx["seqs"])]
+        base = RotationService(slots=B, store=False).apply_many(requests)
+        service = {}
+        for method in ("auto", "cuda_batched"):
+            outs = RotationService(slots=B, store=False, method=method,
+                                   mesh=mesh).apply_many(requests)
+            full = [o.full_tensor() if isinstance(o, DTensor) else o
+                    for o in outs]
+            check(all(torch.equal(a, b) for a, b in zip(full, base)),
+                  f"dist RotationService(mesh=, method={method}) != "
+                  f"RotationService()")
+            service[method] = type(outs[0]).__name__
+
+        # -- an eig flush ------------------------------------------------
+        waves = RotationSequence(
+            torch.from_numpy(rec["C"][:, :EIG_K_DELAY]).float().to(dev),
+            torch.from_numpy(rec["S"][:, :EIG_K_DELAY]).float().to(dev))
+        eye = torch.eye(EIG_N, device=dev)
+        flush = {}
+        for method in ("auto", "cuda_batched"):
+            def flushed(**kw):
+                buf = DelayedRotationBuffer(eye.clone(), k_delay=EIG_K_DELAY,
+                                            method=method, **kw)
+                return buf.push_sequence(waves).value
+            got_f = flushed(mesh=mesh)
+            flush[method] = type(got_f).__name__
+            if isinstance(got_f, DTensor):
+                got_f = got_f.full_tensor()
+            check(torch.equal(got_f, flushed()),
+                  f"dist eig flush ({method}) != the unsharded buffer")
+
+        # -- the column pipeline -------------------------------------------
+        gen = torch.Generator().manual_seed(SEED + 9)
+        mc, nc, kc = DIST_COL
+        Ac = torch.randn((mc, nc), generator=gen).to(dev)
+        sc = random_sequence(nc, kc, generator=gen, device=dev)
+        column = {}
+        for label, X, sq, method in (("blocked", Ac, sc, "blocked"),
+                                     ("accumulated", A, seq, "accumulated")):
+            cplan = dist.plan_sharded(sq, like=X, mesh=mesh,
+                                      partition="column", method=method)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cout = cplan.apply(X)
+            torch.cuda.synchronize()
+            col_s = time.perf_counter() - t1
+            if method == "blocked":
+                cwant = sq.plan(like=X, method="blocked",
+                                **dict(cplan.kwargs)).apply(X)
+                err = max_abs(cout, cwant)
+                check(err == 0.0, f"dist column blocked max|d| {err}")
+            else:
+                err = rel_err(cout, ctx["ref"])
+                check(err <= MXU_TOL, f"dist column accumulated rel err "
+                      f"{err}")
+            column[label] = dict(shape=list(X.shape) + [sq.k],
+                                 kwargs=dict(cplan.kwargs), seconds=col_s,
+                                 err=err)
+
+        # -- obs on: one sharded application at the paper shape ------------
+        with obs.override(True):
+            obs.reset()
+            sh.apply(A)
+            snap = obs.snapshot()
+        obs.reset()
+        gauges, counters = snap["gauges"], snap["counters"]
+        rows = snap["roofline"]["dispatches"]
+        check(gauges.get("dist.launches_per_shard") == 1.0
+              and gauges.get("dist.devices") == 1.0
+              and counters.get("dist.comm_bytes", 0) == 0
+              and counters.get("dist.applies") == 1
+              and counters.get("kernels.rotseq_batched.launches") == 1
+              and len(rows) == 1 and rows[0]["comm_bytes"] == 0,
+              f"dist obs: gauges {gauges}, counters {counters}, "
+              f"{len(rows)} roofline rows")
+        obs_row = {key: rows[0][key] for key in (
+            "backend", "predicted_s", "measured_s", "model_fraction",
+            "comm_bytes", "launches_per_shard")}
+    finally:
+        tdist.destroy_process_group()
+
+    # -- the H100 record's sharded-vs-replicated decisions ----------------
+    crossover = {}
+    for label, (m, n, k) in DIST_CROSSOVER.items():
+        sh_s, rep_s = dist.modeled_crossover(m, n, k, devices=8)
+        crossover[label] = dict(
+            shape=[m, n, k], devices=8, sharded_s=sh_s, replicated_s=rep_s,
+            sharded=sh_s < rep_s,
+            sharded_method=registry.select_plan(m, n, k, devices=8).method,
+            replicated_method=registry.select_plan(m, n, k).method)
+    emit(phase="dist", nvidia_smi=smi, backend=backend,
+         nccl=".".join(map(str, torch.cuda.nccl.version()))
+         if backend == "nccl" else None,
+         row=row, auto=dict(method=auto.method, sharded=auto.execute_sharded,
+                            seq_plan_method=pick),
+         bucket=dict(shape=[B, MB, NB, KB], launches=bucket_launches,
+                     ms=bucket_ms),
+         service=service, eig_flush=flush, column=column, obs=obs_row,
+         h100_crossover=crossover, seconds=time.perf_counter() - t0)
+
+
 def rope_inputs(dev, label: str, dtype, gen):
     """``(q, k, cos, sin)`` of the ``ROPE_SHAPES`` case ``label`` on
     ``dev``, q starting ``ROPE_OFFSET[label]`` elements into its buffer."""
@@ -1903,6 +2124,7 @@ def main() -> int:
     # machine would change auto's picks in every phase
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         os.environ["REPRO_PLAN_CACHE"] = os.path.join(tmp, "plans.json")
+        os.environ["CHIP_SMOKE_TMP"] = tmp
         return run()
 
 
@@ -2100,6 +2322,9 @@ def run() -> int:
     obs_phase(ctx, seq, bctx, rec, {"rotseq_wave": wave_k,
                                     "rotseq_mxu": mxu_k,
                                     "rotseq_batched": batched_k}, kind, smi)
+
+    # -- sharded execution at one device over NCCL ------------------------
+    dist_phase(ctx, seq, bctx, rec, {"rotseq_batched": batched_k}, smi)
 
     # -- the LM serving path: SmolLM-135M through ServeEngine -------------
     entries["rope"] = rope_phase(dev)

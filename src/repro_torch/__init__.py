@@ -3,11 +3,12 @@
 Applies a recorded sequence of planar rotations to a matrix,
 ``A <- A @ Q``, through ``seq.plan(like=A).apply(A)``, and serves many
 such requests batched by shape (``repro_torch.serve``, through
-``plan.apply_batched``), and records such sequences in eigensolvers
+``plan.apply_batched``), records such sequences in eigensolvers
 and an SVD whose vectors accumulate through the same plans
-(``repro_torch.eig``): on an NVIDIA H100 by hand-written CUDA kernels
-(``kernels/``), on the CPU by their plain PyTorch versions.  Imports
-``torch`` and ``numpy`` only.
+(``repro_torch.eig``), and shards the rows of a target over a
+``torch.distributed`` device mesh (``repro_torch.dist``): on an NVIDIA
+H100 by hand-written CUDA kernels (``kernels/``), on the CPU by their
+plain PyTorch versions.  Imports ``torch`` and ``numpy`` only.
 """
 from .core import (METHODS, RotationSequence, SequencePlan,
                    apply_rotation_sequence, identity_sequence,

@@ -73,7 +73,7 @@ def _run_cuda_batched(A, C, S, *, reflect=False, G=None, **kw):
 registry.register(BackendSpec(
     name="unoptimized",
     fn=_run_unoptimized,
-    capability=Capability(supports_signs=False),
+    capability=Capability(supports_signs=False, supports_sharding=True),
     cost=registry.cost_unoptimized,
     candidates=registry.no_tiles,
     doc="Algorithm 1.2 reference: one rotation at a time, no blocking.",
@@ -82,7 +82,7 @@ registry.register(BackendSpec(
 registry.register(BackendSpec(
     name="wavefront",
     fn=_run_wavefront,
-    capability=Capability(supports_signs=False),
+    capability=Capability(supports_signs=False, supports_sharding=True),
     cost=registry.cost_wavefront,
     candidates=registry.no_tiles,
     doc="Algorithm 1.3 wavefront order, unblocked.",
@@ -91,7 +91,7 @@ registry.register(BackendSpec(
 registry.register(BackendSpec(
     name="blocked",
     fn=_run_blocked,
-    capability=Capability(tile_min=(2, 1)),
+    capability=Capability(supports_sharding=True, tile_min=(2, 1)),
     cost=registry.cost_blocked,
     candidates=registry.blocked_tiles,
     doc="Blocked wavefront (paper SS2/SS5), plain torch band sweeps.",
@@ -102,7 +102,8 @@ registry.register(BackendSpec(
     fn=_run_accumulated,
     # its factor accumulation writes a shared identity in place, which
     # torch.func.vmap refuses: per-request batches loop
-    capability=Capability(tile_min=(2, 1), supports_vmap=False),
+    capability=Capability(supports_sharding=True, tile_min=(2, 1),
+                          supports_vmap=False),
     cost=registry.cost_accumulated,
     candidates=registry.accumulated_tiles,
     doc="rs_gemm analogue: accumulate tile factors, sweep as GEMMs.",
@@ -132,12 +133,16 @@ registry.register(BackendSpec(
     doc="CUDA accumulated kernel (IEEE float32 tile GEMM chain).",
 ))
 
+# Of the kernels only the fused one is shard-capable, as only the
+# reference's rotseq_batched is: its launch is wholly a shard's own rows.
+# cuda_wave and cuda_mxu stay unmarked, mirroring pallas_wave/pallas_mxu.
 registry.register(BackendSpec(
     name="cuda_batched",
     fn=_run_cuda_batched,
     capability=Capability(dtypes=("float32",), platforms=("cuda",),
                           supports_signs=True, needs_kernel=True,
-                          supports_vmap=False, batch_via="fused"),
+                          supports_vmap=False, supports_sharding=True,
+                          batch_via="fused"),
     cost=registry.cost_cuda_batched,
     candidates=registry.no_tiles,
     doc="CUDA fused batched kernel: one launch per batch, dead planes "

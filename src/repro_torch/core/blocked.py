@@ -44,18 +44,19 @@ def num_tiles(n: int, n_b: int, k_b: int) -> int:
 
 
 def pack_sheared(C, S, p0: int, k_b: int, n_b: int, T: int,
-                 reflect: bool = False, G=None):
+                 reflect: bool = False, G=None, u0: int = 0):
     """Shear-pack waves ``[p0, p0 + k_b)`` into aligned ``(T, n_b, k_b)`` tiles.
 
-    ``Ct[t, jj, p] = C[t*n_b + jj - p, p0 + p]`` with no-op padding
+    ``Ct[t, jj, p] = C[u0 + t*n_b + jj - p, p0 + p]`` with no-op padding
     (``c = 1, s = 0, g = -1``) outside the valid ``(j, wave)`` range.
     ``Gt`` holds the per-entry sign; a padded *reflector* would not be a
-    no-op, so padding is always a rotation.  One vectorised gather,
-    bitwise equal to the reference.
+    no-op, so padding is always a rotation.  ``u0`` offsets the
+    diagonals (a column shard's range; it may be negative).  One
+    vectorised gather, bitwise equal to the reference.
     """
     J, k = C.shape
     dev = C.device
-    u = torch.arange(T * n_b, device=dev)
+    u = torch.arange(u0, u0 + T * n_b, device=dev)
     p = torch.arange(k_b, device=dev)
     jg = u[:, None] - p[None, :]
     pg = p0 + p

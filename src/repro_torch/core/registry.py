@@ -42,8 +42,16 @@ the same class nearby (cross-shape interpolation).  With
 opens a ``resolve`` span on a miss, as the reference does;
 :func:`plan_cache_stats` stays.  The cost model and the plan key read no
 clock: only autotune's measurements do, through
-:mod:`repro_torch.obs.timing`.  Not ported yet: the sharded slot of the
-plan key and its communication term (ROADMAP Queue 1 item 9).
+:mod:`repro_torch.obs.timing`.
+
+A sharded problem (``Problem.sharded``, ``devices`` shards, planned by
+:mod:`repro_torch.dist`) is eligible only for backends with
+``Capability.supports_sharding``; its per-row stream terms divide by the
+shard count, its per-sequence setup terms do not, and a communication
+term (the wave panels' broadcast over ``Hardware.link_bw`` plus
+``ceil(log2 D)`` link hops) is added, as in the reference.  Its plan
+key carries ``("sharded", devices)``: every shard count is a class of
+its own, never measured, persisted or interpolated.
 """
 from __future__ import annotations
 
@@ -159,6 +167,11 @@ class Problem:
     # make the live share small, which only the plane-skipping backend
     # (cuda_batched) turns into less work
     live_planes: Optional[int] = None
+    # a row-sharded execution over ``devices`` shards (repro_torch.dist):
+    # the shape fields stay global; the cost models divide the per-row
+    # terms by ``devices`` and add the communication term
+    sharded: bool = False
+    devices: int = 1
 
     @property
     def itemsize(self) -> int:
@@ -218,6 +231,8 @@ class Capability:
     dtypes: Tuple[str, ...] = ("float32", "bfloat16", "float64", "float16")
     platforms: Tuple[str, ...] = ("cpu", "cuda")
     supports_signs: bool = True       # per-entry G (mixed rot/reflector)
+    # runs on one row shard of a repro_torch.dist plan
+    supports_sharding: bool = False
     tile_min: Tuple[int, int] = (1, 1)
     tile_max: Tuple[int, int] = (4096, 4096)
     # a CUDA kernel whose plain version runs (penalised) on other devices
@@ -275,6 +290,8 @@ def eligible_backends(problem: Problem) -> List[BackendSpec]:
             continue
         if problem.signs and not cap.supports_signs:
             continue
+        if problem.sharded and not cap.supports_sharding:
+            continue
         out.append(spec)
     return out
 
@@ -312,6 +329,39 @@ def _split(setup_flops=0.0, setup_bytes=0.0,
             "stream_bytes": float(stream_bytes)}
 
 
+# Row shards are independent (rotations act on column pairs), so the only
+# wire traffic of a row-sharded application is the C/S/G wave panels sent
+# from the source shard to the others, a setup-side cost.  A hop latency
+# keeps small sharded problems from reading as free: a broadcast to D
+# shards takes ceil(log2 D) link round trips whatever its payload.
+_LINK_HOP_LATENCY = 5e-6
+
+
+def _comm_components(p: Problem) -> Dict[str, float]:
+    """Wire traffic and seconds of one sharded application (zero at one
+    device): three ``(n-1, k)`` panels a distinct sequence, ``devices -
+    1`` copies, over ``Hardware.link_bw`` plus the hops' latency."""
+    D = max(1, p.devices)
+    if not p.sharded or D <= 1:
+        return {"setup_bytes": 0.0, "stream_bytes": 0.0, "bytes": 0.0,
+                "hops": 0.0, "seconds": 0.0}
+    setup_bytes = 3.0 * p.sequences * p.planes_total * p.itemsize * (D - 1)
+    hops = float(math.ceil(math.log2(D)))
+    secs = setup_bytes / p.hardware.link_bw + hops * _LINK_HOP_LATENCY
+    return {"setup_bytes": setup_bytes, "stream_bytes": 0.0,
+            "bytes": setup_bytes, "hops": hops, "seconds": secs}
+
+
+def _dist_terms(p: Problem) -> Tuple[float, float]:
+    """``(stream_divisor, comm_seconds)``: each shard streams ``1/D`` of
+    the rows, every shard pays the whole setup, and the communication
+    seconds add to the per-shard time."""
+    D = max(1, p.devices)
+    if not p.sharded or D <= 1:
+        return 1.0, 0.0
+    return float(D), _comm_components(p)["seconds"]
+
+
 def _components_unoptimized(p: Problem, plan: Plan) -> Dict[str, float]:
     return _split(stream_flops=6.0 * p.m_total * p.n * p.k,
                   stream_bytes=4.0 * p.m_total * p.n * p.k * p.itemsize)
@@ -321,8 +371,10 @@ def cost_unoptimized(p: Problem, plan: Plan) -> float:
     """Alg 1.2: 4 memops per rotation, no reuse (paper SS6 baseline)."""
     hw = p.hardware
     c = _components_unoptimized(p, plan)
-    return _roofline_seconds(c["stream_flops"] / hw.vpu_flops,
-                             c["stream_bytes"] / hw.hbm_bw) * _eager_factor(p)
+    D, comm_s = _dist_terms(p)
+    return _roofline_seconds(
+        c["stream_flops"] / hw.vpu_flops / D,
+        c["stream_bytes"] / hw.hbm_bw / D) * _eager_factor(p) + comm_s
 
 
 def _components_wavefront(p: Problem, plan: Plan) -> Dict[str, float]:
@@ -334,8 +386,10 @@ def cost_wavefront(p: Problem, plan: Plan) -> float:
     """Alg 1.3: wavefront fuses column touches to ~2 memops/rotation."""
     hw = p.hardware
     c = _components_wavefront(p, plan)
-    return _roofline_seconds(c["stream_flops"] / hw.vpu_flops,
-                             c["stream_bytes"] / hw.hbm_bw) * _eager_factor(p)
+    D, comm_s = _dist_terms(p)
+    return _roofline_seconds(
+        c["stream_flops"] / hw.vpu_flops / D,
+        c["stream_bytes"] / hw.hbm_bw / D) * _eager_factor(p) + comm_s
 
 
 def _tile_grid(p: Problem, n_b: int, k_b: int) -> Tuple[int, int, int]:
@@ -365,16 +419,18 @@ def _components_blocked(p: Problem, plan: Plan) -> Dict[str, float]:
 
 
 def _blocked_seconds(p: Problem, plan: Plan) -> float:
+    """One shard's roofline seconds (no communication)."""
     hw = p.hardware
     c = _components_blocked(p, plan)
+    D, _ = _dist_terms(p)
     return _roofline_seconds(
-        c["stream_flops"] / hw.vpu_flops,
-        (c["setup_bytes"] + c["stream_bytes"]) / hw.hbm_bw)
+        c["stream_flops"] / hw.vpu_flops / D,
+        (c["setup_bytes"] + c["stream_bytes"] / D) / hw.hbm_bw)
 
 
 def cost_blocked(p: Problem, plan: Plan) -> float:
     """Blocked wavefront: A streams once per band of k_b waves (SS5)."""
-    return _blocked_seconds(p, plan) * _eager_factor(p)
+    return _blocked_seconds(p, plan) * _eager_factor(p) + _dist_terms(p)[1]
 
 
 def _accumulated_flops(p: Problem, n_b: int, k_b: int) -> Tuple[float, float]:
@@ -400,17 +456,20 @@ def _components_accumulated(p: Problem, plan: Plan) -> Dict[str, float]:
 
 
 def _accumulated_seconds(p: Problem, plan: Plan) -> float:
+    """One shard's roofline seconds (no communication)."""
     hw = p.hardware
     c = _components_accumulated(p, plan)
-    flop_term = (c["stream_flops"] / hw.mxu_flops
+    D, _ = _dist_terms(p)
+    flop_term = (c["stream_flops"] / hw.mxu_flops / D
                  + c["setup_flops"] / hw.vpu_flops)
     return _roofline_seconds(
-        flop_term, (c["setup_bytes"] + c["stream_bytes"]) / hw.hbm_bw)
+        flop_term, (c["setup_bytes"] + c["stream_bytes"] / D) / hw.hbm_bw)
 
 
 def cost_accumulated(p: Problem, plan: Plan) -> float:
     """rs_gemm: ~4/3 extra flops (n_b = k_b) priced at the GEMM rate."""
-    return _accumulated_seconds(p, plan) * _eager_factor(p)
+    return (_accumulated_seconds(p, plan) * _eager_factor(p)
+            + _dist_terms(p)[1])
 
 
 def _off_device_factor(p: Problem) -> float:
@@ -435,17 +494,19 @@ def cost_cuda_wave(p: Problem, plan: Plan) -> float:
     ``min(WAVE_WARPS, bands)`` warps a row group, so each warp's chain is
     that share of a row's planes and the row groups need that many times
     the warps (the kernel has no plane skip).  The roofline term still
-    orders the tiles.
+    orders the tiles.  A shard runs ``1/D`` of the rows; the
+    communication seconds add outside the kernel's constants.
     """
+    D, comm_s = _dist_terms(p)
     secs = 0.7 * _blocked_seconds(p, plan) * _off_device_factor(p)
     if p.platform == "cuda":
-        rows = p.m if p.sequences > 1 else p.m_total
+        rows = (p.m if p.sequences > 1 else p.m_total) / D
         bands = _bands(p.k, WAVE_KB)
         warps = max(1, min(WAVE_WARPS, bands))
         planes = max(0, p.n - 1) * bands * WAVE_KB
         secs += p.sequences * _row_chain_seconds(
             planes / warps, rows * warps, _WAVE_PLANE_SECONDS)
-    return max(secs, p.sequences * _LATENCY_FLOOR)
+    return max(secs, p.sequences * _LATENCY_FLOOR) + comm_s
 
 
 def _mxu_sweep_seconds(p: Problem, n_b: int, k_b: int) -> float:
@@ -455,7 +516,7 @@ def _mxu_sweep_seconds(p: Problem, n_b: int, k_b: int) -> float:
     bands, tiles, w = _tile_grid(p, n_b, k_b)
     a, b = _MXU_SLAB_SECONDS
     slabs = bands * tiles * math.ceil(w / MXU_SLAB)
-    rows = p.m if p.sequences > 1 else p.m_total
+    rows = (p.m if p.sequences > 1 else p.m_total) / _dist_terms(p)[0]
     blocks = math.ceil(rows / MXU_ROWS)
     return (p.sequences * slabs * (a + b * mxu_width(w))
             * max(1.0, blocks / _SMS))
@@ -472,23 +533,25 @@ def cost_cuda_mxu(p: Problem, plan: Plan) -> float:
     rate, plus the packing traffic; they are paid once per sequence.
     The host's calls for each band (:data:`_MXU_BAND_HOST_SECONDS`) set
     the pace where the card's work is shorter.  Off the card the
-    reference's formula holds.
+    reference's formula holds.  A shard sweeps ``1/D`` of the rows and
+    builds every factor; the communication seconds add outside.
     """
+    D, comm_s = _dist_terms(p)
     if p.platform != "cuda":
         return max(0.7 * _accumulated_seconds(p, plan) * _OFF_DEVICE_PENALTY,
-                   p.sequences * _LATENCY_FLOOR)
+                   p.sequences * _LATENCY_FLOOR) + comm_s
     hw = p.hardware
     n_b, k_b = plan.n_b or 128, plan.k_b or 128
     c = _components_accumulated(p, plan)
     bands, tiles, w = _tile_grid(p, n_b, k_b)
     sweep = (_mxu_sweep_seconds(p, n_b, k_b)
-             + c["stream_bytes"] / hw.hbm_bw)
+             + c["stream_bytes"] / D / hw.hbm_bw)
     factors = (bands * _row_chain_seconds(n_b * k_b, tiles * w,
                                           _BATCHED_PLANE_SECONDS)
                + c["setup_bytes"] / p.sequences / hw.hbm_bw)
     device = sweep + p.sequences * factors + _MXU_BAND_HOST_SECONDS
     host = p.sequences * bands * _MXU_BAND_HOST_SECONDS
-    return max(device, host, p.sequences * _LATENCY_FLOOR)
+    return max(device, host, p.sequences * _LATENCY_FLOOR) + comm_s
 
 
 def _components_cuda_batched(p: Problem, plan: Plan) -> Dict[str, float]:
@@ -507,17 +570,20 @@ def cost_cuda_batched(p: Problem, plan: Plan) -> float:
     flop term counts live planes only, and one latency floor covers the
     whole batch.  On the card the launch takes at least its measured
     plane rate over each row's live planes, all requests' rows at once.
+    A shard streams ``1/D`` of the rows and reads every panel; the
+    communication seconds add outside.
     """
     hw = p.hardware
     c = _components_cuda_batched(p, plan)
+    D, comm_s = _dist_terms(p)
     secs = _roofline_seconds(
-        c["stream_flops"] / hw.vpu_flops,
-        (c["setup_bytes"] + c["stream_bytes"]) / hw.hbm_bw)
+        c["stream_flops"] / hw.vpu_flops / D,
+        (c["setup_bytes"] + c["stream_bytes"] / D) / hw.hbm_bw)
     secs *= _off_device_factor(p)
     if p.platform == "cuda":
-        secs = max(secs, _row_chain_seconds(p.planes_live, p.m_total,
+        secs = max(secs, _row_chain_seconds(p.planes_live, p.m_total / D,
                                             _BATCHED_PLANE_SECONDS))
-    return max(secs, _LATENCY_FLOOR)
+    return max(secs, _LATENCY_FLOOR) + comm_s
 
 
 # the setup/stream traffic split behind each cost model (the kernels move
@@ -541,21 +607,26 @@ def cost_components(method: str, problem: Problem,
     """Predicted traffic + seconds for one dispatch, split by term.
 
     Returns ``{"flops", "bytes", "seconds", "setup": {...},
-    "stream": {...}}``: the summed SS6 analysis of the named backend,
-    the registered cost model's seconds (what ``select_plan`` ranked
-    by), and the per-sequence vs per-row split with penalty-free
-    attribution seconds.
+    "stream": {...}, "comm": {...}}``: the summed SS6 analysis of the
+    named backend, the registered cost model's seconds (what
+    ``select_plan`` ranked by), the per-sequence vs per-row split with
+    penalty-free attribution seconds (the stream's a shard's: divided by
+    the shard count of a sharded problem), and the communication term
+    (bytes, link hops, seconds; zero unless sharded over more than one
+    device).
     """
     spec = get_backend(method)
     plan = plan if plan is not None else Plan(method=method)
     comp_fn = _COMPONENT_FNS.get(method)
     c = comp_fn(problem, plan) if comp_fn is not None else _ZERO_SPLIT
     hw = problem.hardware
+    D, _ = _dist_terms(problem)
+    comm = _comm_components(problem)
     stream_rate = hw.mxu_flops if method in _MXU_STREAM else hw.vpu_flops
     setup_s = (c["setup_flops"] / hw.vpu_flops
                + c["setup_bytes"] / hw.hbm_bw)
     stream_s = (c["stream_flops"] / stream_rate
-                + c["stream_bytes"] / hw.hbm_bw)
+                + c["stream_bytes"] / hw.hbm_bw) / D
     return {
         "flops": float(c["setup_flops"] + c["stream_flops"]),
         "bytes": float(c["setup_bytes"] + c["stream_bytes"]),
@@ -566,6 +637,9 @@ def cost_components(method: str, problem: Problem,
         "stream": {"flops": float(c["stream_flops"]),
                    "bytes": float(c["stream_bytes"]),
                    "seconds": float(stream_s)},
+        "comm": {"bytes": float(comm["bytes"]),
+                 "hops": float(comm["hops"]),
+                 "seconds": float(comm["seconds"])},
     }
 
 
@@ -636,10 +710,15 @@ def clear_plan_cache() -> None:
 
 def _plan_key(problem: Problem) -> tuple:
     """``(m, n, k, dtype, platform, signs, batch, shared_sequence)``, plus
-    ``("live", live_planes)`` when the live planes are known."""
+    ``("sharded", devices)`` for a sharded problem and ``("live",
+    live_planes)`` when the live planes are known."""
     key = (problem.m, problem.n, problem.k, problem.dtype,
            problem.platform, problem.signs, problem.batch,
            problem.shared_sequence)
+    if problem.sharded:
+        # a sharded decision never transfers to another shard count or
+        # to the one-device problem of the same shape
+        key = key + (("sharded", max(1, problem.devices)),)
     if problem.live_planes is not None:
         # liveness changes which backend wins: a thin staircase must not
         # share an entry with the dense grid of the same shape
@@ -651,19 +730,26 @@ def _split_key(key: tuple):
     """Decode a :func:`_plan_key`: ``((m, n, k, batch), class,
     live_fraction)``.
 
-    ``class`` is ``(dtype, platform, signs, shared_sequence)``: a shared
-    sequence and one sequence a request are distinct classes, as dense
-    and live-annotated keys are (``live_fraction`` is ``None`` for a
-    dense key, else the live planes over ``(n-1) * k``).  Raises
-    ``ValueError`` for a tuple of another layout (the reference's, say).
+    ``class`` is ``(dtype, platform, signs, shared_sequence)``, with the
+    ``("sharded", devices)`` slot appended for a sharded key: a shared
+    sequence and one sequence a request are distinct classes, as every
+    shard count is, and as dense and live-annotated keys are
+    (``live_fraction`` is ``None`` for a dense key, else the live planes
+    over ``(n-1) * k``).  Raises ``ValueError`` for a tuple of another
+    layout (the reference's, say).
     """
-    if len(key) not in (8, 10) or (len(key) == 10 and key[8] != "live"):
+    rest = key[8:]
+    shard = ()
+    if rest and isinstance(rest[0], tuple) and len(rest[0]) == 2 \
+            and rest[0][0] == "sharded":
+        shard, rest = (rest[0],), rest[1:]
+    if len(key) < 8 or (rest and (len(rest) != 2 or rest[0] != "live")):
         raise ValueError(f"not a plan key of this package: {key!r}")
     m, n, k, dtype, platform, signs, batch, shared = key[:8]
     frac = None
-    if len(key) == 10:
-        frac = max(1, int(key[9])) / max(1, (n - 1) * k)
-    return (m, n, k, batch), (dtype, platform, signs, shared), frac
+    if rest:
+        frac = max(1, int(rest[1])) / max(1, (n - 1) * k)
+    return (m, n, k, batch), (dtype, platform, signs, shared) + shard, frac
 
 
 def _modeled_plans(problem: Problem) -> List[Plan]:
@@ -711,8 +797,11 @@ def _interpolated_plan(problem: Problem, key: tuple) -> Optional[Plan]:
     :data:`_INTERP_MAX_LOGDIST`.  The borrowed plan keeps the donor's
     backend and tiles, is re-costed by the model for this problem, and
     is marked ``source="interpolated"``: never persisted, upgraded in
-    place by a later ``autotune=True`` call.
+    place by a later ``autotune=True`` call.  A sharded problem borrows
+    nothing.
     """
+    if problem.sharded:
+        return None
     eligible = {spec.name for spec in eligible_backends(problem)}
     best: Optional[Plan] = None
     best_dist = _INTERP_MAX_LOGDIST
@@ -794,6 +883,14 @@ def _synthetic_waves(problem: Problem, rng):
 _MEASURE_SECONDS = 0.02
 _MEASURE_MIN_ROUNDS = 2
 _MEASURE_MAX_ROUNDS = 200
+# A measured candidate replaces the model's pick only when it is faster
+# by more than this factor.  At host-paced points the measurement does
+# not resolve less: at the eig flush (1024, 1024, 32) on an NVIDIA H100
+# 80GB HBM3 (700 W), autotune's cuda_mxu 64/32 over cuda_wave ratio and
+# the same ratio timed alone through plan.apply just after differed by
+# up to 0.3 (tools/autotune_flush.py), so a smaller gain picked a plan
+# slower in use about as often as a faster one.
+_MEASURED_MARGIN = 1.10
 
 
 # seconds of one call on the problem's device: CUDA events between two
@@ -916,7 +1013,8 @@ def select_plan(m: int, n: int, k: int, *, dtype: str = "float32",
                 platform: str = "cuda", signs: bool = False,
                 batch: int = 1, shared_sequence: bool = True,
                 live_planes: Optional[int] = None, autotune: bool = False,
-                autotune_top: int = 3) -> Plan:
+                autotune_top: int = 3, sharded: bool = False,
+                devices: int = 1) -> Plan:
     """Pick ``(method, n_b, k_b)`` for a problem, with caching.
 
     Plans are cached per :func:`_plan_key`.  A miss first borrows the
@@ -934,8 +1032,13 @@ def select_plan(m: int, n: int, k: int, *, dtype: str = "float32",
     through :func:`save_plan_cache`.
     Measurement needs the problem's platform here (``"cpu"``, or
     ``"cuda"`` with a card); elsewhere ``autotune`` ranks by the model.
+    ``devices`` is the shard count of a row-sharded execution
+    (``devices > 1`` implies ``sharded``): only shard-capable backends
+    are eligible, the communication term is priced, and the plan is
+    ranked by the model alone (a shard's sub-problem is not measured
+    standalone), cached in its own class and never persisted.
 
-    Three port rules differ from the reference:
+    Four port rules differ from the reference:
 
     * The candidates are timed in turns, one call of each a round, on
       inputs drawn once, not one candidate after another: on the card's
@@ -950,15 +1053,21 @@ def select_plan(m: int, n: int, k: int, *, dtype: str = "float32",
       arguments with ``ValueError`` in its own checks, before a launch.
       Any other exception (a failed build or launch) propagates: a
       kernel fault never hands the pick to another backend.
+    * The model's pick stays unless a measured candidate beats it by
+      more than :data:`_MEASURED_MARGIN`: a smaller measured gain is
+      inside what the measurement resolves at host-paced points.
     """
     dtype = dtype_name(dtype)
     batch = max(1, int(batch))
+    devices = max(1, int(devices))
+    sharded = bool(sharded) or devices > 1
     shared_sequence = bool(shared_sequence) or batch <= 1
-    autotune = autotune and _can_measure(platform)
+    autotune = autotune and _can_measure(platform) and not sharded
     problem = Problem(m=m, n=n, k=k, dtype=dtype, platform=platform,
                       signs=signs, batch=batch,
                       shared_sequence=shared_sequence,
-                      live_planes=live_planes)
+                      live_planes=live_planes, sharded=sharded,
+                      devices=devices)
     key = _plan_key(problem)
     cached = _PLAN_CACHE.get(key)
     if cached is not None and (not autotune
@@ -999,6 +1108,14 @@ def select_plan(m: int, n: int, k: int, *, dtype: str = "float32",
                      if secs is not None]
             if timed:
                 best = min(timed, key=lambda pl: pl.est_seconds)
+                model = next((pl for pl in timed
+                              if (pl.method, pl.n_b, pl.k_b)
+                              == (plans[0].method, plans[0].n_b,
+                                  plans[0].k_b)), None)
+                if model is not None and \
+                        model.est_seconds <= _MEASURED_MARGIN \
+                        * best.est_seconds:
+                    best = model
                 if cached is not None:
                     # a model or interpolated entry of this key was
                     # replaced by a fresh measurement

@@ -43,7 +43,9 @@ import torch
 from repro_torch import obs
 from repro_torch.core import registry
 
-__all__ = ["RotationSequence", "SequencePlan", "resolve_device"]
+__all__ = ["RotationSequence", "SequencePlan", "resolve_device",
+           "planned_apply", "planned_apply_batched", "planned_run",
+           "stack_request_waves"]
 
 _ROT = -1.0      # plain rotation (identity padding is a no-op)
 _REFL = 1.0      # 2x2 reflector (paper SS8.4)
@@ -482,15 +484,13 @@ class SequencePlan:
         if self.method == _IDENTITY:
             return A
         seq = self.sequence
+        args = (self.method, self.kwargs, seq.reflect, A, seq.cos, seq.sin,
+                seq.sign)
         if not obs.enabled() or obs.traced(A):
-            return _PlannedApply.apply(A, _run_backend, self.method,
-                                       self.kwargs, seq.reflect, seq.cos,
-                                       seq.sin, seq.sign)
+            return planned_apply(*args)
         with obs.span("apply", method=self.method, m=int(A.shape[0]),
                       n=int(A.shape[1])):
-            out, dt = _timed(A.device, _PlannedApply.apply, A, _run_backend,
-                             self.method, self.kwargs, seq.reflect, seq.cos,
-                             seq.sin, seq.sign)
+            out, dt = _timed(A.device, planned_apply, *args)
         self._record_dispatch(A, dt)
         return out
 
@@ -504,13 +504,12 @@ class SequencePlan:
         if self.method == _IDENTITY:
             return A
         seq = self.sequence
+        args = (self.method, self.kwargs, seq.reflect, A, seq.cos, seq.sin,
+                seq.sign)
         if not obs.enabled() or obs.traced(A):
-            return _run_backend(self.method, self.kwargs, seq.reflect, A,
-                                seq.cos, seq.sin, seq.sign)
+            return planned_run(*args)
         with obs.span("apply", method=self.method, direct=True):
-            out, dt = _timed(A.device, _run_backend, self.method,
-                             self.kwargs, seq.reflect, A, seq.cos, seq.sin,
-                             seq.sign)
+            out, dt = _timed(A.device, planned_run, *args)
         self._record_dispatch(A, dt)
         return out
 
@@ -559,36 +558,9 @@ class SequencePlan:
 
     def _apply_batched_impl(self, A, sequences, direct: bool):
         seq = self.sequence
-        b = A.shape[0]
-        if sequences is None:
-            C, S, G = seq.cos, seq.sin, seq.sign
-        else:
-            seqs = list(sequences)
-            if len(seqs) != b:
-                raise ValueError(
-                    f"{len(seqs)} sequences for a batch of {b} targets")
-            plan_signed = seq.sign is not None
-            for s in seqs:
-                if not isinstance(s, RotationSequence):
-                    raise TypeError(
-                        f"expected RotationSequence, got {type(s)}")
-                if tuple(s.shape) != tuple(seq.shape):
-                    raise ValueError(
-                        f"sequence shape {s.shape} != plan shape "
-                        f"{seq.shape}; pad_to a bucket-stable wave count "
-                        f"first")
-                if not plan_signed and (s.sign is not None
-                                        or s.reflect != seq.reflect):
-                    raise ValueError(
-                        "mixed sign/reflect structure in one batch; plan "
-                        "the bucket on a sign-carrying representative "
-                        "(RotationSequence.with_signs()) first")
-            C, S, G = _stack_waves(seqs, plan_signed)
-        if direct:
-            return _run_batched(self.method, self.kwargs, seq.reflect, A,
-                                C, S, G)
-        return _PlannedApply.apply(A, _run_batched, self.method, self.kwargs,
-                                   seq.reflect, C, S, G)
+        C, S, G = _request_waves(seq, sequences, A.shape[0])
+        run = planned_run if direct else planned_apply_batched
+        return run(self.method, self.kwargs, seq.reflect, A, C, S, G)
 
     def _check_target(self, A):
         if self.method == _IDENTITY:
@@ -606,31 +578,8 @@ class SequencePlan:
         ``A``'s device (the H100 on the card), with per-sequence setup
         priced per request when the batch carried its own sequences
         (``shared=False``), beside the measured seconds."""
-        seq = self.sequence
-        if A.ndim == 3:
-            b, m = int(A.shape[0]), int(A.shape[1])
-        else:
-            b, m = 1, int(A.shape[0])
-        kw = dict(self.kwargs)
-        problem = registry.Problem(
-            m=m, n=seq.n, k=seq.k, dtype=_dtype_name(A.dtype),
-            platform=A.device.type, signs=seq.sign is not None, batch=b,
-            shared_sequence=shared, live_planes=seq.k_live)
-        rplan = self.plan if self.plan is not None else registry.Plan(
-            method=self.method, n_b=kw.get("n_b"), k_b=kw.get("k_b"))
-        comp = registry.cost_components(self.method, problem, rplan)
-        obs.roofline.record_dispatch(
-            backend=self.method, m_total=problem.m_total, n=seq.n, k=seq.k,
-            batch=b, dtype=problem.dtype,
-            tile={key: val for key, val in kw.items()
-                  if key in ("n_b", "k_b")},
-            planes_live=problem.planes_live,
-            planes_total=problem.planes_total,
-            predicted_flops=comp["flops"], predicted_bytes=comp["bytes"],
-            predicted_s=comp["seconds"], measured_s=measured_s,
-            predicted_setup_s=comp["setup"]["seconds"],
-            predicted_stream_s=comp["stream"]["seconds"],
-            shared_sequence=shared)
+        _record_roofline(self, _problem_of(self.sequence, A, shared,
+                                           A.device.type), measured_s)
         obs.inc("sequence.applies")
         obs.observe("sequence.apply_seconds", measured_s)
 
@@ -763,6 +712,68 @@ def _transpose_waves(cos, sin, sign, reflect: bool):
     return c_t, s_t, g_t, (False if g_t is not None else reflect)
 
 
+def _problem_of(seq: RotationSequence, A, shared: bool, platform: str,
+                **sharding) -> registry.Problem:
+    """The registry problem of one dispatch of ``seq`` to ``A`` (a
+    ``(m, n)`` target or a ``(b, m, n)`` batch)."""
+    b, m = (int(A.shape[0]), int(A.shape[1])) if A.ndim == 3 \
+        else (1, int(A.shape[0]))
+    return registry.Problem(
+        m=m, n=seq.n, k=seq.k, dtype=_dtype_name(A.dtype), platform=platform,
+        signs=seq.sign is not None, batch=b, shared_sequence=shared,
+        live_planes=seq.k_live, **sharding)
+
+
+def _record_roofline(plan, problem: registry.Problem, measured_s: float,
+                     **extra) -> None:
+    """One roofline record of a completed dispatch of ``plan`` (a
+    :class:`SequencePlan` or a sharded one): the SS6 model's flops,
+    bytes and seconds for ``problem`` at the plan's backend and tiles,
+    beside the measured seconds; ``extra`` reaches
+    ``obs.roofline.record_dispatch`` (a sharded dispatch's
+    ``comm_bytes`` and ``launches_per_shard``)."""
+    seq, kw = plan.sequence, dict(plan.kwargs)
+    rplan = plan.plan if plan.plan is not None else registry.Plan(
+        method=plan.method, n_b=kw.get("n_b"), k_b=kw.get("k_b"))
+    comp = registry.cost_components(plan.method, problem, rplan)
+    obs.roofline.record_dispatch(
+        backend=plan.method, m_total=problem.m_total, n=seq.n, k=seq.k,
+        batch=problem.batch, dtype=problem.dtype,
+        tile={key: val for key, val in kw.items() if key in ("n_b", "k_b")},
+        planes_live=problem.planes_live, planes_total=problem.planes_total,
+        predicted_flops=comp["flops"], predicted_bytes=comp["bytes"],
+        predicted_s=comp["seconds"], measured_s=measured_s,
+        predicted_setup_s=comp["setup"]["seconds"],
+        predicted_stream_s=comp["stream"]["seconds"],
+        shared_sequence=problem.shared_sequence, **extra)
+
+
+def _request_waves(seq: RotationSequence, sequences, b: int):
+    """The waves of one batched application under ``seq``'s plan: its
+    own with ``sequences=None``, else the ``b`` requests' checked and
+    stacked."""
+    if sequences is None:
+        return seq.cos, seq.sin, seq.sign
+    seqs = list(sequences)
+    if len(seqs) != b:
+        raise ValueError(f"{len(seqs)} sequences for a batch of {b} targets")
+    plan_signed = seq.sign is not None
+    for s in seqs:
+        if not isinstance(s, RotationSequence):
+            raise TypeError(f"expected RotationSequence, got {type(s)}")
+        if tuple(s.shape) != tuple(seq.shape):
+            raise ValueError(
+                f"sequence shape {s.shape} != plan shape {seq.shape}; "
+                f"pad_to a bucket-stable wave count first")
+        if not plan_signed and (s.sign is not None
+                                or s.reflect != seq.reflect):
+            raise ValueError(
+                "mixed sign/reflect structure in one batch; plan the "
+                "bucket on a sign-carrying representative "
+                "(RotationSequence.with_signs()) first")
+    return _stack_waves(seqs, plan_signed)
+
+
 def _stack_waves(seqs, plan_signed: bool):
     """Stack per-request waves into ``(b, n-1, k)`` tensors.
 
@@ -849,3 +860,42 @@ class _PlannedApply(torch.autograd.Function):
                 (key, val) for key, val in kwargs if key in ("n_b", "k_b"))
         dA = ctx.run(method, kwargs, refl_t, dY.contiguous(), c_t, s_t, g_t)
         return dA, None, None, None, None, None, None, None
+
+
+# --------------------------------------------------------------------------
+# shard-local execution hooks (repro_torch.dist)
+# --------------------------------------------------------------------------
+#
+# repro_torch.dist runs each shard's work through these, never through a
+# kernel module: the same planned calls as a SequencePlan, on a shard's
+# rows.  Rows differentiate independently, so the transposed-sequence
+# backward of a shard needs no collective.
+
+def planned_apply(method, kwargs, reflect, A, C, S, G):
+    """Planned application to one ``(m, n)`` target with the
+    transposed-sequence backward (:meth:`SequencePlan.apply`)."""
+    return _PlannedApply.apply(A, _run_backend, method, kwargs, reflect,
+                               C, S, G)
+
+
+def planned_apply_batched(method, kwargs, reflect, A, C, S, G):
+    """Planned application to a ``(b, m, n)`` batch, waves shared
+    ``(n-1, k)`` or stacked ``(b, n-1, k)``, routed as
+    :meth:`SequencePlan.apply_batched` routes them, with the
+    transposed-sequence backward."""
+    return _PlannedApply.apply(A, _run_batched, method, kwargs, reflect,
+                               C, S, G)
+
+
+def planned_run(method, kwargs, reflect, A, C, S, G):
+    """Planned application with PyTorch's own autograd through the
+    backend (:meth:`SequencePlan.apply_direct`); a ``(b, m, n)`` target
+    takes the batched route."""
+    run = _run_batched if A.ndim == 3 else _run_backend
+    return run(method, kwargs, reflect, A, C, S, G)
+
+
+def stack_request_waves(seqs, plan_signed: bool):
+    """Stack ``b`` per-request sequences into ``(b, n-1, k)`` waves
+    (signs materialised only under a sign-carrying plan)."""
+    return _stack_waves(seqs, plan_signed)

@@ -22,8 +22,12 @@ With :mod:`repro_torch.obs` on, a flush opens a ``flush`` span (and a
 ``rebind`` span when it reuses a plan), counts ``eig.flushes`` and
 observes its wave count in the ``eig.waves_per_flush`` histogram
 (``unit="waves"``), as the reference does; ``stats`` keeps its counts
-either way.  Not ported yet: the ``mesh``/``row_axes`` sharded flush
-(ROADMAP Queue 1 item 9).
+either way.
+
+With ``mesh=`` (a ``DeviceMesh``) a flush plans through
+:func:`repro_torch.dist.plan_sharded` and applies with ``direct=True``:
+the accumulator's rows shard over ``row_axes`` (distributed eigenvector
+accumulation), and a sharded flush leaves it a ``DTensor``.
 """
 from __future__ import annotations
 
@@ -36,14 +40,6 @@ from repro_torch import obs
 from repro_torch.core.sequence import RotationSequence, _as_tensor
 
 __all__ = ["DelayedRotationBuffer"]
-
-
-def refuse_unported(*, mesh=None, row_axes=("data",)) -> None:
-    """Raise for the reference's options the port does not have yet."""
-    if mesh is not None or tuple(row_axes) != ("data",):
-        raise NotImplementedError(
-            "sharded accumulation (mesh=..., row_axes=...) is not ported "
-            "yet (ROADMAP Queue 1 item 9)")
 
 
 class DelayedRotationBuffer:
@@ -61,17 +57,28 @@ class DelayedRotationBuffer:
       autotune: measure the candidate plans when a flush shape is first
         resolved (``"auto"`` only); later flushes rebind that plan.
       pad_flush: identity-pad a partial flush to ``k_delay`` waves.
+      mesh: a ``torch.distributed`` ``DeviceMesh``: flushes resolve a
+        row-sharded :class:`~repro_torch.dist.ShardedSequencePlan`
+        through :func:`repro_torch.dist.plan_sharded` instead of a
+        replicated ``SequencePlan`` (``"auto"`` arbitrates sharded
+        against replicated by the comm-extended cost model).
+      row_axes: the mesh dimensions the accumulator's rows shard over
+        (with ``mesh``).
       apply_kw: extra plan keywords (explicit ``n_b``/``k_b``, say)
         forwarded to ``RotationSequence.plan``.
 
-    ``mesh`` and a ``row_axes`` other than the default raise
-    ``NotImplementedError``.
+    A ``mesh`` that is not a ``DeviceMesh`` raises ``TypeError``, a
+    ``row_axes`` it does not name ``ValueError``.
     """
 
     def __init__(self, M, *, k_delay: int = 32, method: str = "auto",
                  autotune: bool = False, pad_flush: bool = True,
                  mesh=None, row_axes=("data",), **apply_kw):
-        refuse_unported(mesh=mesh, row_axes=row_axes)
+        if mesh is not None:
+            from repro_torch.dist.plan import _mesh_devices
+            _mesh_devices(mesh, row_axes)
+        self.mesh = mesh
+        self.row_axes = tuple(row_axes)
         if k_delay < 1:
             raise ValueError(f"k_delay must be >= 1, got {k_delay}")
         self._M = _as_tensor(M, None)
@@ -207,9 +214,17 @@ class DelayedRotationBuffer:
                 # a batched accumulator applies ONE pending sequence to
                 # every basis of the (b, m, n) stack: a shared-sequence
                 # batch, so the registry prices per-sequence setup once
-                plan = seq.plan(like=self._M, method=self.method,
-                                autotune=self.autotune,
-                                shared_sequence=True, **self.apply_kw)
+                if self.mesh is not None:
+                    from repro_torch import dist
+                    plan = dist.plan_sharded(
+                        seq, like=self._M, mesh=self.mesh,
+                        row_axes=self.row_axes, method=self.method,
+                        autotune=self.autotune, shared_sequence=True,
+                        **self.apply_kw)
+                else:
+                    plan = seq.plan(like=self._M, method=self.method,
+                                    autotune=self.autotune,
+                                    shared_sequence=True, **self.apply_kw)
                 self._plans[plan_key] = plan
             else:
                 with obs.span("rebind") if obs.enabled() else obs.NULL_SPAN:
@@ -218,6 +233,9 @@ class DelayedRotationBuffer:
             # the direct paths skip the transposed-sequence backward
             if self._M.ndim == 3:
                 self._M = plan.apply_batched(self._M, direct=True)
+            elif self.mesh is not None:
+                # ShardedSequencePlan spells direct as a keyword
+                self._M = plan.apply(self._M, direct=True)
             else:
                 self._M = plan.apply_direct(self._M)
             self._c.clear()

@@ -42,8 +42,14 @@ warm_plans}``, sets the ``serve.queue_depth``, ``serve.bucket_fill_ratio``
 and ``serve.pad_slot_fraction`` gauges, observes each request's admit to
 finished-result seconds in ``serve.request_latency_seconds`` and opens
 ``admit``/``drain`` spans, as the reference does; ``stats`` keeps its
-counts either way.  Not ported yet: the ``mesh`` argument (sharded
-buckets, ROADMAP Queue 1 item 9).
+counts either way.
+
+With ``mesh=`` (a ``DeviceMesh``) bucket plans resolve through
+:func:`repro_torch.dist.plan_sharded`: a drain shards the bucket's rows
+over ``row_axes``, one ``cuda_batched`` launch a shard on the card, and
+results are row views of the ``DTensor`` batch.  Every rank then runs
+the service and submits the same requests in the same order, since each
+drain is a collective.
 """
 from __future__ import annotations
 
@@ -157,16 +163,31 @@ class RotationService:
       store: path of the serialised-plan store; ``None`` uses
         :func:`serve_plan_store_path`, ``False`` turns persistence off.
       warm_start: load serialised plans from ``store`` at construction.
+      mesh: a ``torch.distributed`` ``DeviceMesh``: bucket plans resolve
+        through :func:`repro_torch.dist.plan_sharded` (``"auto"``
+        arbitrates sharded against replicated by the comm-extended cost
+        model).  Sharded bucket plans stay in this process: a mesh has no
+        JSON form, so the plan store is bypassed.
+      row_axes: the mesh dimensions bucket rows shard over (with
+        ``mesh``).
       plan_kw: extra keywords for ``RotationSequence.plan`` when a bucket
         is first resolved (explicit ``n_b``/``k_b``, say).
+
+    A ``mesh`` that is not a ``DeviceMesh`` raises ``TypeError``, a
+    ``row_axes`` it does not name ``ValueError``.
     """
 
     def __init__(self, *, slots: int = 8, method: str = "auto",
                  autotune: bool = False, pad_waves: bool = True,
                  min_k_pad: int = 4, store=None, warm_start: bool = True,
-                 **plan_kw):
+                 mesh=None, row_axes=("data",), **plan_kw):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
+        if mesh is not None:
+            from repro_torch.dist.plan import _mesh_devices
+            _mesh_devices(mesh, row_axes)
+        self.mesh = mesh
+        self.row_axes = tuple(row_axes)
         self.slots = int(slots)
         self.method = method
         self.autotune = bool(autotune)
@@ -286,6 +307,17 @@ class RotationService:
         registry, once."""
         plan = self._plans.get(key)
         if plan is not None:
+            return plan
+        if self.mesh is not None:
+            from repro_torch import dist
+            plan = dist.plan_sharded(rep_seq, like=like, mesh=self.mesh,
+                                     row_axes=self.row_axes,
+                                     method=self.method,
+                                     autotune=self.autotune,
+                                     shared_sequence=False, **self.plan_kw)
+            self.stats["plans_resolved"] += 1
+            obs.inc("serve.plans_resolved")
+            self._plans[key] = plan
             return plan
         warm = self._warm.get(key)
         if warm is not None:

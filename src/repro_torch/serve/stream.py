@@ -159,6 +159,12 @@ class StreamEngine:
         the round robin.
       start: start the threads now (``False`` lets tests drive the
         admission policies inertly).
+      mesh, row_axes: row-sharded bucket execution through
+        :mod:`repro_torch.dist` (passed to the private
+        ``RotationService``).  Every drain is then a collective: each rank
+        must close the same batches in the same order, so with more than
+        one rank let only full buckets and :meth:`close` close them (age
+        limits past the run).
       service_kw: passed to the private ``RotationService``
         (``method=...``, ``autotune=True``, ``store=False``, say).
     """
@@ -167,7 +173,10 @@ class StreamEngine:
                  slots: int = 8, max_pending: int = 256,
                  backpressure: str = "block", age_factor: float = 8.0,
                  min_age_s: float = 0.002, max_age_s: float = 0.25,
-                 max_burst: int = 4, start: bool = True, **service_kw):
+                 max_burst: int = 4, start: bool = True, mesh=None,
+                 row_axes=("data",), **service_kw):
+        if mesh is not None:
+            service_kw.update(mesh=mesh, row_axes=row_axes)
         if backpressure not in ("block", "fail", "shed"):
             raise ValueError(f"unknown backpressure policy {backpressure!r}")
         if max_pending < 1:

@@ -10,8 +10,8 @@ with the port's backend names, its key layout
 count])`` and the torch/CUDA build string in place of the JAX version.
 Then the port against the reference itself: the synthetic waves a
 measurement times, bit for bit, and the interpolation decisions on one
-planted cache.  Then the two port rules (the per-request widening, the
-failing candidate), and ``autotune=`` through every entry point, equal to
+planted cache.  Then the port rules (the per-request widening, the
+failing candidate, the model's pick kept inside the margin), and ``autotune=`` through every entry point, equal to
 ``autotune=False`` within the family rule (bit for bit on the rotation
 family, 1e-5 relative where a GEMM-family backend takes part).
 
@@ -481,6 +481,31 @@ def test_autotune_ranks_by_the_model_where_it_cannot_measure(monkeypatch):
     assert plan.source == "model" and not seen
     assert plan == registry._modeled_plans(
         Problem(m=3840, n=3840, k=180, platform="cuda"))[0]
+
+
+@pytest.mark.parametrize("gain,keeps_model", [(1.05, True), (1.08, True),
+                                              (1.25, False)])
+def test_autotune_keeps_the_model_pick_inside_the_margin(monkeypatch, gain,
+                                                         keeps_model):
+    """A measured candidate replaces the model's pick only when it is
+    faster by more than ``_MEASURED_MARGIN``; the pick is measured
+    either way."""
+    prob = Problem(m=8, n=12, k=5, platform="cpu")
+    model = registry._modeled_plans(prob)[0]
+    t = 1e-3
+
+    def measure(problem, plans):
+        return [t if (pl.method, pl.n_b, pl.k_b)
+                == (model.method, model.n_b, model.k_b) else t / gain
+                for pl in plans]
+
+    monkeypatch.setattr(registry, "_measure_plans", measure)
+    plan = select_plan(8, 12, 5, platform="cpu", autotune=True,
+                       autotune_top=3)
+    assert plan.source == "measured"
+    assert ((plan.method, plan.n_b, plan.k_b)
+            == (model.method, model.n_b, model.k_b)) == keeps_model
+    assert plan.est_seconds == (t if keeps_model else t / gain)
 
 
 # --------------------------------------------------------- entry points ----

@@ -473,11 +473,23 @@ def test_push_sequence_slices_equal_wave_by_wave(signed):
     assert whole.stats == one.stats
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+def test_unported_options_raise(tmp_path):
+    """A ``mesh`` that is not a ``DeviceMesh`` and a ``row_axes`` the mesh
+    does not name are refused at construction (one gloo rank here)."""
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         DelayedRotationBuffer(torch.eye(4), mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        DelayedRotationBuffer(torch.eye(4), row_axes=("model",))
+    tdist.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+        world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        with pytest.raises(ValueError, match="no dimension 'model'"):
+            DelayedRotationBuffer(torch.eye(4), mesh=mesh,
+                                  row_axes=("model",))
+    finally:
+        tdist.destroy_process_group()
     with pytest.raises(ValueError, match="accumulator"):
         DelayedRotationBuffer(torch.zeros(4))
 

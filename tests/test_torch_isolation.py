@@ -49,13 +49,26 @@ def test_no_jax_or_reference_imports_in_the_port():
                  "kernels/rope/ref.py", "kernels/rope/kernel.py",
                  "kernels/rope/ops.py", "core/jacobi.py", "eig/__init__.py",
                  "eig/api.py", "eig/delayed.py", "eig/qr_shift.py",
-                 "eig/svd.py", "eig/tridiag.py"):
+                 "eig/svd.py", "eig/tridiag.py", "dist/__init__.py",
+                 "dist/plan.py", "dist/colsharded.py",
+                 "core/distributed.py"):
         assert PORT / part in files
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if _banned(name)]
     assert bad == []
     assert (PORT / "csrc" / "rotseq_batched.cu").exists()
     assert (PORT / "csrc" / "rope.cu").exists()
+
+
+def test_dist_imports_no_kernel_module():
+    """``repro_torch.dist`` runs only through the planned hooks of
+    ``repro_torch.core.sequence``: no module of it imports
+    ``repro_torch.kernels``."""
+    files = sorted((PORT / "dist").glob("*.py"))
+    assert len(files) == 3
+    names = [name for f in files for name in _imports(f)]
+    assert "repro_torch.core.sequence" in names
+    assert [n for n in names if n.startswith("repro_torch.kernels")] == []
 
 
 def test_importing_the_port_loads_no_jax():
@@ -66,7 +79,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.rope.ops, repro_torch.models, "
             "repro_torch.models.transformer, repro_torch.serve.lm, "
             "repro_torch.launch.serve, repro_torch.configs, "
-            "repro_torch.eig, repro_torch.core.jacobi; "
+            "repro_torch.eig, repro_torch.core.jacobi, repro_torch.dist, "
+            "repro_torch.core.distributed; "
             "[__import__('repro_torch.configs.' + a.replace('-', '_')) "
             "for a in repro_torch.configs.ARCHS]; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] "
