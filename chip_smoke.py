@@ -85,6 +85,23 @@ counted (one a layer a decode step) and the ``rope_tables`` calls
 counted (none after the first step), and its decode step is profiled;
 and the same float32 model decodes on the card and on the host, whose
 tokens must agree.
+Then training (``repro_torch.{train,optim,data,ckpt,parallel}``): the
+RoPE kernel's backward (one launch rotating by ``-sin``) held bit for bit
+to autograd of its plain version at every ``ROPE_SHAPES`` case, timed by
+CUPTI beside the forward; SmolLM-135M at full width, seeded float32
+master weights and bf16 compute, 8 AdamW steps of 4 x 1024 tokens through
+``TrainLoop`` (losses finite and falling, two RoPE launches a layer a
+step, every ``wq``/``wk`` gradient nonzero, ms a step, tokens/s, peak
+memory, one profiled step), then 4 steps of ``adamw_q8``; one float32
+step's loss and gradients on the card against the host's; the
+reference launcher's ``--reduced --optimizer soap_givens`` example for
+20 steps, each refresh's bases held to the pick's plain version and
+orthogonal, and one ``solver="qr"`` refresh; ``compress_lowrank`` of a
+``(1024, 512)`` gradient at rank 32 against ``np.linalg.svd``'s optimum
+and ``compressed_psum`` over a one-rank NCCL group; the full-width
+params and AdamW state through ``CheckpointManager`` bit for bit and a
+loop resumed at step 4 against an uninterrupted one; and
+``python -m repro_torch.launch.train`` in a child process.
 Every phase prints one JSON line and raises on failure.  The line before
 the last holds the card's name and power limit, the last ``{"ok": true,
 "device": {...}}``.  Exits non-zero, with no result, when there is no
@@ -96,6 +113,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -145,12 +163,17 @@ LM_RUNS = 4   # serving runs timed; the first counts the launches
 PROMPT_LEN = (4, 11)
 PARITY_BATCH, PARITY_MAX_NEW = 2, 8
 PARITY_RTOL = 1e-3   # per step: max|card - host| <= PARITY_RTOL * max|host|
+# the training slice: SmolLM-135M at full width, seeded f32 master weights
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024   # S = 1024: attention's flash path
 # RoPE at the decode shape of the serving run, a prefill and a ragged
-# one, llama3-405b's heads on one 4096-token sequence, gemma3's head dim,
-# a head dim the vector path cannot take, and the decode shape as a view
-# one element into its buffer: (B, S, Hq, Hk, D)
+# one, the train step's q and k (forward and backward; train_phase holds
+# its heads to the config), llama3-405b's heads on one 4096-token
+# sequence, gemma3's head dim, a head dim the vector path cannot take,
+# and the decode shape as a view one element into its buffer:
+# (B, S, Hq, Hk, D)
 ROPE_SHAPES = {"decode": (8, 1, 9, 3, 64), "prefill": (8, 2048, 9, 3, 64),
                "ragged": (8, 300, 9, 3, 64),
+               "train": (TRAIN_BATCH, TRAIN_SEQ, 9, 3, 64),
                "llama_prefill": (1, 4096, 64, 8, 128),
                "gemma3": (8, 512, 8, 4, 256), "scalar_d10": (2, 16, 4, 2, 10),
                "misaligned": (8, 1, 9, 3, 64)}
@@ -158,6 +181,15 @@ ROPE_OFFSET = {"misaligned": 1}   # elements q starts into its buffer
 # the path each shape must take on the card, in both dtypes
 ROPE_PATH = {"scalar_d10": "scalar", "misaligned": "scalar"}
 ROPE_HOST_CALLS = 400    # wrapper calls a round timed on the host
+TRAIN_STEPS, TRAIN_TIMED, TRAIN_Q8_STEPS = 8, 6, 4
+TRAIN_LR = 3e-3
+TRAIN_PARITY = (1, 128)            # batch, seq of the card/host step
+TRAIN_PARITY_TOL = {"loss": 1e-4, "grad": 1e-3}   # relative
+SOAP_STEPS, SOAP_FREQ = 20, 10     # the launcher's --reduced example
+SOAP_BATCH, SOAP_SEQ = 8, 64
+SOAP_ORTH_TOL = 1e-4
+LOWRANK_SHAPE, LOWRANK_RANK = (1024, 512), 32
+CKPT_BATCH, CKPT_SEQ, CKPT_AT, CKPT_STEPS = 2, 256, 4, 6
 
 # the eigensolver path (paper SS5.1), float32: eigh_givens at the width
 # of benchmarks/bench_eig.py's largest size, the SVD of a tall matrix,
@@ -1818,6 +1850,12 @@ def device_us(cases, reps_of, floor_reps: int = 200):
     rest = [e for e in events if "rope" not in e.name]
     plan = [(key, reps_of(key)) for key, _ in cases]
     if len(hits) != sum(n for _, n in plan) or len(rest) != floor_reps:
+        print(json.dumps({"device_us": "window mismatch", "rope": len(hits),
+                          "want": sum(n for _, n in plan),
+                          "other": len(rest), "floor_reps": floor_reps,
+                          "other_names": sorted({e.name[:60]
+                                                 for e in rest})[:8]}),
+              file=sys.stderr, flush=True)
         return None
     out, at = {}, 0
     for key, n in plan + [("floor", floor_reps)]:
@@ -1913,7 +1951,7 @@ def rope_phase(dev) -> dict:
         replaces="src/repro/kernels/rope/kernel.py:50",
         max_abs_err=max(r["max_abs_err"] for r in rows.values()),
         ms=ms, plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-        bound_by=main["bound_by"], library_ms=None)
+        bound_by=main["bound_by"], library_ms=None, rows=rows)
 
 
 def lm_prompts(vocab: int, batch: int):
@@ -2110,6 +2148,462 @@ def lm_parity_phase(dev) -> None:
          batch=PARITY_BATCH, max_new=PARITY_MAX_NEW, steps=len(c_log),
          tokens_equal=True, tokens=c_out, max_rel_logit_err=max(errs),
          rtol=PARITY_RTOL, card_seconds=c_s, host_seconds=h_s)
+
+
+def rope_backward_phase(dev, forward: dict) -> dict:
+    """The RoPE kernel's backward (one launch, ``inverse`` set) held bit
+    for bit to ``torch.autograd`` of the plain version on the card, at
+    every ``ROPE_SHAPES`` case in float32 and bfloat16, on the path the
+    case names (the upstream gradients of the misaligned case are views
+    one element into their buffers, as its q is); each backward launch
+    timed on the device by CUPTI and by CUDA events beside the forward's
+    (``forward``: the rope line's rows)."""
+    import torch
+    from repro_torch.kernels.rope import kernel as rope_k
+    from repro_torch.kernels.rope.ref import apply_rope_ref
+    gen = torch.Generator().manual_seed(SEED + 8)
+    rows, cases = {}, []
+    for label, (b, s, hq, hk, d) in ROPE_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            key = f"{label}/{str(dtype).split('.')[-1]}"
+            q, k, c, sn = rope_inputs(dev, label, dtype, gen)
+            gq, gk, _, _ = rope_inputs(dev, label, dtype, gen)
+            pq, pk = (t.detach().requires_grad_(True) for t in (q, k))
+            want = torch.autograd.grad(
+                (apply_rope_ref(pq, c, sn), apply_rope_ref(pk, c, sn)),
+                (pq, pk), (gq, gk))
+            wq, wk = (t.detach().requires_grad_(True) for t in (q, k))
+            out = rope_k.rope(wq, wk, c, sn)
+            before = dict(rope_k.PATH_LAUNCHES)
+            launches = rope_k.LAUNCHES
+            got = torch.autograd.grad(out, (wq, wk), (gq, gk))
+            torch.cuda.synchronize()
+            took = [p for p, n in rope_k.PATH_LAUNCHES.items()
+                    if n != before[p]]
+            want_path = ROPE_PATH.get(label, "vector")
+            check(rope_k.LAUNCHES - launches == 1,
+                  f"rope backward {key}: {rope_k.LAUNCHES - launches} "
+                  f"launches, not 1")
+            check(took == [want_path],
+                  f"rope backward {key}: took {took}, not {want_path}")
+            err = max(max_abs(a.float(), b.float())
+                      for a, b in zip(got, want))
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"rope backward {key}: kernel != autograd of the plain "
+                  f"version (max|d| {err})")
+            back = (lambda gq=gq, gk=gk, c=c, sn=sn:
+                    rope_k._rotate(gq, gk, c, sn, True))
+            rows[key] = dict(path=want_path, max_abs_err=err,
+                             events_ms=time_ms(back, rope_reps(label)),
+                             forward_events_ms=forward[key]["events_ms"])
+            cases.append((key, back))
+    dev_us = device_us(cases, lambda key: rope_reps(key.split("/")[0]))
+    for key, row in rows.items():
+        row["device_us"] = None if dev_us is None else dev_us[key]
+        row["forward_device_us"] = forward[key]["device_us"]
+    emit(phase="rope_backward", bitwise_vs_autograd=True, shapes=rows,
+         launch_floor_us=None if dev_us is None else dev_us["floor"])
+    return rows
+
+
+def train_setup(cfg, dev, seed: int):
+    """The model (seeded float32 master weights on ``dev``) and its
+    training tree (the reference's stacked layout)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import stack_params
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(seed))
+    return model, stack_params(cfg, model.params())
+
+
+def train_run(model, cfg, params, opt, steps: int, batch: int, seq: int,
+              dev, **loop_kw):
+    """``TrainLoop.run(steps)`` from ``opt.init(params)`` on the
+    synthetic pipeline; returns the loop and its history."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train import TrainLoop, make_train_step
+    loop = TrainLoop(train_step=make_train_step(model, cfg, opt,
+                                                remat=False),
+                     params=params, opt_state=opt.init(params),
+                     data_iter=SyntheticLM(DataConfig(cfg.vocab, seq, batch)),
+                     device=dev, **loop_kw)
+    return loop, loop.run(steps)
+
+
+def profile_step(step_fn) -> dict:
+    """Device ms of one train step from ``torch.profiler`` (CUPTI), its
+    device launches and the kernels that take most; ``None`` where the
+    trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    total = sum(us for _, us, _ in rows)
+    top = sorted(rows, key=lambda r: -r[1])[:8]
+    return dict(profiled_wall_ms=wall * 1e3,
+                device_ms=None if total == 0 else total / 1e3,
+                launches=sum(n for _, _, n in rows) if total else None,
+                rope_device_ms=sum(us for key, us, _ in rows
+                                   if "rope_" in key) / 1e3,
+                top=[dict(name=key[:80], ms=us / 1e3, calls=n)
+                     for key, us, n in top])
+
+
+def train_phase(dev, kernels) -> dict:
+    """SmolLM-135M at full width: seeded float32 master weights, bf16
+    compute, ``AdamW(warmup_cosine(TRAIN_LR))``, ``TRAIN_BATCH x
+    TRAIN_SEQ`` tokens a step (attention's flash path), ``TRAIN_STEPS``
+    steps through ``TrainLoop``: finite losses that fall from the first
+    step to the last, 2 RoPE launches a layer a step (forward and
+    backward), every layer's ``wq``/``wk`` gradient nonzero; ms a step
+    (median of the last ``TRAIN_TIMED``), tokens/s, peak memory, and one
+    profiled step (device ms, idle share).  Then ``TRAIN_Q8_STEPS`` steps
+    of ``adamw_q8``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import _value_and_grad
+    from repro_torch.tree import flatten_with_paths
+    from repro_torch.kernels.rope import kernel as rope_k
+    cfg = get_config(LM_ARCH)
+    check(ROPE_SHAPES["train"] == (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads,
+                                   cfg.n_kv_heads, cfg.head_dim),
+          f"ROPE_SHAPES['train'] {ROPE_SHAPES['train']} is not the train "
+          f"step's q/k")
+    t_phase = time.perf_counter()
+    model, params = train_setup(cfg, dev, SEED + 9)
+    sched = warmup_cosine(TRAIN_LR, warmup=TRAIN_STEPS // 10 + 1,
+                          total=TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels.values():
+        k.LAUNCHES = 0
+    paths = dict(rope_k.PATH_LAUNCHES)
+    loop, hist = train_run(model, cfg, params, AdamW(lr=sched), TRAIN_STEPS,
+                           TRAIN_BATCH, TRAIN_SEQ, dev)
+    torch.cuda.synchronize()
+    counts = {name: k.LAUNCHES for name, k in kernels.items()}
+    paths = {p: n - paths[p] for p, n in rope_k.PATH_LAUNCHES.items()}
+    # the path the rope line and rope_backward held at this shape
+    want = ROPE_PATH.get("train", "vector")
+    check(paths[want] == counts["rope"],
+          f"train rope launches by path {paths}: not all {want}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = hist["loss"]
+    check(all(map(math.isfinite, losses)), f"train losses {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    per_step = 2 * cfg.n_layers
+    check(counts["rope"] == per_step * TRAIN_STEPS,
+          f"rope launches {counts['rope']} != {per_step} x {TRAIN_STEPS}")
+    ms = statistics.median(hist["time"][-TRAIN_TIMED:]) * 1e3
+    # the gradients of the first batch: every layer's wq and wk take one
+    batch = make_batch(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH), 0)
+    _, grads = _value_and_grad(model, cfg, params, batch, False)
+    zero = [path for path, g in flatten_with_paths(grads)
+            if path.endswith(("['wq']['w']", "['wk']['w']"))
+            and not bool((g.flatten(1).abs().amax(dim=1) > 0).all())]
+    check(not zero, f"wq/wk gradients with a zero layer: {zero}")
+    step = make_train_step(model, cfg, AdamW(lr=sched), remat=False)
+    prof = profile_step(lambda: step(loop.params, loop.opt_state, batch))
+    del grads
+    # adamw_q8
+    q8_loop, q8 = train_run(model, cfg, params,
+                            AdamW(lr=sched, quantized=True), TRAIN_Q8_STEPS,
+                            TRAIN_BATCH, TRAIN_SEQ, dev)
+    check(all(map(math.isfinite, q8["loss"])), f"q8 losses {q8['loss']}")
+    del q8_loop
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit(phase="train", arch=cfg.name, dtype=cfg.dtype,
+         param_dtype="float32", n_layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         steps=TRAIN_STEPS, optimizer="adamw", lr=TRAIN_LR, losses=losses,
+         ms_per_step=ms, ms_per_step_all=[t * 1e3 for t in hist["time"]],
+         tokens_per_s=tokens / (ms / 1e3),
+         max_memory_allocated_bytes=peak, launches=counts,
+         rope_launches_per_step=counts["rope"] / TRAIN_STEPS,
+         rope_path_launches=paths, profiled_step=prof,
+         device_idle_share=(None if prof["device_ms"] is None else
+                            1.0 - prof["device_ms"] / ms),
+         q8_losses=q8["loss"],
+         q8_ms_per_step=statistics.median(q8["time"][1:]) * 1e3,
+         seconds=time.perf_counter() - t_phase)
+    return dict(loop=loop, model=model, cfg=cfg, counts=counts)
+
+
+def train_parity_phase(dev) -> None:
+    """One float32 step's loss and gradients at full width, ``TRAIN_PARITY``
+    tokens, on the card and on the host from the same weights, TF32 off:
+    the card's RoPE backward is the kernel's, the host's autograd of the
+    plain version."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models.transformer import stack_params
+    from repro_torch.train.step import _value_and_grad
+    from repro_torch.tree import flatten_with_paths
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    b, s = TRAIN_PARITY
+    batch = make_batch(DataConfig(cfg.vocab, s, b), 0)
+    host, params = train_setup(cfg, torch.device("cpu"), SEED + 10)
+    card = copy.deepcopy(host).to(dev)
+    out = {}
+    for name, model in (("card", card), ("host", host)):
+        t0 = time.perf_counter()
+        p = stack_params(cfg, model.params())
+        metrics, grads = _value_and_grad(model, cfg, p, batch, False)
+        out[name] = (float(metrics["loss"]), flatten_with_paths(grads),
+                     time.perf_counter() - t0)
+    (lc, gc, sc), (lh, gh, sh) = out["card"], out["host"]
+    loss_err = abs(lc - lh) / abs(lh)
+    errs = {path: rel_err(a.cpu(), b) for (path, a), (_, b) in zip(gc, gh)}
+    worst = max(errs, key=errs.get)
+    check(loss_err <= TRAIN_PARITY_TOL["loss"],
+          f"train parity loss {lc} vs {lh}")
+    check(errs[worst] <= TRAIN_PARITY_TOL["grad"],
+          f"train parity gradient {worst}: rel err {errs[worst]}")
+    check(all(float(a.abs().max()) > 0 for path, a in gc
+              if path.endswith(("['wq']['w']", "['wk']['w']"))),
+          "card wq/wk gradient zero")
+    emit(phase="train_parity", arch=cfg.name, dtype=cfg.dtype, batch=b,
+         seq=s, loss_card=lc, loss_host=lh, loss_rel_err=loss_err,
+         max_grad_rel_err=errs[worst], worst_leaf=worst,
+         grad_rel_err={p: e for p, e in errs.items()
+                       if "['wq']" in p or "['wk']" in p or "embed" in p},
+         tol=TRAIN_PARITY_TOL, card_seconds=sc, host_seconds=sh)
+
+
+def soap_phase(dev, kernels) -> None:
+    """The reference launcher's ``--reduced --optimizer soap_givens`` on
+    the card: ``SOAP_STEPS`` steps with a refresh every ``SOAP_FREQ``
+    (Jacobi, ``apply_method="auto"``).  At each refresh the rotation
+    kernels launch; every basis is orthogonal within ``SOAP_ORTH_TOL``
+    and equals its recording applied through the pick's plain version on
+    the card (bit for bit for ``cuda_wave``, ``MXU_TOL`` for
+    ``cuda_mxu``).  Then one ``solver="qr"`` refresh of the embedding's
+    covariances."""
+    import torch
+    import repro_torch.optim.soap_givens as soap_mod
+    from repro_torch.configs import get_config
+    from repro_torch.optim import SoapGivens, warmup_cosine
+    from repro_torch.tree import map_tree
+    cfg = get_config(LM_ARCH).reduced()
+    model, params = train_setup(cfg, dev, SEED + 11)
+    refreshes, real = [], soap_mod.SoapGivens.refresh
+    recorded_bases = []
+    real_basis = soap_mod.jacobi_apply_basis
+
+    def basis(res, **kw):
+        V = real_basis(res, **kw)
+        recorded_bases.append((res, V))
+        return V
+
+    def timed(self, L, R):
+        before = {name: k.LAUNCHES for name, k in kernels.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, L, R)
+        torch.cuda.synchronize()
+        refreshes.append(dict(
+            sides=[L.shape[0], R.shape[0]], solver=self.solver,
+            seconds=time.perf_counter() - t0,
+            launches={name: k.LAUNCHES - before[name]
+                      for name, k in kernels.items()}))
+        return out
+
+    sched = warmup_cosine(TRAIN_LR, warmup=SOAP_STEPS // 10 + 1,
+                          total=SOAP_STEPS)
+    opt = SoapGivens(lr=sched, update_freq=SOAP_FREQ)
+    soap_mod.SoapGivens.refresh = timed
+    soap_mod.jacobi_apply_basis = basis
+    try:
+        t0 = time.perf_counter()
+        loop, hist = train_run(model, cfg, params, opt, SOAP_STEPS,
+                               SOAP_BATCH, SOAP_SEQ, dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        soap_mod.SoapGivens.refresh = real
+        soap_mod.jacobi_apply_basis = real_basis
+    check(all(map(math.isfinite, hist["loss"])), f"soap losses {hist}")
+    per = []
+    map_tree(per.append, loop.opt_state["per"],
+             is_leaf=lambda x: isinstance(x, dict) and "m" in x)
+    eligible = sum("L" in st for st in per)
+    check(eligible >= 1 and len(refreshes) == eligible * (
+        SOAP_STEPS // SOAP_FREQ), f"{len(refreshes)} refreshes of "
+        f"{eligible} preconditioned leaves")
+    for r in refreshes:
+        check(sum(r["launches"].values()) > 0,
+              f"no rotation kernel launched at the refresh {r}")
+    picks = {}
+    for res, V in recorded_bases:
+        n = V.shape[0]
+        plan = res.rotation_sequence().plan(like=V, method="auto")
+        check(plan.method in KERNEL_OF, f"auto planned {plan.method} at "
+              f"side {n}")
+        plain = plain_of(plan.method)
+        want = soap_mod.jacobi_apply_basis(res, method=plain,
+                                           **dict(plan.kwargs))
+        err = same_family(V, want, [plan.method],
+                          f"SOAP basis side {n}: {plan.method} vs {plain}")
+        orth = float((V.double().T @ V.double() - torch.eye(
+            n, dtype=torch.float64, device=dev)).abs().max())
+        check(orth <= SOAP_ORTH_TOL, f"SOAP basis side {n}: orth {orth}")
+        picks.setdefault(n, dict(method=plan.method,
+                                 tiles=dict(plan.kwargs), plain=plain,
+                                 err_vs_plain=[], orth_err=[]))
+        picks[n]["err_vs_plain"].append(err)
+        picks[n]["orth_err"].append(orth)
+    st = loop.opt_state["per"]["embed"]["e"]
+    qr_opt = SoapGivens(solver="qr")
+    soap_mod.SoapGivens.refresh = timed
+    try:
+        QL, QR = qr_opt.refresh(st["L"], st["R"])
+    finally:
+        soap_mod.SoapGivens.refresh = real
+    qr = refreshes.pop()
+    for Q in (QL, QR):
+        n = Q.shape[0]
+        orth = float((Q.double().T @ Q.double() - torch.eye(
+            n, dtype=torch.float64, device=dev)).abs().max())
+        check(orth <= SOAP_ORTH_TOL, f"SOAP qr basis side {n}: orth {orth}")
+    check(sum(qr["launches"].values()) > 0, "qr refresh launched nothing")
+    emit(phase="soap", arch=cfg.name, reduced=True, steps=SOAP_STEPS,
+         update_freq=SOAP_FREQ, batch=SOAP_BATCH, seq=SOAP_SEQ,
+         losses=hist["loss"], seconds=seconds, refreshes=refreshes,
+         refresh_seconds=[r["seconds"] for r in refreshes],
+         picks_by_side=picks, qr_refresh=qr, qr_orth_tol=SOAP_ORTH_TOL)
+
+
+def compression_phase(dev, kernels) -> None:
+    """``compress_lowrank`` of a seeded ``LOWRANK_SHAPE`` float32 gradient
+    at rank ``LOWRANK_RANK`` on the card (``svd_givens``; the rotation
+    kernels accumulate its vectors): its error within ``1 + 1e-3`` of
+    ``np.linalg.svd``'s optimal one.  Then ``compressed_psum`` over a
+    one-rank NCCL group, torn down after: the sum of one shard is its
+    int8 round trip, bit for bit."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.parallel import (compress_lowrank, compressed_psum,
+                                      decompress_lowrank,
+                                      dequantize_after_allreduce,
+                                      quantize_for_allreduce)
+    W = np.random.default_rng(SEED + 12).standard_normal(
+        LOWRANK_SHAPE).astype(np.float32)
+    Wd = torch.from_numpy(W).to(dev)
+    for k in kernels.values():
+        k.LAUNCHES = 0
+    t0 = time.perf_counter()
+    P, Q = compress_lowrank(Wd, LOWRANK_RANK)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {name: k.LAUNCHES for name, k in kernels.items()}
+    err = float(np.linalg.norm(W.astype(np.float64) - (
+        decompress_lowrank(P, Q).double().cpu().numpy())))
+    sv = np.linalg.svd(W.astype(np.float64), compute_uv=False)
+    best = float(np.linalg.norm(sv[LOWRANK_RANK:]))
+    check(err <= best * (1 + 1e-3), f"low-rank error {err} vs best {best}")
+    check(sum(counts.values()) > 0, "compress_lowrank launched no kernel")
+    store = tdist.FileStore(os.path.join(os.environ["CHIP_SMOKE_TMP"],
+                                         "psum_store"), 1)
+    tdist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                             timeout=datetime.timedelta(seconds=120))
+    try:
+        x = Wd[:, :7].contiguous()
+        got = compressed_psum(x)
+        want = dequantize_after_allreduce(*quantize_for_allreduce(x),
+                                          x.shape)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), "compressed_psum of one rank")
+    finally:
+        tdist.destroy_process_group()
+    emit(phase="compression", shape=list(LOWRANK_SHAPE), rank=LOWRANK_RANK,
+         err=err, best=best, ratio=err / best, seconds=seconds,
+         launches=counts, wire_fraction=LOWRANK_RANK * sum(LOWRANK_SHAPE)
+         / (LOWRANK_SHAPE[0] * LOWRANK_SHAPE[1]),
+         compressed_psum="nccl, 1 rank, bit for bit")
+
+
+def ckpt_phase(dev, train: dict) -> None:
+    """The train phase's full-width params and AdamW state saved and
+    restored bit for bit; then a loop resumed at step ``CKPT_AT`` of a
+    ``CKPT_STEPS`` run gives the uninterrupted run's losses."""
+    import torch
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TrainLoop, make_train_step
+    from repro_torch.tree import leaves
+    loop, model, cfg = train["loop"], train["model"], train["cfg"]
+    tree = {"params": loop.params, "opt": loop.opt_state}
+    root = os.path.join(os.environ["CHIP_SMOKE_TMP"], "ckpt")
+    mgr = CheckpointManager(os.path.join(root, "full"))
+    t0 = time.perf_counter()
+    mgr.save(loop.step, tree, blocking=True)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = mgr.restore(loop.step, tree, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(all(torch.equal(a.to(dev), b) for a, b in
+              zip(leaves(tree), leaves(back))), "checkpoint not bit for bit")
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(tree))
+    del back
+    params = loop.params
+    opt = AdamW(lr=TRAIN_LR)
+    step = make_train_step(model, cfg, opt, remat=False)
+    dcfg = DataConfig(cfg.vocab, CKPT_SEQ, CKPT_BATCH)
+
+    def run(steps, ckpt_dir=None, every=CKPT_AT, restore=False):
+        lp = TrainLoop(train_step=step, params=params,
+                       opt_state=opt.init(params),
+                       data_iter=SyntheticLM(dcfg), ckpt_dir=ckpt_dir,
+                       ckpt_every=every, device=dev)
+        start = lp.maybe_restore() if restore else 0
+        return start, lp.run(steps)["loss"]
+
+    resume = os.path.join(root, "resume")
+    run(CKPT_AT, resume)
+    start, tail = run(CKPT_STEPS - CKPT_AT, resume, restore=True)
+    _, whole = run(CKPT_STEPS)
+    check(start == CKPT_AT, f"resumed at {start}")
+    errs = [abs(a - b) / abs(b) for a, b in zip(tail, whole[CKPT_AT:])]
+    check(max(errs) <= 1e-5, f"resumed losses {tail} vs {whole[CKPT_AT:]}")
+    emit(phase="ckpt", bytes=nbytes, leaves=len(leaves(tree)),
+         save_seconds=save_s, restore_seconds=restore_s, bitwise=True,
+         resume_at=CKPT_AT, steps=CKPT_STEPS, batch=CKPT_BATCH,
+         seq=CKPT_SEQ, resumed_losses=tail, whole_losses=whole,
+         resumed_equal=tail == whole[CKPT_AT:], max_rel_err=max(errs))
+
+
+def train_launcher_phase() -> None:
+    """``python -m repro_torch.launch.train`` at full width in a child
+    process on the card: exit 0, a final loss printed."""
+    args = ["--arch", LM_ARCH, "--steps", "4", "--batch", "4",
+            "--seq", "256"]
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *args], capture_output=True, text=True, env=env,
+                         timeout=600, cwd=str(ROOT))
+    seconds = time.perf_counter() - t0
+    check(out.returncode == 0 and "final loss" in out.stdout,
+          f"launch.train exit {out.returncode}: {out.stderr[-2000:]}")
+    emit(phase="train_launcher", args=args, exit=out.returncode,
+         seconds=seconds, last_line=out.stdout.strip().splitlines()[-1])
 
 
 def main() -> int:
@@ -2334,12 +2828,33 @@ def run() -> int:
     entries["rope"]["launches"] = lm["counts"]["rope"]
     lm_parity_phase(dev)
 
+    # -- training: RoPE's backward, SmolLM-135M steps, SOAP, checkpoints --
+    t_train = time.perf_counter()
+    rope_backward_phase(dev, entries["rope"]["rows"])
+    all_k = {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
+             "rotseq_batched": batched_k, "rope": rope_k}
+    train = train_phase(dev, all_k)
+    # the serving run's launches and the train run's, each also apart
+    entries["rope"]["launches_by_path"] = {
+        "lm_serving": lm["counts"]["rope"], "train": train["counts"]["rope"]}
+    entries["rope"]["launches"] += train["counts"]["rope"]
+    train_parity_phase(dev)
+    soap_phase(dev, all_k)
+    compression_phase(dev, all_k)
+    ckpt_phase(dev, train)
+    del train
+    train_launcher_phase()
+    emit(phase="training", seconds=time.perf_counter() - t_train)
+
     # the two tiled kernels' numbers are taken at the paper configuration
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]
-    print(json.dumps({"kernels": [{key: e[key] for key in order}
-                                  for e in entries.values()]}))
+    extra = ["launches_by_path"]
+    print(json.dumps({"kernels": [
+        {**{key: e[key] for key in order},
+         **{key: e[key] for key in extra if key in e}}
+        for e in entries.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,8 +8,11 @@ port :class:`~repro_torch.core.sequence.RotationSequence`.
 :func:`requests_from_reference` does the same for a request stream of
 ``(sequence dict, numpy target)`` pairs.
 :func:`lm_params_from_reference` loads the reference ``Transformer.init``
-tree, as numpy arrays, into the port's LM.  All read plain data only and
-import nothing of the reference.
+tree, as numpy arrays, into the port's LM, and
+:func:`train_state_from_reference` carries a training state across (the
+parameters and the optimizer state of ``AdamW``, its ``Quantized`` q8
+states, or ``SoapGivens``).  All read plain data only and import nothing
+of the reference.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 from repro_torch.core.sequence import RotationSequence, resolve_device
 
 __all__ = ["sequence_from_reference", "requests_from_reference",
-           "lm_params_from_reference"]
+           "lm_params_from_reference", "train_state_from_reference"]
 
 
 def sequence_from_reference(d: dict, *, device="cuda") -> RotationSequence:
@@ -42,13 +45,26 @@ def requests_from_reference(pairs, *, device="cuda"):
             for d, A in pairs]
 
 
-def _flatten(tree, prefix, out):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            _flatten(v, f"{prefix}{k}.", out)
-    else:
-        out[prefix[:-1]] = tree
-    return out
+def _tensors(tree, device):
+    """A reference tree of numpy (or tensor) leaves as the port's: tensors
+    on ``device`` (copies, dtypes kept), lists for the groups' slot lists,
+    and the port's ``Quantized`` for any named tuple with fields ``q`` and
+    ``scale`` (the reference's)."""
+    from repro_torch.optim.adamw import Quantized
+
+    def one(x):
+        if isinstance(x, tuple) and getattr(x, "_fields", None) == (
+                "q", "scale"):
+            return Quantized(one(x.q), one(x.scale))
+        if isinstance(x, dict):
+            return {k: one(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [one(v) for v in x]
+        if isinstance(x, torch.Tensor):
+            return x.detach().to(device, copy=True)
+        return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+    return one(tree)
 
 
 def lm_params_from_reference(params, cfg, *, device="cuda"):
@@ -59,22 +75,31 @@ def lm_params_from_reference(params, cfg, *, device="cuda"):
     numpy leaves: ``embed``, ``ln_f``, ``lm_head`` (untied configs) and
     ``group{gi}``, a list over the group's slots whose leaves are stacked
     ``(reps, ...)``.  Global layer ``start + r * len(slots) + s`` takes
-    repetition ``r`` of slot ``s``.  Dense weights keep their
-    ``(d_in, d_out)`` layout: nothing is transposed.
+    repetition ``r`` of slot ``s``
+    (:func:`~repro_torch.models.transformer.unstack_params`).  Dense
+    weights keep their ``(d_in, d_out)`` layout: nothing is transposed.
     """
-    from repro_torch.models.transformer import Transformer, _groups
+    from repro_torch.models.transformer import Transformer, unstack_params
 
-    state = {}
-    for key in ("embed", "ln_f", "lm_head"):
-        if key in params:
-            _flatten(params[key], f"{key}.", state)
-    for gi, (start, count, slot_kinds) in enumerate(_groups(cfg)):
-        P = len(slot_kinds)
-        for s, slot in enumerate(params[f"group{gi}"]):
-            for name, leaf in _flatten(slot, "", {}).items():
-                for r in range(count // P):
-                    state[f"layers.{start + r * P + s}.{name}"] = leaf[r]
+    state = unstack_params(cfg, _tensors(params, "cpu"))
     model = Transformer(cfg, device="cpu")
-    model.load_state_dict({k: torch.from_numpy(np.array(v, copy=True))
-                           for k, v in state.items()}, strict=True)
+    model.load_state_dict(state, strict=True)
     return model.to(resolve_device(device))
+
+
+def train_state_from_reference(params, opt_state, cfg, *, device="cuda"):
+    """``(model, params, opt_state)`` of the port from the reference's
+    training state (numpy leaves, stacked groups; a checkpoint the port's
+    ``CheckpointManager.restore`` read with no ``like``, or
+    ``jax.tree.map(np.asarray, ...)`` of the live trees).
+
+    The port trains in the reference's tree (``stack_params``), so
+    ``params`` and ``opt_state`` keep their structure: ``step``, AdamW's
+    ``m``/``v`` (float32 or ``Quantized``), SoapGivens' ``per`` leaves
+    with ``L``/``R``/``QL``/``QR`` where the reference preconditions.
+    ``model`` is the port's LM holding those weights, unstacked by
+    :func:`lm_params_from_reference`, for the train step and for serving.
+    """
+    device = resolve_device(device)
+    model = lm_params_from_reference(params, cfg, device=device)
+    return (model, _tensors(params, device), _tensors(opt_state, device))

@@ -8,7 +8,10 @@
 // and tables cos, sin (S, D/2), every head vector's pair (x1, x2) =
 // (x[i], x[i + D/2]) becomes [x1*c - x2*s, x1*s + x2*c] with c, s the
 // tables at (position, i).  Outputs are new tensors of the inputs' shapes;
-// the inputs are not modified.
+// the inputs are not modified.  With `inverse` set the rotation is undone:
+// s is read negated (an exact sign flip), so the pair becomes
+// [x1*c + x2*s, x2*c - x1*s], the transpose of the forward rotation, which
+// is its gradient: the backward of RoPE is this kernel on (dq, dk).
 //
 // What bounds it on an H100: bytes.  It reads q and k once and writes them
 // once, and reads the tables once: 2*B*S*(Hq+Hk)*D*elt + 2*S*(D/2)*elt
@@ -156,7 +159,7 @@ __global__ void __launch_bounds__(kThreads)
                     typename E::T* __restrict__ qo,
                     typename E::T* __restrict__ ko, uint32_t items,
                     uint32_t chunks, uint32_t heads, uint32_t Hq, uint32_t Hk,
-                    uint32_t S, uint32_t half) {
+                    uint32_t S, uint32_t half, bool inverse) {
   using T = typename E::T;
   constexpr int V = E::kVec;
   const unsigned long long block = (unsigned long long)blockDim.x * kPer;
@@ -190,7 +193,7 @@ __global__ void __launch_bounds__(kThreads)
       E::unpack(sv[it], s);
 #pragma unroll
       for (int e = 0; e < V; ++e) {
-        rotate<E>(a[e], b[e], c[e], s[e], o1[e], o2[e]);
+        rotate<E>(a[e], b[e], c[e], inverse ? -s[e] : s[e], o1[e], o2[e]);
       }
       *reinterpret_cast<uint4*>(out[it]) = E::pack(o1);
       *reinterpret_cast<uint4*>(out[it] + half) = E::pack(o2);
@@ -208,7 +211,8 @@ __global__ void __launch_bounds__(kThreads)
                        typename E::T* __restrict__ ko,
                        unsigned long long items, unsigned long long heads,
                        unsigned long long Hq, unsigned long long Hk,
-                       unsigned long long S, unsigned long long half) {
+                       unsigned long long S, unsigned long long half,
+                       bool inverse) {
   using T = typename E::T;
   const unsigned long long stride = (unsigned long long)gridDim.x * kThreads;
   for (unsigned long long t =
@@ -221,8 +225,9 @@ __global__ void __launch_bounds__(kThreads)
     const T* x = (is_q ? q : k) + xo;
     T* o = (is_q ? qo : ko) + xo;
     float o1, o2;
+    const float sn = E::load(sin_t + to);
     rotate<E>(E::load(x), E::load(x + half), E::load(cos_t + to),
-              E::load(sin_t + to), o1, o2);
+              inverse ? -sn : sn, o1, o2);
     E::store(o, o1);
     E::store(o + half, o2);
   }
@@ -256,7 +261,7 @@ unsigned grid_for(unsigned long long items, unsigned long long per_block,
 template <class E>
 int launch(const void* q, const void* k, const void* cos_t, const void* sin_t,
            void* qo, void* ko, int B, int S, int Hq, int Hk, int D,
-           void* stream) {
+           int inverse, void* stream) {
   using T = typename E::T;
   const unsigned long long half = D / 2;
   const unsigned long long heads = (unsigned long long)Hq + Hk;
@@ -275,20 +280,20 @@ int launch(const void* q, const void* k, const void* cos_t, const void* sin_t,
           <<<grid_for(items, kNarrowThreads, false), kNarrowThreads, 0, st>>>(
               (const T*)q, (const T*)k, (const T*)cos_t, (const T*)sin_t,
               (T*)qo, (T*)ko, args[0], args[1], args[2], args[3], args[4],
-              args[5], args[6]);
+              args[5], args[6], inverse != 0);
     } else {
       rope_vec_kernel<E, kItems>
           <<<grid_for(items, kThreads * kItems, true), kThreads, 0, st>>>(
               (const T*)q, (const T*)k, (const T*)cos_t, (const T*)sin_t,
               (T*)qo, (T*)ko, args[0], args[1], args[2], args[3], args[4],
-              args[5], args[6]);
+              args[5], args[6], inverse != 0);
     }
   } else {
     rope_scalar_kernel<E><<<grid_for(pairs, kThreads, true), kThreads, 0,
                             st>>>(
         (const T*)q, (const T*)k, (const T*)cos_t, (const T*)sin_t, (T*)qo,
         (T*)ko, pairs, heads, (unsigned long long)Hq, (unsigned long long)Hk,
-        (unsigned long long)S, half);
+        (unsigned long long)S, half, inverse != 0);
   }
   return (int)cudaGetLastError();
 }
@@ -297,16 +302,19 @@ int launch(const void* q, const void* k, const void* cos_t, const void* sin_t,
 
 // C interface, loaded with ctypes.  Launches on `stream`, does not
 // synchronise and allocates nothing; returns cudaGetLastError().
+// `inverse` != 0 rotates by -s (the backward).
 extern "C" int rope_f32(const void* q, const void* k, const void* cos_t,
                         const void* sin_t, void* qo, void* ko, int B, int S,
-                        int Hq, int Hk, int D, void* stream) {
-  return launch<F32>(q, k, cos_t, sin_t, qo, ko, B, S, Hq, Hk, D, stream);
+                        int Hq, int Hk, int D, int inverse, void* stream) {
+  return launch<F32>(q, k, cos_t, sin_t, qo, ko, B, S, Hq, Hk, D, inverse,
+                     stream);
 }
 
 extern "C" int rope_bf16(const void* q, const void* k, const void* cos_t,
                          const void* sin_t, void* qo, void* ko, int B, int S,
-                         int Hq, int Hk, int D, void* stream) {
-  return launch<BF16>(q, k, cos_t, sin_t, qo, ko, B, S, Hq, Hk, D, stream);
+                         int Hq, int Hk, int D, int inverse, void* stream) {
+  return launch<BF16>(q, k, cos_t, sin_t, qo, ko, B, S, Hq, Hk, D, inverse,
+                      stream);
 }
 
 // 1 if rope_f32 / rope_bf16 (elt = 4 / 2) take the vector path for these

@@ -3,8 +3,15 @@
 Counterpart of ``repro.kernels.rope.kernel.rope_pallas`` mapped over the
 batch.  On CPU tensors it runs the plain version; on CUDA tensors it
 launches the kernel or raises, and never falls back.  ``LAUNCHES``
-counts launches, ``PATH_LAUNCHES`` the launches of each of the kernel's
-two paths (:func:`vector_path` says which one a call takes).
+counts launches, backward ones too, ``PATH_LAUNCHES`` the launches of
+each of the kernel's two paths (:func:`vector_path` says which one a call
+takes).
+
+The rotation is differentiable in q and k (not in the tables).  Its
+backward is the inverse rotation of ``(dq, dk)``: one launch of the same
+kernel with ``inverse`` set, which reads ``sin`` negated, an exact sign
+flip, so the gradient equals autograd of the plain version bit for bit;
+on the CPU the plain version runs with ``-sin``.
 
 The decode step calls this once a layer, so the host work of a call is
 kept small: each ctypes entry is resolved and typed once a dtype, the
@@ -51,7 +58,7 @@ def _entry(dtype):
     fn = _FN.get(dtype)
     if fn is None:
         fn = getattr(_build.load(), _ENTRY[dtype])
-        fn.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+        fn.argtypes = [_P] * 6 + [_I] * 6 + [_P]
         fn.restype = _I
         _FN[dtype] = fn
     return fn
@@ -91,8 +98,33 @@ def rope(q, k, cos, sin):
 
     On the card a thread rotates one 16-byte chunk of one head of q or k
     (the vector path), or one pair where the head half or an address is
-    not 16-byte aligned (the scalar path).
+    not 16-byte aligned (the scalar path).  Where q or k takes a gradient
+    the call goes through :class:`_Rope`, whose backward is one launch
+    more; else (serving, under ``inference_mode``) it launches directly.
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
+        return _Rope.apply(q, k, cos, sin)
+    return _rotate(q, k, cos, sin, False)
+
+
+class _Rope(torch.autograd.Function):
+    """RoPE with the inverse rotation as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, cos, sin):
+        ctx.save_for_backward(cos, sin)
+        return _rotate(q, k, cos, sin, False)
+
+    @staticmethod
+    def backward(ctx, dq, dk):
+        cos, sin = ctx.saved_tensors  # an unused output's grad is zeros
+        gq, gk = _rotate(dq.contiguous(), dk.contiguous(), cos, sin, True)
+        return gq, gk, None, None
+
+
+def _rotate(q, k, cos, sin, inverse: bool):
+    """One launch of the kernel (``inverse``: rotate by ``-sin``), or its
+    plain version for CPU tensors."""
     global LAUNCHES
     if q.dim() != 4 or k.dim() != 4 or k.shape[:2] != q.shape[:2] \
             or k.shape[3] != q.shape[3] or q.shape[3] % 2 \
@@ -102,6 +134,8 @@ def rope(q, k, cos, sin):
     if not q.is_cuda:
         if q.device.type != "cpu":
             raise ValueError(f"rope runs on cuda or cpu, not {q.device}")
+        if inverse:
+            sin = -sin
         return apply_rope_ref(q, cos, sin), apply_rope_ref(k, cos, sin)
     dtype, dev = q.dtype, q.get_device()
     if dtype not in _ENTRY or k.dtype != dtype or cos.dtype != dtype \
@@ -118,12 +152,13 @@ def rope(q, k, cos, sin):
     fn = _entry(dtype)
     ptrs = (q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             qo.data_ptr(), ko.data_ptr())
+    inv = 1 if inverse else 0
     if dev == torch._C._cuda_getDevice():
-        rc = fn(*ptrs, B, S, Hq, k.shape[2], D,
+        rc = fn(*ptrs, B, S, Hq, k.shape[2], D, inv,
                 torch._C._cuda_getCurrentRawStream(dev))
     else:
         with torch.cuda.device(dev):
-            rc = fn(*ptrs, B, S, Hq, k.shape[2], D,
+            rc = fn(*ptrs, B, S, Hq, k.shape[2], D, inv,
                     torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise RuntimeError(f"rope launch failed: CUDA error {rc}")

@@ -77,8 +77,11 @@ def rope_rows(start: int, count: int, head_dim: int, base: float, dtype,
         size = _ROPE_ROWS if tabs is None else tabs[0].shape[0]
         while size < end:
             size *= 2
-        tabs = rope_tables(torch.arange(size, device=device), head_dim,
-                           base, dtype=dtype)
+        # built as normal tensors even while serving (inference_mode), so
+        # a train step that takes the cached rows later can save them
+        with torch.inference_mode(False):
+            tabs = rope_tables(torch.arange(size, device=device), head_dim,
+                               base, dtype=dtype)
         _ROPE[key] = tabs
     return tabs[0][start:end], tabs[1][start:end]
 

@@ -14,6 +14,13 @@ Parameters keep the reference's tree under ``embed``, ``ln_f``,
 ``ln2``, ``mlp``), in its ``(d_in, d_out)`` layout, drawn from a seeded
 ``torch.Generator`` on the host and then moved to ``device``, so one
 seed gives the same weights on every device.
+
+Training keeps the reference's own tree, with each scan group's layers
+stacked ``(reps, ...)`` per slot under ``group{gi}``
+(:func:`stack_params`): the optimizer then sees the shapes the
+reference's optimizer sees, and a checkpoint holds the reference's
+leaves.  :func:`unstack_params` names its rows by this module's
+parameters, for ``torch.func.functional_call``.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.sequence import resolve_device
 
@@ -28,7 +36,8 @@ from .attention import gqa_attention, gqa_decode, gqa_init
 from .layers import (dense, dense_init, embed_init, mlp_gelu, mlp_init,
                      mlp_swiglu, rmsnorm, rmsnorm_init, softcap, to_module)
 
-__all__ = ["Transformer"]
+__all__ = ["Transformer", "init_params", "stack_params", "unstack_params",
+           "reference_shapes"]
 
 
 def _layer_kinds(cfg):
@@ -72,6 +81,85 @@ def _groups(cfg):
     return groups
 
 
+def init_params(cfg, gen):
+    """The parameter tree ``{"embed", "ln_f", ["lm_head"], "layers"}``,
+    drawn from ``gen`` (``None``: the default generator, e.g. on the meta
+    device) in the order the reference's initialisers take."""
+    tree = {"embed": embed_init(gen, cfg.vocab, cfg.d_model),
+            "ln_f": rmsnorm_init(cfg.d_model)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab)
+    tree["layers"] = [{
+        "ln1": rmsnorm_init(cfg.d_model),
+        "attn": gqa_init(gen, cfg),
+        "ln2": rmsnorm_init(cfg.d_model),
+        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated),
+    } for _ in range(cfg.n_layers)]
+    return tree
+
+
+def _stack_tree(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack_tree([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def stack_params(cfg, tree):
+    """The reference's parameter tree from :func:`init_params`' layout:
+    global layer ``start + r * len(slots) + s`` becomes repetition ``r``
+    of slot ``s`` of ``group{gi}`` (new tensors)."""
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    layers = tree["layers"]
+    for gi, (start, count, slot_kinds) in enumerate(_groups(cfg)):
+        P = len(slot_kinds)
+        out[f"group{gi}"] = [
+            _stack_tree([layers[start + r * P + s] for r in range(count // P)])
+            for s in range(P)]
+    return out
+
+
+def _names(tree, prefix, out, value):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _names(v, f"{prefix}{k}.", out, value)
+    else:
+        out[prefix[:-1]] = value(tree)
+    return out
+
+
+def unstack_params(cfg, tree) -> dict:
+    """``{parameter name: tensor}`` of a :class:`Transformer` from the
+    reference's tree (:func:`stack_params`), the group leaves split into
+    their rows by ``torch.unbind`` (views, whose backward stacks the
+    rows' gradients in one copy)."""
+    out = {}
+    for key in ("embed", "ln_f", "lm_head"):
+        if key in tree:
+            _names(tree[key], f"{key}.", out, lambda t: t)
+    for gi, (start, count, slot_kinds) in enumerate(_groups(cfg)):
+        P = len(slot_kinds)
+        for s, slot in enumerate(tree[f"group{gi}"]):
+            for name, rows in _names(slot, "", {}, torch.unbind).items():
+                for r, row in enumerate(rows):
+                    out[f"layers.{start + r * P + s}.{name}"] = row
+    return out
+
+
+def reference_shapes(cfg):
+    """The reference's parameter tree as meta tensors: its shapes, with
+    no weights built."""
+    with torch.device("meta"):
+        return stack_params(cfg, init_params(cfg, None))
+
+
+def _tensors(m) -> dict:
+    """The nested dict of the tensors module ``m`` holds now, indexed as
+    ``m`` is."""
+    if isinstance(m, nn.ParameterDict):
+        return dict(m.items())
+    return {k: _tensors(c) for k, c in m.items()}
+
+
 class Transformer(nn.Module):
     """Decoder-only LM; see the module docstring.
 
@@ -95,16 +183,8 @@ class Transformer(nn.Module):
         self.kinds = _layer_kinds(cfg)
         gen = generator if generator is not None else \
             torch.Generator().manual_seed(0)
-        self.embed = to_module(embed_init(gen, cfg.vocab, cfg.d_model))
-        self.ln_f = to_module(rmsnorm_init(cfg.d_model))
-        if not cfg.tie_embeddings:
-            self.lm_head = to_module(dense_init(gen, cfg.d_model, cfg.vocab))
-        self.layers = to_module([{
-            "ln1": rmsnorm_init(cfg.d_model),
-            "attn": gqa_init(gen, cfg),
-            "ln2": rmsnorm_init(cfg.d_model),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated),
-        } for _ in self.kinds])
+        for key, sub in init_params(cfg, gen).items():
+            setattr(self, key, to_module(sub))
         self.to(device)
 
     @property
@@ -142,16 +222,44 @@ class Transformer(nn.Module):
 
     # -------------------------------------------------------- forward ----
 
-    def forward(self, tokens):
-        """tokens (B, S) int -> logits (B, S, vocab)."""
+    def _block(self, p, attn_kind, x):
+        window, base = self._attn_args(attn_kind)
+        a, _ = gqa_attention(p["attn"], self.cfg, rmsnorm(p["ln1"], x),
+                             window=window, rope_base=base)
+        x = x + a
+        return x + self._mlp(p, rmsnorm(p["ln2"], x))
+
+    def forward(self, tokens, remat: bool = False):
+        """tokens (B, S) int -> logits (B, S, vocab).
+
+        ``remat``: recompute each layer's activations in the backward
+        (``torch.utils.checkpoint``), as the reference's ``remat`` does
+        for each repetition of its scan; the values are the same.
+        """
         x = self._embed(tokens)
         for p, (attn_kind, _) in zip(self.layers, self.kinds):
-            window, base = self._attn_args(attn_kind)
-            a, _ = gqa_attention(p["attn"], self.cfg, rmsnorm(p["ln1"], x),
-                                 window=window, rope_base=base)
-            x = x + a
-            x = x + self._mlp(p, rmsnorm(p["ln2"], x))
+            if remat:
+                # the layer's tensors as they are now: under
+                # functional_call the recomputation in the backward runs
+                # after the swapped-in weights have left the module
+                x = checkpoint(self._block, _tensors(p), attn_kind, x,
+                               use_reentrant=False)
+            else:
+                x = self._block(p, attn_kind, x)
         return self._logits(x)
+
+    def params(self):
+        """The parameter tree of :func:`init_params`' layout, as new
+        float32-or-own-dtype tensors detached from the module."""
+        def tree(m):
+            if isinstance(m, nn.ModuleList):
+                return [tree(c) for c in m]
+            if isinstance(m, nn.ParameterDict):
+                return {k: v.detach().clone() for k, v in m.items()}
+            return {k: tree(c) for k, c in m.items()}
+
+        return {key: tree(getattr(self, key)) for key in
+                ("embed", "ln_f", "lm_head", "layers") if hasattr(self, key)}
 
     # ---------------------------------------------------------- decode ----
 

@@ -1,0 +1,152 @@
+"""Train / serve step factories: mirror of :mod:`repro.train.step`.
+
+``make_train_step`` builds ``(params, opt_state, batch) -> (params,
+opt_state, metrics)`` for the port's transformer, where ``params`` is the
+reference's parameter tree (``stack_params``: float32 master weights,
+each scan group stacked) and ``batch`` holds numpy ``tokens``/``labels``
+(``repro_torch.data``), moved to the model's device here.  The forward
+runs the model with these weights through
+``torch.func.functional_call``; gradients come back float32 in the same
+tree.  ``make_serve_step`` and ``make_prefill_fn`` serve such a tree
+(``params`` first, as in the reference): the module's own weights are
+only the template ``functional_call`` swaps them into.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from repro_torch.models.transformer import unstack_params
+from repro_torch.tree import leaves, map_tree
+
+from .losses import softmax_cross_entropy
+
+__all__ = ["make_train_step", "make_eval_fn", "make_serve_step",
+           "make_prefill_fn"]
+
+
+def _on(device, x):
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.from_numpy(np.asarray(x)).to(device)
+
+
+def _loss_fn(model, cfg, params, batch, *, remat=True):
+    # cast the float32 master weights to the compute dtype ONCE, at the
+    # top of the differentiated function, as the reference does: each
+    # weight's gradient is cast back to float32 by this one cast's
+    # backward
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            "encoder-decoder training waits for the Whisper slice "
+            "(ROADMAP Queue 1 item 12)")
+    cdt = getattr(torch, cfg.dtype)
+    params = map_tree(
+        lambda w: w.to(cdt) if w.dtype == torch.float32 else w, params)
+    dev = model.device
+    tokens = _on(dev, batch["tokens"]).long()
+    labels = _on(dev, batch["labels"])
+    logits = functional_call(model, unstack_params(cfg, params), (tokens,),
+                             {"remat": remat})
+    loss, z_loss = softmax_cross_entropy(logits, labels)
+    return loss + 1e-4 * z_loss, {"loss": loss.detach(),
+                                  "z_loss": z_loss.detach()}
+
+
+def _value_and_grad(model, cfg, params, batch, remat):
+    """``(metrics, grads)`` of one (micro-)batch."""
+    with torch.enable_grad():
+        live = map_tree(lambda p: p.detach().requires_grad_(True), params)
+        total, metrics = _loss_fn(model, cfg, live, batch, remat=remat)
+        grads = torch.autograd.grad(total, leaves(live))
+    it = iter(grads)
+    return metrics, map_tree(lambda _: next(it), params)
+
+
+def make_train_step(model, cfg, optimizer, *, remat: bool = True,
+                    grad_accum: int = 1):
+    """Returns the train-step function (optionally micro-batched).
+
+    With ``grad_accum > 1`` the batch's rows split into ``grad_accum``
+    micro-batches in order; their gradients are summed in float32 and the
+    optimizer gets ``grad_scale = 1 / grad_accum`` (it folds the factor
+    into its clip/scale pass), and the metrics are the micro-batches'
+    mean, as in the reference.
+    """
+
+    def train_step(params, opt_state, batch):
+        if grad_accum == 1:
+            metrics, grads = _value_and_grad(model, cfg, params, batch,
+                                             remat)
+        else:
+            n = len(batch["tokens"]) // grad_accum
+            grads = metrics = None
+            for i in range(grad_accum):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                m, g = _value_and_grad(model, cfg, params, mb, remat)
+                if grads is None:
+                    grads, metrics = g, m
+                else:
+                    grads = map_tree(torch.add, grads, g)
+                    metrics = {k: metrics[k] + m[k] for k in metrics}
+            metrics = {k: v / grad_accum for k, v in metrics.items()}
+
+        params, opt_state, opt_metrics = optimizer.update(
+            grads, opt_state, params, grad_scale=1.0 / grad_accum)
+        return params, opt_state, {**metrics, **opt_metrics}
+
+    return train_step
+
+
+def make_eval_fn(model, cfg):
+    @torch.no_grad()
+    def eval_fn(params, batch):
+        _, metrics = _loss_fn(model, cfg, params, batch, remat=False)
+        return metrics
+
+    return eval_fn
+
+
+class _Method(nn.Module):
+    """Runs ``model.<name>`` as its forward, so that ``functional_call``
+    can run a method other than ``forward`` with given weights."""
+
+    def __init__(self, model, name: str):
+        super().__init__()
+        self.model = model
+        self.name = name
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.model, self.name)(*args, **kwargs)
+
+
+def _weights(cfg, params, prefix=""):
+    return {prefix + k: v for k, v in unstack_params(cfg, params).items()}
+
+
+def make_serve_step(model, cfg):
+    """One-token decode step: (params, cache, tokens (B, 1)) -> (logits,
+    cache), with the weights ``params`` (the reference's tree, as
+    ``make_train_step`` trains it), under ``inference_mode``."""
+    decode = _Method(model, "decode_step")
+
+    @torch.inference_mode()
+    def serve_step(params, cache, tokens):
+        return functional_call(decode, _weights(cfg, params, "model."),
+                               (cache, tokens))
+
+    return serve_step
+
+
+def make_prefill_fn(model, cfg):
+    """Prefill: (params, tokens (B, S)) -> logits (B, S, vocab), the full
+    prompt with the weights ``params``."""
+
+    @torch.inference_mode()
+    def prefill(params, tokens):
+        return functional_call(model, _weights(cfg, params), (tokens,),
+                               {"remat": False})
+
+    return prefill

@@ -51,7 +51,13 @@ def test_no_jax_or_reference_imports_in_the_port():
                  "eig/api.py", "eig/delayed.py", "eig/qr_shift.py",
                  "eig/svd.py", "eig/tridiag.py", "dist/__init__.py",
                  "dist/plan.py", "dist/colsharded.py",
-                 "core/distributed.py"):
+                 "core/distributed.py", "tree.py", "data/__init__.py",
+                 "data/pipeline.py", "optim/__init__.py", "optim/adamw.py",
+                 "optim/schedule.py", "optim/soap_givens.py",
+                 "train/__init__.py", "train/step.py", "train/loop.py",
+                 "train/losses.py", "ckpt/__init__.py", "ckpt/manager.py",
+                 "parallel/__init__.py", "parallel/compression.py",
+                 "launch/train.py"):
         assert PORT / part in files
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if _banned(name)]
@@ -80,7 +86,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.transformer, repro_torch.serve.lm, "
             "repro_torch.launch.serve, repro_torch.configs, "
             "repro_torch.eig, repro_torch.core.jacobi, repro_torch.dist, "
-            "repro_torch.core.distributed; "
+            "repro_torch.core.distributed, repro_torch.data, "
+            "repro_torch.optim, repro_torch.train, repro_torch.ckpt, "
+            "repro_torch.parallel, repro_torch.launch.train, "
+            "repro_torch.tree; "
             "[__import__('repro_torch.configs.' + a.replace('-', '_')) "
             "for a in repro_torch.configs.ARCHS]; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] "
@@ -110,6 +119,33 @@ def test_constructors_default_to_the_card():
     moved = RotationSequence.from_waves(seq.cos, seq.sin)
     assert moved.device.type == "cpu"
     assert torch.equal(moved.cos, seq.cos)
+
+
+def test_training_defaults_to_the_card(tmp_path):
+    """``launch.train``, ``TrainLoop`` and ``CheckpointManager.restore``
+    put their tensors on the card unless told otherwise, and refuse
+    without one."""
+    import inspect
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import TrainLoop
+    assert inspect.signature(TrainLoop).parameters["device"].default == \
+        "cuda"
+    assert inspect.signature(
+        CheckpointManager.restore).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, {"x": torch.zeros(3)}, blocking=True)
+    for build in (lambda: TrainLoop(train_step=None, params={},
+                                    opt_state={}, data_iter=iter([])),
+                  lambda: mgr.restore(1),
+                  lambda: launch_train.main(["--arch", "smollm-135m",
+                                             "--reduced", "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    assert torch.equal(mgr.restore(1, device="cpu")["x"], torch.zeros(3))
 
 
 def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):

@@ -16,9 +16,20 @@ tested as a pure function.  The attention's cached table rows
 for bit, and a decode run shows that no step after the first builds a
 table.
 
-The test marked ``gpu`` holds the CUDA kernel against its plain version
-on the card bit for bit in both dtypes, on both paths; it decides
-inside the test whether a card is present.
+The gradient: where q or k takes one, the wrapper goes through an
+autograd function whose backward is the kernel's inverse rotation (the
+same kernel with ``inverse`` set, reading ``sin`` negated), on the CPU
+the plain version with ``-sin``.  It is held bit for bit to
+``torch.autograd`` of the plain version in float32 and bfloat16, at the
+GQA shapes and on an odd-offset view; the kernel's ``rotate`` with the
+sign flip is emulated element by element (its rounding: each product
+rounded to the dtype, then one subtraction or addition) and held to the
+same gradient.
+
+The tests marked ``gpu`` hold the CUDA kernel, forward and backward,
+against its plain version and autograd of it on the card bit for bit in
+both dtypes, on both paths; they decide inside the test whether a card
+is present.
 """
 import ctypes
 import pathlib
@@ -115,6 +126,86 @@ def test_wrapper_refusals():
     meta = [t.to("meta") for t in (q, k, c, s)]
     with pytest.raises(ValueError, match="cuda or cpu"):
         rope_k.rope(*meta)
+
+
+# ----------------------------------------------------- the gradient ----
+
+def _grad_case(B, S, Hq, Hk, D, dtype, offset, device="cpu"):
+    """Inputs (q an ``offset``-element view into its buffer when
+    ``offset``), tables and upstream gradients for one case."""
+    tdt = getattr(torch, dtype)
+    q, k = (torch.from_numpy(x).to(device, tdt)
+            for x in _inputs(B, S, Hq, Hk, D))
+    if offset:
+        buf = torch.empty(q.numel() + offset, dtype=tdt, device=device)
+        buf[offset:].copy_(q.reshape(-1))
+        q = buf[offset:].view(q.shape)
+    c, s = rope_tables(torch.arange(S, device=device), D, dtype=tdt)
+    rng = np.random.default_rng(S + D)
+    gq, gk = (torch.from_numpy(rng.standard_normal(t.shape).astype(
+        np.float32)).to(device, tdt) for t in (q, k))
+    return q, k, c, s, gq, gk
+
+
+def _autograd_of_plain(q, k, c, s, gq, gk):
+    q, k = q.detach().requires_grad_(True), k.detach().requires_grad_(True)
+    return torch.autograd.grad(
+        (apply_rope_ref(q, c, s), apply_rope_ref(k, c, s)), (q, k),
+        (gq, gk))
+
+
+def _through_wrapper(q, k, c, s, gq, gk):
+    q, k = q.detach().requires_grad_(True), k.detach().requires_grad_(True)
+    return torch.autograd.grad(apply_rope(q, k, c, s), (q, k), (gq, gk))
+
+
+@pytest.mark.parametrize("B,S,Hq,Hk,D,offset", [
+    (2, 16, 4, 2, 8, 0), (1, 256, 2, 1, 16, 0), (3, 32, 9, 3, 64, 0),
+    (2, 16, 4, 2, 10, 0), (4, 33, 8, 2, 128, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_equals_autograd_of_the_plain_version(B, S, Hq, Hk, D,
+                                                       offset, dtype):
+    q, k, c, s, gq, gk = _grad_case(B, S, Hq, Hk, D, dtype, offset)
+    want = _autograd_of_plain(q, k, c, s, gq, gk)
+    before = rope_k.LAUNCHES
+    got = _through_wrapper(q, k, c, s, gq, gk)
+    assert rope_k.LAUNCHES == before  # the CPU path launches nothing
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # an output left unused contributes a zero gradient
+    qq = q.detach().requires_grad_(True)
+    oq, _ = apply_rope(qq, k, c, s)
+    (g,) = torch.autograd.grad(oq, qq, gq)
+    assert torch.equal(g, want[0])
+
+
+def _rotate_emulated(x, c, s, inverse):
+    """``rope.cu::rotate`` on whole head vectors, element by element as
+    the kernel computes: the tables' ``s`` negated when ``inverse``, each
+    product rounded to the dtype, then one float32 subtraction or
+    addition rounded when stored."""
+    dt = x.dtype
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    c, s = c[:, None, :].float(), s[:, None, :].float()
+    if inverse:
+        s = -s
+    rnd = lambda v: v.to(dt).float()  # noqa: E731
+    a, b, d, e = rnd(x1 * c), rnd(x2 * s), rnd(x1 * s), rnd(x2 * c)
+    return torch.cat([(a - b).to(dt), (d + e).to(dt)], dim=-1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_the_kernels_inverse_rotation_is_the_gradient(dtype):
+    q, k, c, s, gq, gk = _grad_case(3, 32, 9, 3, 64, dtype, 0)
+    want = _autograd_of_plain(q, k, c, s, gq, gk)
+    assert torch.equal(_rotate_emulated(gq, c, s, True), want[0])
+    assert torch.equal(_rotate_emulated(gk, c, s, True), want[1])
+    assert torch.equal(_rotate_emulated(q, c, s, False),
+                       apply_rope_ref(q, c, s))
+    # both paths read sin negated under inverse, and the entries take it
+    assert CU.count("inverse ? -s[e] : s[e]") == 1
+    assert CU.count("inverse ? -sn : sn") == 1
+    assert CU.count("int D, int inverse, void* stream)") == 2
 
 
 # ------------------------------------------- the kernel's address map ----
@@ -397,3 +488,25 @@ def test_kernel_bitwise_vs_plain_on_the_card(B, S, Hq, Hk, D, offset, dtype):
         qt = q.transpose(2, 3).contiguous().transpose(2, 3)
         rope_k.rope(qt, k, c, s)
     assert rope_k.LAUNCHES == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Hq,Hk,D,offset", [
+    (8, 1, 9, 3, 64, 0), (8, 300, 9, 3, 64, 0), (8, 300, 9, 3, 64, 1),
+    (2, 16, 4, 2, 10, 0), (1, 1024, 9, 3, 64, 0), (4, 33, 8, 2, 128, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_backward_bitwise_vs_autograd_on_the_card(B, S, Hq, Hk, D,
+                                                         offset, dtype):
+    """The backward is one launch of the kernel, bit for bit autograd of
+    the plain version on the card, on the path the shape names."""
+    dev = _cuda()
+    q, k, c, s, gq, gk = _grad_case(B, S, Hq, Hk, D, dtype, offset, dev)
+    want = _autograd_of_plain(q, k, c, s, gq, gk)
+    qq, kk = q.detach().requires_grad_(True), k.detach().requires_grad_(True)
+    oq, ok = apply_rope(qq, kk, c, s)
+    before = rope_k.LAUNCHES
+    got = torch.autograd.grad((oq, ok), (qq, kk), (gq, gk))
+    torch.cuda.synchronize()
+    assert rope_k.LAUNCHES == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+

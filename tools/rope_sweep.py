@@ -98,7 +98,7 @@ def main() -> int:
             q, k, c, s, pq, pk = inputs[key]
             fn = getattr(lib, "rope_f32" if q.dtype == torch.float32
                          else "rope_bf16")
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
                 ctypes.c_void_p]
             qo, ko = torch.empty_like(q), torch.empty_like(k)
             B, S, Hq, D = q.shape
@@ -107,7 +107,7 @@ def main() -> int:
                      Hq=Hq, D=D):
                 return fn(q.data_ptr(), k.data_ptr(), c.data_ptr(),
                           s.data_ptr(), qo.data_ptr(), ko.data_ptr(), B, S,
-                          Hq, k.shape[2], D, stream)
+                          Hq, k.shape[2], D, 0, stream)
 
             err = call()
             torch.cuda.synchronize()
