@@ -85,6 +85,17 @@ counted (one a layer a decode step) and the ``rope_tables`` calls
 counted (none after the first step), and its decode step is profiled;
 and the same float32 model decodes on the card and on the host, whose
 tokens must agree.
+Then the MoE family: DeepSeek-V2-Lite at full width (multi-head latent
+attention, 64 routed experts top-6 and 2 shared), its depth cut to the
+dense first layer and 3 MoE layers, served through ``ServeEngine`` as
+SmolLM is (MLA's RoPE one kernel launch a layer a step, at the
+``mla_decode`` shape the rope lines hold bit for bit; tokens/s, ms a
+step, the profiled step, peak memory); its float32 twin of the dense
+layer and one MoE layer decodes on the card and on the host (equal
+tokens, logits within ``PARITY_RTOL``); and one float32 train step of
+its ``reduced()`` config on both (loss and gradients within
+``TRAIN_PARITY_TOL``).  Each parity twin reaches the card through
+``convert.lm_params_from_reference``.
 Then training (``repro_torch.{train,optim,data,ckpt,parallel}``): the
 RoPE kernel's backward (one launch rotating by ``-sin``) held bit for bit
 to autograd of its plain version at every ``ROPE_SHAPES`` case, timed by
@@ -110,7 +121,6 @@ CUDA device or no ``src/repro_torch`` beside this script.
 from __future__ import annotations
 
 import contextlib
-import copy
 import dataclasses
 import json
 import math
@@ -163,20 +173,30 @@ LM_RUNS = 4   # serving runs timed; the first counts the launches
 PROMPT_LEN = (4, 11)
 PARITY_BATCH, PARITY_MAX_NEW = 2, 8
 PARITY_RTOL = 1e-3   # per step: max|card - host| <= PARITY_RTOL * max|host|
+# the MoE serving path: DeepSeek-V2-Lite at full width with its depth cut
+# to the dense first layer and 3 MoE layers (all 27 are 15.7 B parameters,
+# 62.8 GB of float32 masters: no room left on one card for the parity
+# twin), served as the LM path is; its float32 twin keeps the dense layer
+# and one MoE layer
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_LAYERS, MOE_PARITY_LAYERS = 4, 2
 # the training slice: SmolLM-135M at full width, seeded f32 master weights
 TRAIN_BATCH, TRAIN_SEQ = 4, 1024   # S = 1024: attention's flash path
 # RoPE at the decode shape of the serving run, a prefill and a ragged
 # one, the train step's q and k (forward and backward; train_phase holds
 # its heads to the config), llama3-405b's heads on one 4096-token
 # sequence, gemma3's head dim, a head dim the vector path cannot take,
-# and the decode shape as a view one element into its buffer:
+# the decode shape as a view one element into its buffer, and MLA's
+# decode (DeepSeek-V2-Lite's 16 query heads' rope tails and the one key
+# head they share; moe_serving_phase holds it to the config):
 # (B, S, Hq, Hk, D)
 ROPE_SHAPES = {"decode": (8, 1, 9, 3, 64), "prefill": (8, 2048, 9, 3, 64),
                "ragged": (8, 300, 9, 3, 64),
                "train": (TRAIN_BATCH, TRAIN_SEQ, 9, 3, 64),
                "llama_prefill": (1, 4096, 64, 8, 128),
                "gemma3": (8, 512, 8, 4, 256), "scalar_d10": (2, 16, 4, 2, 10),
-               "misaligned": (8, 1, 9, 3, 64)}
+               "misaligned": (8, 1, 9, 3, 64),
+               "mla_decode": (LM_BATCH, 1, 16, 1, 64)}
 ROPE_OFFSET = {"misaligned": 1}   # elements q starts into its buffer
 # the path each shape must take on the card, in both dtypes
 ROPE_PATH = {"scalar_d10": "scalar", "misaligned": "scalar"}
@@ -1962,11 +1982,13 @@ def lm_prompts(vocab: int, batch: int):
     return [rng.integers(0, vocab, size=int(n)).tolist() for n in lens]
 
 
-def lm_decode_numbers(dev, kernels) -> dict:
-    """SmolLM-135M at full width through ``ServeEngine`` on the card: a
+def lm_decode_numbers(dev, kernels, cfg=None) -> dict:
+    """``cfg`` (SmolLM-135M at full width by default) through
+    ``ServeEngine`` on the card, its weights drawn from ``SEED``: a
     warm-up ``generate`` from an empty RoPE table cache, then ``LM_RUNS``
-    timed ones (every kernel's launches counted over the first), then a
-    profiled one.  ``rope_tables`` calls are counted by decode step in the
+    timed ones (every kernel's launches, and RoPE's by path, counted over
+    the first), then a profiled one; the peak memory from the model's
+    build to the end.  ``rope_tables`` calls are counted by decode step in the
     warm-up and in all over the timed runs.  ms a step is the runs'
     median by the wall clock, which moves from run to run with the
     host's other load; the host's own work a step is read beside it as
@@ -1974,12 +1996,15 @@ def lm_decode_numbers(dev, kernels) -> dict:
     wait for its tokens)."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels.rope import kernel as rope_k
     from repro_torch.models import attention, build_model
     from repro_torch.serve import ServeEngine
-    cfg = get_config(LM_ARCH)
+    cfg = cfg or get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev,
                         generator=torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prompts = lm_prompts(cfg.vocab, LM_BATCH)
     eng = ServeEngine(model, cfg, batch=LM_BATCH, max_len=LM_MAX_LEN)
@@ -2010,6 +2035,7 @@ def lm_decode_numbers(dev, kernels) -> dict:
             if run == 0:
                 for k in kernels.values():
                     k.LAUNCHES = 0
+                paths = dict(rope_k.PATH_LAUNCHES)
             torch.cuda.synchronize()
             t0, c0 = time.perf_counter(), time.thread_time()
             outs = eng.generate(prompts, max_new=LM_MAX_NEW)
@@ -2018,6 +2044,8 @@ def lm_decode_numbers(dev, kernels) -> dict:
             cpu.append(time.thread_time() - c0)
             if run == 0:
                 counts = {name: k.LAUNCHES for name, k in kernels.items()}
+                paths = {p: n - paths[p]
+                         for p, n in rope_k.PATH_LAUNCHES.items()}
                 first = outs
             check(outs == first, "serving runs gave different tokens")
     finally:
@@ -2027,12 +2055,16 @@ def lm_decode_numbers(dev, kernels) -> dict:
     seconds = statistics.median(runs)
     ms_per_step = seconds * 1e3 / steps
     prof = profile_decode(eng, prompts)
+    peak = torch.cuda.max_memory_allocated(dev)
     return dict(
         cfg=cfg, prompts=prompts, outs=outs, finite=finite, counts=counts,
-        warm_up=warm, rope_tables_calls=len(built), row=dict(
+        paths=paths, warm_up=warm, rope_tables_calls=len(built), row=dict(
             arch=cfg.name, dtype=cfg.dtype, n_layers=cfg.n_layers,
             d_model=cfg.d_model, n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads, vocab=cfg.vocab, batch=LM_BATCH,
+            n_kv_heads=cfg.n_kv_heads, mla=cfg.mla,
+            n_experts=cfg.n_experts, top_k=cfg.top_k, vocab=cfg.vocab,
+            n_params=sum(p.numel() for p in model.parameters()),
+            batch=LM_BATCH,
             max_len=LM_MAX_LEN, max_new=LM_MAX_NEW,
             prompt_lens=[len(p) for p in prompts], decode_steps=steps,
             tokens=tokens, seconds=seconds, tokens_per_s=tokens / seconds,
@@ -2042,6 +2074,7 @@ def lm_decode_numbers(dev, kernels) -> dict:
             host_cpu_ms_per_step_runs=[s * 1e3 / steps for s in cpu],
             init_seconds=init_s, launches=counts,
             rope_launches_per_step=counts.get("rope", 0) / steps,
+            rope_path_launches=paths, max_memory_allocated_bytes=peak,
             rope_tables_calls_per_step=len(built) / (steps * LM_RUNS),
             warm_up_rope_tables_by_step=warm,
             device_launches_per_step=prof["launches_per_step"],
@@ -2052,12 +2085,14 @@ def lm_decode_numbers(dev, kernels) -> dict:
             first_outputs=outs[0][:8], profile=prof))
 
 
-def lm_serving_phase(dev, kernels) -> dict:
-    """SmolLM-135M at full width through ``ServeEngine`` on the card, with
-    every kernel's launches counted over the serving run; no decode step
-    after the warm-up's first builds a RoPE table."""
+def lm_serving_phase(dev, kernels, cfg=None, phase="lm_serving") -> dict:
+    """``cfg`` (SmolLM-135M at full width by default) through
+    ``ServeEngine`` on the card, with every kernel's launches counted over
+    the serving run: one RoPE launch a layer a step, each on the vector
+    path; no decode step after the warm-up's first builds a RoPE table."""
     import torch
-    run = lm_decode_numbers(dev, kernels)
+    t0 = time.perf_counter()
+    run = lm_decode_numbers(dev, kernels, cfg)
     cfg, prompts, outs, counts = (run["cfg"], run["prompts"], run["outs"],
                                   run["counts"])
     steps = run["row"]["decode_steps"]
@@ -2065,6 +2100,8 @@ def lm_serving_phase(dev, kernels) -> dict:
     check(steps == want_steps, f"{steps} decode steps, expected {want_steps}")
     check(counts["rope"] == cfg.n_layers * steps,
           f"rope launches {counts['rope']} != {cfg.n_layers} x {steps}")
+    check(run["paths"]["vector"] == counts["rope"],
+          f"rope launches by path {run['paths']}: not all vector")
     by_step = run["warm_up"]
     check(by_step[0] >= 1 and not any(by_step[1:])
           and run["rope_tables_calls"] == 0,
@@ -2073,8 +2110,32 @@ def lm_serving_phase(dev, kernels) -> dict:
     check(all(len(o) == LM_MAX_NEW and all(0 <= t < cfg.vocab for t in o)
               for o in outs), "generated tokens out of range or short")
     check(bool(torch.stack(run["finite"]).all()), "non-finite logits")
-    emit(phase="lm_serving", **run["row"])
+    emit(phase=phase, **run["row"], phase_seconds=time.perf_counter() - t0)
     return dict(counts=counts, ms_per_step=run["row"]["ms_per_step"])
+
+
+def moe_config(n_layers: int):
+    """DeepSeek-V2-Lite at full width, its depth cut to ``n_layers``."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=n_layers)
+
+
+def moe_serving_phase(dev, kernels) -> dict:
+    """DeepSeek-V2-Lite at full width (``MOE_LAYERS`` layers: the dense
+    first one and MoE ones) through ``ServeEngine``: MLA's RoPE through
+    the kernel, one launch a layer a step at the shape
+    ``ROPE_SHAPES["mla_decode"]`` held it at; routing takes the exact
+    route (``N * K <= 4096``)."""
+    import torch
+    cfg = moe_config(MOE_LAYERS)
+    check(ROPE_SHAPES["mla_decode"] == (LM_BATCH, 1, cfg.n_heads, 1,
+                                        cfg.qk_rope_dim),
+          f"ROPE_SHAPES['mla_decode'] {ROPE_SHAPES['mla_decode']} is not "
+          f"the served MLA's q and k")
+    check(LM_BATCH * cfg.top_k <= 4096, "decode past the exact route")
+    out = lm_serving_phase(dev, kernels, cfg, "moe_serving")
+    torch.cuda.empty_cache()
+    return out
 
 
 def profile_decode(eng, prompts) -> dict:
@@ -2109,18 +2170,33 @@ def profile_decode(eng, prompts) -> dict:
                           calls_per_step=n / steps) for key, us, n in top])
 
 
-def lm_parity_phase(dev) -> None:
-    """The float32 twin of the served model decodes on the card and on
-    the host from the same seeded weights: equal tokens, logits within
-    ``PARITY_RTOL`` of the host's at every step."""
+def card_twin(host, cfg, dev):
+    """The host model's weights on the card, bit for bit, through
+    ``convert.lm_params_from_reference`` (its tree stacked as the
+    reference's)."""
+    from repro_torch.convert import lm_params_from_reference
+    from repro_torch.models.transformer import stack_params
+    return lm_params_from_reference(stack_params(cfg, host.params()), cfg,
+                                    device=dev)
+
+
+def lm_parity_phase(dev, cfg=None, phase="lm_parity",
+                    seed: int = SEED + 7) -> None:
+    """The float32 twin of the served model (``cfg``, SmolLM-135M by
+    default) decodes on the card and on the host from the same seeded
+    weights: equal tokens, logits within ``PARITY_RTOL`` of the host's at
+    every step."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve import ServeEngine
-    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg or get_config(LM_ARCH), dtype="float32")
+    t0 = time.perf_counter()
     host = build_model(cfg, device="cpu",
-                       generator=torch.Generator().manual_seed(SEED + 7))
-    card = copy.deepcopy(host).to(dev)
+                       generator=torch.Generator().manual_seed(seed))
+    card = card_twin(host, cfg, dev)
+    init_s = time.perf_counter() - t0
     prompts = lm_prompts(cfg.vocab, LM_BATCH)[:PARITY_BATCH]
     runs = {}
     for name, model in (("card", card), ("host", host)):
@@ -2144,10 +2220,13 @@ def lm_parity_phase(dev) -> None:
     check(c_out == h_out, f"tokens differ: card {c_out}, host {h_out}")
     check(max(errs) <= PARITY_RTOL,
           f"logits differ by {max(errs)} of their max > {PARITY_RTOL}")
-    emit(phase="lm_parity", arch=cfg.name, dtype=cfg.dtype,
+    emit(phase=phase, arch=cfg.name, dtype=cfg.dtype, n_layers=cfg.n_layers,
          batch=PARITY_BATCH, max_new=PARITY_MAX_NEW, steps=len(c_log),
          tokens_equal=True, tokens=c_out, max_rel_logit_err=max(errs),
-         rtol=PARITY_RTOL, card_seconds=c_s, host_seconds=h_s)
+         rtol=PARITY_RTOL, card_seconds=c_s, host_seconds=h_s,
+         init_seconds=init_s, seconds=time.perf_counter() - t_phase)
+    del card, host
+    torch.cuda.empty_cache()
 
 
 def rope_backward_phase(dev, forward: dict) -> dict:
@@ -2340,22 +2419,24 @@ def train_phase(dev, kernels) -> dict:
     return dict(loop=loop, model=model, cfg=cfg, counts=counts)
 
 
-def train_parity_phase(dev) -> None:
-    """One float32 step's loss and gradients at full width, ``TRAIN_PARITY``
-    tokens, on the card and on the host from the same weights, TF32 off:
-    the card's RoPE backward is the kernel's, the host's autograd of the
-    plain version."""
+def train_parity_phase(dev, cfg=None, phase="train_parity",
+                       seed: int = SEED + 10) -> None:
+    """One float32 step's loss and gradients of ``cfg`` (SmolLM-135M at
+    full width by default), ``TRAIN_PARITY`` tokens, on the card and on
+    the host from the same weights, TF32 off: the card's RoPE backward is
+    the kernel's, the host's autograd of the plain version."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, make_batch
     from repro_torch.models.transformer import stack_params
     from repro_torch.train.step import _value_and_grad
     from repro_torch.tree import flatten_with_paths
-    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg or get_config(LM_ARCH), dtype="float32")
     b, s = TRAIN_PARITY
     batch = make_batch(DataConfig(cfg.vocab, s, b), 0)
-    host, params = train_setup(cfg, torch.device("cpu"), SEED + 10)
-    card = copy.deepcopy(host).to(dev)
+    host, params = train_setup(cfg, torch.device("cpu"), seed)
+    card = card_twin(host, cfg, dev)
     out = {}
     for name, model in (("card", card), ("host", host)):
         t0 = time.perf_counter()
@@ -2371,15 +2452,17 @@ def train_parity_phase(dev) -> None:
           f"train parity loss {lc} vs {lh}")
     check(errs[worst] <= TRAIN_PARITY_TOL["grad"],
           f"train parity gradient {worst}: rel err {errs[worst]}")
+    roped = ("['wq']['w']", "['wk']['w']", "['wkv_a']['w']")
     check(all(float(a.abs().max()) > 0 for path, a in gc
-              if path.endswith(("['wq']['w']", "['wk']['w']"))),
-          "card wq/wk gradient zero")
-    emit(phase="train_parity", arch=cfg.name, dtype=cfg.dtype, batch=b,
+              if path.endswith(roped)), "card wq/wk/wkv_a gradient zero")
+    emit(phase=phase, arch=cfg.name, dtype=cfg.dtype,
+         n_layers=cfg.n_layers, d_model=cfg.d_model, batch=b,
          seq=s, loss_card=lc, loss_host=lh, loss_rel_err=loss_err,
          max_grad_rel_err=errs[worst], worst_leaf=worst,
          grad_rel_err={p: e for p, e in errs.items()
-                       if "['wq']" in p or "['wk']" in p or "embed" in p},
-         tol=TRAIN_PARITY_TOL, card_seconds=sc, host_seconds=sh)
+                       if p.endswith(roped) or "embed" in p},
+         tol=TRAIN_PARITY_TOL, card_seconds=sc, host_seconds=sh,
+         seconds=time.perf_counter() - t_phase)
 
 
 def soap_phase(dev, kernels) -> None:
@@ -2828,6 +2911,19 @@ def run() -> int:
     entries["rope"]["launches"] = lm["counts"]["rope"]
     lm_parity_phase(dev)
 
+    # -- the MoE family: DeepSeek-V2-Lite at full width, MLA's RoPE -------
+    t_moe = time.perf_counter()
+    moe = moe_serving_phase(dev, {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
+                                  "rotseq_batched": batched_k,
+                                  "rope": rope_k})
+    entries["rope"]["launches"] += moe["counts"]["rope"]
+    lm_parity_phase(dev, moe_config(MOE_PARITY_LAYERS), "moe_parity",
+                    SEED + 12)
+    # reduced() deepseek: 4 layers (dense + 3 MoE) at d_model 64
+    train_parity_phase(dev, moe_config(MOE_LAYERS).reduced(),
+                       "moe_train_parity", SEED + 13)
+    emit(phase="moe", seconds=time.perf_counter() - t_moe)
+
     # -- training: RoPE's backward, SmolLM-135M steps, SOAP, checkpoints --
     t_train = time.perf_counter()
     rope_backward_phase(dev, entries["rope"]["rows"])
@@ -2836,7 +2932,9 @@ def run() -> int:
     train = train_phase(dev, all_k)
     # the serving run's launches and the train run's, each also apart
     entries["rope"]["launches_by_path"] = {
-        "lm_serving": lm["counts"]["rope"], "train": train["counts"]["rope"]}
+        "lm_serving": lm["counts"]["rope"],
+        "moe_serving": moe["counts"]["rope"],
+        "train": train["counts"]["rope"]}
     entries["rope"]["launches"] += train["counts"]["rope"]
     train_parity_phase(dev)
     soap_phase(dev, all_k)

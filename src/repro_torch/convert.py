@@ -82,8 +82,10 @@ def lm_params_from_reference(params, cfg, *, device="cuda"):
     from repro_torch.models.transformer import Transformer, unstack_params
 
     state = unstack_params(cfg, _tensors(params, "cpu"))
-    model = Transformer(cfg, device="cpu")
-    model.load_state_dict(state, strict=True)
+    # a template on the meta device draws no weight; assign=True makes
+    # the loaded tensors its parameters
+    model = Transformer(cfg, device="meta")
+    model.load_state_dict(state, strict=True, assign=True)
     return model.to(resolve_device(device))
 
 

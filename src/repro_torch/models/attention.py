@@ -1,7 +1,6 @@
-"""GQA attention with RoPE, sliding windows and KV caches.
+"""GQA and MLA attention with RoPE, sliding windows and KV caches.
 
-Mirror of the GQA half of :mod:`repro.models.attention` (multi-head
-latent attention waits for the MoE/MLA slice).  The attention math is
+Mirror of :mod:`repro.models.attention`.  The attention math is
 plain PyTorch, in the reference's einsum order, with the softmax in
 float32; ``F.scaled_dot_product_attention`` is not used, since its
 accumulation order differs from the reference's.  RoPE goes through
@@ -11,6 +10,14 @@ CPU.  Its cos/sin tables are row slices of one table a ``(head_dim,
 base, dtype, device)`` (:func:`rope_rows`), so a decode step builds none
 after its first.  Both full-sequence (train/prefill) and single-token
 cached (decode) paths are provided.
+
+Multi-head latent attention (DeepSeek-V2) caches a compressed latent
+``c_kv`` and one shared RoPE key head a token, and attends in the
+absorbed form (``q_nope`` folded into the latent space by ``wk_b``).
+Its decoupled RoPE part goes through the same fused kernel: the query
+heads' ``qk_rope_dim`` tail and the one key head in one launch
+(``Hk = 1``), each copied out of its projection first, since the kernel
+takes contiguous operands.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ from repro_torch.kernels.rope.ops import apply_rope, rope_tables
 from .layers import dense, dense_init, rmsnorm, rmsnorm_init, softcap
 
 __all__ = ["gqa_init", "gqa_attention", "gqa_decode", "attn_mask",
-           "rope_rows"]
+           "rope_rows", "mla_init", "mla_attention", "init_mla_cache",
+           "mla_decode"]
 
 _FLASH_CHUNK = 512
 _MASKED = -1e30
@@ -101,6 +109,12 @@ def _proj_qkv(p, cfg, x, start: int, base: float):
     return q, k, v
 
 
+def _chunked(S: int, T: int) -> bool:
+    """Whether attention takes the chunked (flash) route: a long query
+    over a long cache of whole chunks; the dense route otherwise."""
+    return S >= 64 and T >= 2 * _FLASH_CHUNK and T % _FLASH_CHUNK == 0
+
+
 def _sdpa_dense(qg, k, v, mask, scale, cap):
     logits = torch.einsum("bshgd,bthd->bhgst", qg, k) * scale
     logits = softcap(logits, cap)
@@ -165,7 +179,7 @@ def _sdpa(q, k, v, mask, scale, cap=0.0, *, causal=True, window=None,
     T, Hk = k.shape[1], k.shape[2]
     G = H // Hk
     qg = q.reshape(B, S, Hk, G, Dh)
-    if S >= 64 and T >= 2 * _FLASH_CHUNK and T % _FLASH_CHUNK == 0:
+    if _chunked(S, T):
         o = _sdpa_flash(qg, k, v, scale, cap, causal=causal,
                         window=window, q_offset=q_offset)
     else:
@@ -177,8 +191,10 @@ def gqa_attention(p, cfg, x, *, window=None, rope_base=None, q_offset=0):
     """Full-sequence causal attention (train / prefill)."""
     S = x.shape[1]
     q, k, v = _proj_qkv(p, cfg, x, q_offset, rope_base or cfg.rope_base)
-    mask = (attn_mask(S, S, window=window, device=x.device)
-            if S < _FLASH_CHUNK else None)
+    # the dense route needs the mask at every length (the reference's
+    # builds it only below 512 tokens: ROADMAP Queue 3)
+    mask = (None if _chunked(S, S) else
+            attn_mask(S, S, window=window, device=x.device))
     o = _sdpa(q, k, v, mask, cfg.head_dim ** -0.5, causal=True,
               window=window)
     return dense(p["wo"], o), (k, v)
@@ -212,3 +228,138 @@ def gqa_decode(p, cfg, x, k_cache, v_cache, idx: int, *, window=None,
     o = _sdpa(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask[None, :],
               cfg.head_dim ** -0.5)
     return dense(p["wo"], o), k_cache, v_cache
+
+
+# ---------------------------------------------------------------- MLA ----
+
+def mla_init(gen, cfg):
+    """DeepSeek-style multi-head latent attention."""
+    d, H = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    p = {}
+    if cfg.q_lora:
+        p["wq_a"] = dense_init(gen, d, cfg.q_lora)
+        p["q_norm"] = rmsnorm_init(cfg.q_lora)
+        p["wq_b"] = dense_init(gen, cfg.q_lora, H * (dn + dr))
+    else:
+        p["wq"] = dense_init(gen, d, H * (dn + dr))
+    p["wkv_a"] = dense_init(gen, d, cfg.kv_lora + dr)
+    p["kv_norm"] = rmsnorm_init(cfg.kv_lora)
+    p["wkv_b"] = dense_init(gen, cfg.kv_lora, H * (dn + dv))
+    p["wo"] = dense_init(gen, H * dv, d)
+    return p
+
+
+def _mla_qkv(p, cfg, x, start: int):
+    """``(q_nope (B,S,H,dn), q_rope (B,S,H,dr), c_kv (B,S,L), k_rope
+    (B,S,dr))`` of positions ``start .. start + S - 1``."""
+    B, S, _ = x.shape
+    H, L = cfg.n_heads, cfg.kv_lora
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    if cfg.q_lora:
+        q = dense(p["wq_b"], rmsnorm(p["q_norm"], dense(p["wq_a"], x)))
+    else:
+        q = dense(p["wq"], x)
+    q = q.reshape(B, S, H, dn + dr)
+    kv = dense(p["wkv_a"], x)
+    c_kv = rmsnorm(p["kv_norm"], kv[..., :L])
+    cos, sin = rope_rows(start, S, dr, cfg.rope_base, q.dtype, x.device)
+    # one launch for the query heads' rope tails and the shared key head
+    q_rope, k_rope = apply_rope(q[..., dn:].contiguous(),
+                                kv[:, :, None, L:].contiguous(), cos, sin)
+    return q[..., :dn], q_rope, c_kv, k_rope[:, :, 0]
+
+
+def _mla_flash(q_lat, q_rope, c_kv, k_rope, scale, q_offset):
+    """Chunked online softmax over the latent cache (causal); the
+    accumulator lives in the ``kv_lora`` latent space.  ``(B,S,H,L)``."""
+    B, S, H, L = q_lat.shape
+    T = c_kv.shape[1]
+    C = _FLASH_CHUNK
+    dev = q_lat.device
+    ckv_c = c_kv.reshape(B, T // C, C, L)
+    kr_c = k_rope.reshape(B, T // C, C, -1)
+    qpos = torch.arange(S, device=dev) + q_offset
+    m_run = torch.full((B, H, S), -torch.inf, dtype=torch.float32,
+                       device=dev)
+    d_run = torch.zeros((B, H, S), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, S, L), dtype=q_lat.dtype, device=dev)
+    for cidx in range(T // C):
+        ckb, krb = ckv_c[:, cidx], kr_c[:, cidx]
+        s = (torch.einsum("bshl,btl->bhst", q_lat, ckb)
+             + torch.einsum("bshd,btd->bhst", q_rope, krb)) * scale
+        s = s.float()
+        kpos = cidx * C + torch.arange(C, device=dev)
+        mb = kpos[None, :] <= qpos[:, None]
+        s = torch.where(mb[None, None], s, _MASKED)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        alpha = torch.exp(m_run - m_new)
+        pch = torch.exp(s - m_new[..., None])
+        d_run = d_run * alpha + pch.sum(dim=-1)
+        acc = acc * alpha.to(acc.dtype)[..., None] + torch.einsum(
+            "bhst,btl->bhsl", pch.to(q_lat.dtype), ckb).to(acc.dtype)
+        m_run = m_new
+    o = acc / torch.clamp(d_run, min=1e-30)[..., None].to(acc.dtype)
+    return o.permute(0, 2, 1, 3)
+
+
+def _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, mask, *,
+                q_offset=0):
+    """Latent attention: scores from the compressed cache ``(c_kv,
+    k_rope)``; a long query with a long cache takes the chunked route,
+    the rest the dense one with ``mask``."""
+    B, S, H, dn = q_nope.shape
+    T = c_kv.shape[1]
+    dv, L = cfg.v_head_dim, cfg.kv_lora
+    wkv_b = p["wkv_b"]["w"].reshape(L, H, dn + dv)
+    wk_b, wv_b = wkv_b[..., :dn], wkv_b[..., dn:]
+    # fold k's up-projection into q (absorbed form): q~ = q_nope @ wk_b^T
+    q_lat = torch.einsum("bshd,lhd->bshl", q_nope, wk_b.to(q_nope.dtype))
+    scale = (dn + cfg.qk_rope_dim) ** -0.5
+    if _chunked(S, T):
+        o_lat = _mla_flash(q_lat, q_rope, c_kv, k_rope, scale, q_offset)
+    else:
+        logits = (torch.einsum("bshl,btl->bhst", q_lat, c_kv)
+                  + torch.einsum("bshd,btd->bhst", q_rope, k_rope)) * scale
+        if mask is not None:
+            logits = torch.where(mask[None, None], logits, _MASKED)
+        w = torch.softmax(logits.float(), dim=-1).to(q_nope.dtype)
+        o_lat = torch.einsum("bhst,btl->bshl", w, c_kv)
+    o = torch.einsum("bshl,lhd->bshd", o_lat, wv_b.to(o_lat.dtype))
+    return dense(p["wo"], o.reshape(B, S, H * dv))
+
+
+def mla_attention(p, cfg, x, *, q_offset=0):
+    """Full-sequence causal latent attention (train / prefill); returns
+    the output and the layer's ``(c_kv, k_rope)``."""
+    S = x.shape[1]
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, q_offset)
+    mask = None if _chunked(S, S) else attn_mask(S, S, device=x.device)
+    out = _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, mask,
+                      q_offset=q_offset)
+    return out, (c_kv, k_rope)
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, *, dtype=torch.bfloat16,
+                   device=None):
+    """One layer's latent cache ``{"ckv": (B, T, kv_lora), "kr": (B, T,
+    qk_rope_dim)}`` (the reference stacks the layers and adds ``idx``)."""
+    return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora), dtype=dtype,
+                               device=device),
+            "kr": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                              dtype=dtype, device=device)}
+
+
+def mla_decode(p, cfg, x, ckv_cache, kr_cache, idx: int):
+    """Single-token decode: x (B, 1, d); the caches are written at slot
+    ``idx`` in place (clamped to the last slot, as ``gqa_decode``) and
+    returned."""
+    T = ckv_cache.shape[1]
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, idx)
+    slot = min(idx, T - 1)
+    ckv_cache[:, slot] = c_kv[:, 0].to(ckv_cache.dtype)
+    kr_cache[:, slot] = k_rope[:, 0].to(kr_cache.dtype)
+    mask = (torch.arange(T, device=x.device) <= idx)[None, :]
+    out = _mla_attend(p, cfg, q_nope, q_rope, ckv_cache.to(x.dtype),
+                      kr_cache.to(x.dtype), mask)
+    return out, ckv_cache, kr_cache

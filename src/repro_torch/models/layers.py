@@ -1,8 +1,7 @@
 """Shared neural-net building blocks: mirror of :mod:`repro.models.layers`.
 
-Parameters are nested dicts of tensors (or the ``nn.ModuleDict`` /
-``nn.ParameterDict`` trees :func:`to_module` makes of them, which index
-the same way), kept in the reference's layout: a dense weight is
+Parameters are nested dicts of tensors (or the :class:`ParamTree`
+modules :func:`to_module` makes of them, which index the same way), kept in the reference's layout: a dense weight is
 ``(d_in, d_out)`` and is applied as ``x @ w``.  Each ``*_init`` draws
 float32 weights from a ``torch.Generator`` with the reference
 initialiser's distribution; the two frameworks give different numbers
@@ -24,12 +23,13 @@ __all__ = [
     "rmsnorm_init", "rmsnorm",
     "embed_init",
     "mlp_init", "mlp_swiglu", "mlp_gelu",
-    "softcap", "to_module",
+    "softcap", "ParamTree", "to_module",
 ]
 
 
-def dense_init(gen, d_in: int, d_out: int):
-    w = torch.randn((d_in, d_out), generator=gen) / math.sqrt(d_in)
+def dense_init(gen, d_in: int, d_out: int, scale=None):
+    w = torch.randn((d_in, d_out), generator=gen)
+    w = w / math.sqrt(d_in) if scale is None else w * scale
     return {"w": w}
 
 
@@ -79,13 +79,27 @@ def softcap(x, cap: float):
     return torch.tanh(x / cap) * cap
 
 
+class ParamTree(nn.Module):
+    """A dict of tensors and sub-dicts as a module, indexed like the dict:
+    its tensors are parameters (frozen as built), its sub-dicts
+    submodules, under the dict's keys."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
+            else:
+                self.add_module(k, to_module(v))
+
+    def __getitem__(self, key):
+        return getattr(self, key)
+
+
 def to_module(tree) -> nn.Module:
-    """A nested dict of tensors as ``nn.ModuleDict``/``nn.ParameterDict``
-    (lists as ``nn.ModuleList``), indexable exactly like the dict."""
+    """A nested dict of tensors as :class:`ParamTree` modules (lists as
+    ``nn.ModuleList``), indexable exactly like the dict."""
     if isinstance(tree, (list, tuple)):
         return nn.ModuleList(to_module(t) for t in tree)
-    if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict(
-            {k: nn.Parameter(v, requires_grad=False)
-             for k, v in tree.items()})
-    return nn.ModuleDict({k: to_module(v) for k, v in tree.items()})
+    return ParamTree(tree)

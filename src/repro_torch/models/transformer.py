@@ -1,19 +1,22 @@
-"""Decoder-only transformer of the dense families (smollm, starcoder2,
-llama3, gemma3, chameleon): mirror of :mod:`repro.models.transformer`.
+"""Decoder-only transformer covering the dense, MoE, MLA and windowed
+families (smollm, starcoder2, llama3, gemma3, chameleon, deepseek-v2,
+kimi-k2): mirror of :mod:`repro.models.transformer`.
 
 The reference stacks each repeating group of layers and scans over it;
 the port keeps one entry a layer in an ``nn.ModuleList`` and loops over
 them.  Per layer, from the ``ModelConfig``: ``pattern_global`` slots use
 full attention (with ``rope_base_global`` where set), the other slots
-sliding-window attention when ``cfg.window`` is set.  Mixture-of-experts
-and multi-head latent attention wait for their slice (ROADMAP Queue 1
-item 12).
+sliding-window attention when ``cfg.window`` is set; ``cfg.mla`` layers
+use multi-head latent attention (a latent cache ``ckv``/``kr``); layers
+from ``first_dense_layers`` on use the mixture-of-experts FFN when
+``cfg.n_experts`` is set, the others the dense MLP.
 
 Parameters keep the reference's tree under ``embed``, ``ln_f``,
 ``lm_head`` (untied configs) and ``layers[i]`` (``ln1``, ``attn``,
-``ln2``, ``mlp``), in its ``(d_in, d_out)`` layout, drawn from a seeded
-``torch.Generator`` on the host and then moved to ``device``, so one
-seed gives the same weights on every device.
+``ln2``, ``mlp``), in its ``(d_in, d_out)`` layout (experts ``(E, d_in,
+d_out)``), drawn from a seeded ``torch.Generator`` on the host and then
+moved to ``device``, so one seed gives the same weights on every device;
+on the meta device nothing is drawn.
 
 Training keeps the reference's own tree, with each scan group's layers
 stacked ``(reps, ...)`` per slot under ``group{gi}``
@@ -32,9 +35,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.sequence import resolve_device
 
-from .attention import gqa_attention, gqa_decode, gqa_init
+from .attention import (gqa_attention, gqa_decode, gqa_init,
+                        init_mla_cache, mla_attention, mla_decode, mla_init)
 from .layers import (dense, dense_init, embed_init, mlp_gelu, mlp_init,
                      mlp_swiglu, rmsnorm, rmsnorm_init, softcap, to_module)
+from .moe import moe_ffn, moe_init
 
 __all__ = ["Transformer", "init_params", "stack_params", "unstack_params",
            "reference_shapes"]
@@ -91,10 +96,11 @@ def init_params(cfg, gen):
         tree["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab)
     tree["layers"] = [{
         "ln1": rmsnorm_init(cfg.d_model),
-        "attn": gqa_init(gen, cfg),
+        "attn": mla_init(gen, cfg) if cfg.mla else gqa_init(gen, cfg),
         "ln2": rmsnorm_init(cfg.d_model),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated),
-    } for _ in range(cfg.n_layers)]
+        "mlp": (moe_init(gen, cfg) if mlp_kind == "moe" else
+                mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated)),
+    } for _, mlp_kind in _layer_kinds(cfg)]
     return tree
 
 
@@ -155,35 +161,34 @@ def reference_shapes(cfg):
 def _tensors(m) -> dict:
     """The nested dict of the tensors module ``m`` holds now, indexed as
     ``m`` is."""
-    if isinstance(m, nn.ParameterDict):
-        return dict(m.items())
-    return {k: _tensors(c) for k, c in m.items()}
+    out = dict(m.named_parameters(recurse=False))
+    out.update((k, _tensors(c)) for k, c in m.named_children())
+    return out
 
 
 class Transformer(nn.Module):
     """Decoder-only LM; see the module docstring.
 
     ``generator`` (a CPU ``torch.Generator``, by default seeded 0) draws
-    the weights, in float32 as the reference's ``init`` does.
+    the weights, in float32 as the reference's ``init`` does; on
+    ``device="meta"`` no weight is drawn (a template for
+    ``load_state_dict(..., assign=True)``).
     """
 
     def __init__(self, cfg, *, generator: Optional[torch.Generator] = None,
                  device="cuda"):
         super().__init__()
-        if cfg.mla:
-            raise NotImplementedError(
-                "multi-head latent attention is not ported yet (ROADMAP "
-                "Queue 1 item 12)")
-        if cfg.n_experts:
-            raise NotImplementedError(
-                "mixture-of-experts layers are not ported yet (ROADMAP "
-                "Queue 1 item 12)")
         device = resolve_device(device)
         self.cfg = cfg
         self.kinds = _layer_kinds(cfg)
-        gen = generator if generator is not None else \
-            torch.Generator().manual_seed(0)
-        for key, sub in init_params(cfg, gen).items():
+        if device.type == "meta":
+            with device:
+                tree = init_params(cfg, None)
+        else:
+            gen = generator if generator is not None else \
+                torch.Generator().manual_seed(0)
+            tree = init_params(cfg, gen)
+        for key, sub in tree.items():
             setattr(self, key, to_module(sub))
         self.to(device)
 
@@ -199,7 +204,9 @@ class Transformer(nn.Module):
                 else cfg.rope_base)
         return window, base
 
-    def _mlp(self, p, x):
+    def _mlp(self, p, mlp_kind, x):
+        if mlp_kind == "moe":
+            return moe_ffn(p["mlp"], self.cfg, x)
         return (mlp_swiglu if self.cfg.mlp_gated else mlp_gelu)(p["mlp"], x)
 
     def _embed(self, tokens):
@@ -222,12 +229,17 @@ class Transformer(nn.Module):
 
     # -------------------------------------------------------- forward ----
 
-    def _block(self, p, attn_kind, x):
-        window, base = self._attn_args(attn_kind)
-        a, _ = gqa_attention(p["attn"], self.cfg, rmsnorm(p["ln1"], x),
-                             window=window, rope_base=base)
+    def _block(self, p, kinds, x):
+        attn_kind, mlp_kind = kinds
+        h = rmsnorm(p["ln1"], x)
+        if self.cfg.mla:
+            a, _ = mla_attention(p["attn"], self.cfg, h)
+        else:
+            window, base = self._attn_args(attn_kind)
+            a, _ = gqa_attention(p["attn"], self.cfg, h, window=window,
+                                 rope_base=base)
         x = x + a
-        return x + self._mlp(p, rmsnorm(p["ln2"], x))
+        return x + self._mlp(p, mlp_kind, rmsnorm(p["ln2"], x))
 
     def forward(self, tokens, remat: bool = False):
         """tokens (B, S) int -> logits (B, S, vocab).
@@ -237,15 +249,15 @@ class Transformer(nn.Module):
         for each repetition of its scan; the values are the same.
         """
         x = self._embed(tokens)
-        for p, (attn_kind, _) in zip(self.layers, self.kinds):
+        for p, kinds in zip(self.layers, self.kinds):
             if remat:
                 # the layer's tensors as they are now: under
                 # functional_call the recomputation in the backward runs
                 # after the swapped-in weights have left the module
-                x = checkpoint(self._block, _tensors(p), attn_kind, x,
+                x = checkpoint(self._block, _tensors(p), kinds, x,
                                use_reentrant=False)
             else:
-                x = self._block(p, attn_kind, x)
+                x = self._block(p, kinds, x)
         return self._logits(x)
 
     def params(self):
@@ -254,9 +266,10 @@ class Transformer(nn.Module):
         def tree(m):
             if isinstance(m, nn.ModuleList):
                 return [tree(c) for c in m]
-            if isinstance(m, nn.ParameterDict):
-                return {k: v.detach().clone() for k, v in m.items()}
-            return {k: tree(c) for k, c in m.items()}
+            out = {k: v.detach().clone()
+                   for k, v in m.named_parameters(recurse=False)}
+            out.update((k, tree(c)) for k, c in m.named_children())
+            return out
 
         return {key: tree(getattr(self, key)) for key in
                 ("embed", "ln_f", "lm_head", "layers") if hasattr(self, key)}
@@ -265,10 +278,15 @@ class Transformer(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
         """``{"idx": 0, "layers": [{"k", "v"}, ...]}``; sliding-window
-        layers get a ``window``-slot ring buffer (see ``gqa_decode``)."""
+        layers get a ``window``-slot ring buffer (see ``gqa_decode``), MLA
+        layers ``{"ckv", "kr"}`` (``init_mla_cache``)."""
         cfg = self.cfg
         layers = []
         for attn_kind, _ in self.kinds:
+            if cfg.mla:
+                layers.append(init_mla_cache(cfg, batch, max_len,
+                                             dtype=dtype, device=self.device))
+                continue
             is_local = attn_kind == "local" and cfg.window is not None
             length = min(cfg.window, max_len) if is_local else max_len
             shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
@@ -285,12 +303,17 @@ class Transformer(nn.Module):
         """
         idx = cache["idx"]
         x = self._embed(tokens)
-        for p, c, (attn_kind, _) in zip(self.layers, cache["layers"],
-                                        self.kinds):
-            window, base = self._attn_args(attn_kind)
-            a, c["k"], c["v"] = gqa_decode(
-                p["attn"], self.cfg, rmsnorm(p["ln1"], x), c["k"], c["v"],
-                idx, window=window, rope_base=base)
+        for p, c, (attn_kind, mlp_kind) in zip(self.layers, cache["layers"],
+                                               self.kinds):
+            h = rmsnorm(p["ln1"], x)
+            if self.cfg.mla:
+                a, c["ckv"], c["kr"] = mla_decode(
+                    p["attn"], self.cfg, h, c["ckv"], c["kr"], idx)
+            else:
+                window, base = self._attn_args(attn_kind)
+                a, c["k"], c["v"] = gqa_decode(
+                    p["attn"], self.cfg, h, c["k"], c["v"], idx,
+                    window=window, rope_base=base)
             x = x + a
-            x = x + self._mlp(p, rmsnorm(p["ln2"], x))
+            x = x + self._mlp(p, mlp_kind, rmsnorm(p["ln2"], x))
         return self._logits(x), {"idx": idx + 1, "layers": cache["layers"]}

@@ -1,8 +1,8 @@
 """Model zoo: build a ported architecture from its config.
 
-Mirror of :mod:`repro.models.zoo`.  The dense families (dense, vlm) go
-to :class:`~repro_torch.models.transformer.Transformer`; the SSM, hybrid
-and audio families are not ported yet.
+Mirror of :mod:`repro.models.zoo`.  The decoder-only families (dense,
+moe, vlm) go to :class:`~repro_torch.models.transformer.Transformer`;
+the SSM, hybrid and audio families are not ported yet.
 """
 from __future__ import annotations
 

@@ -3,7 +3,8 @@
 The reference's ``ServeEngine`` and the port's greedy-decode the same
 prompts with the same weights (the reference's, carried across with
 ``repro_torch.convert.lm_params_from_reference``) on the ``TINY`` config
-of ``tests/test_substrates.py`` and on reduced SmolLM-135M: the tokens
+of ``tests/test_substrates.py`` and on reduced SmolLM-135M,
+DeepSeek-V2-Lite (MLA and MoE) and Kimi-K2 (GQA and MoE): the tokens
 are equal and every decode step's logits agree to ``atol 5e-5,
 rtol 1e-4`` (float32; the matmuls sum in another order).  Greedy output
 equals the argmax of the port's teacher-forced forward, and the
@@ -46,9 +47,13 @@ def _record(engine, log):
 
 
 def _cases():
-    smol = j_get_config("smollm-135m").reduced()
-    return {"tiny": (JModelConfig(**TINY), ModelConfig(**TINY), 4),
-            "smollm": (smol, get_config("smollm-135m").reduced(), 11)}
+    out = {"tiny": (JModelConfig(**TINY), ModelConfig(**TINY), 4)}
+    for name, arch, seed in (("smollm", "smollm-135m", 11),
+                             ("deepseek", "deepseek-v2-lite-16b", 12),
+                             ("kimi", "kimi-k2-1t-a32b", 13)):
+        out[name] = (j_get_config(arch).reduced(),
+                     get_config(arch).reduced(), seed)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -67,7 +72,7 @@ def references():
     return out
 
 
-@pytest.mark.parametrize("case", ["tiny", "smollm"])
+@pytest.mark.parametrize("case", ["tiny", "smollm", "deepseek", "kimi"])
 def test_generate_vs_reference(case, references):
     params, ref_toks, ref_log = references[case]
     cfg = _cases()[case][1]
@@ -110,8 +115,10 @@ def test_eos_ends_a_slot_and_too_many_prompts_raise(references):
         eng.generate(PROMPTS + [[1]], max_new=2)
 
 
-def test_launcher_lm_mode(capsys):
-    launcher.main(["--arch", "smollm-135m", "--reduced", "--device", "cpu",
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-v2-lite-16b",
+                                  "kimi-k2-1t-a32b"])
+def test_launcher_lm_mode(capsys, arch):
+    launcher.main(["--arch", arch, "--reduced", "--device", "cpu",
                    "--batch", "2", "--max-new", "3"])
     out = capsys.readouterr().out
     assert out.count("prompt ") == 2

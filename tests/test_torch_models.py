@@ -7,7 +7,9 @@ the reference's JAX functions and the port's, in float32, held to
 order on the two sides.  ``Transformer.forward`` is compared on the
 reduced configs of three dense architectures (SwiGLU, the plain GELU MLP
 with its own RoPE base, and gemma3's sliding windows, qk-norm, global
-RoPE base and embedding scale), and on a 2-layer config at
+RoPE base and embedding scale) and of the two MoE ones (deepseek's
+multi-head latent attention, kimi's GQA, each with a dense first layer
+and mixture-of-experts layers after it), and on a 2-layer config at
 ``S = T = 1024``, where attention takes the chunked flash route.  Within
 the port, token-by-token decoding equals the full forward.
 """
@@ -32,7 +34,8 @@ from repro_torch.models import build_model, layers
 from repro_torch.models.transformer import Transformer, _groups
 
 TOL = dict(atol=5e-5, rtol=1e-4)
-FORWARD_ARCHS = ["smollm-135m", "starcoder2-3b", "gemma3-4b"]
+FORWARD_ARCHS = ["smollm-135m", "starcoder2-3b", "gemma3-4b",
+                 "deepseek-v2-lite-16b", "kimi-k2-1t-a32b"]
 B, S = 2, 20
 
 
@@ -246,6 +249,10 @@ def test_decode_matches_forward(arch):
     if cfg.window:  # local layers hold a window-sized ring buffer
         lens = {c["k"].shape[1] for c in cache["layers"]}
         assert lens == {cfg.window, S}
+    if cfg.mla:  # the latent cache: c_kv and the shared rope key
+        assert all(c["ckv"].shape == (B, S, cfg.kv_lora)
+                   and c["kr"].shape == (B, S, cfg.qk_rope_dim)
+                   for c in cache["layers"])
     np.testing.assert_allclose(torch.cat(outs, 1).numpy(), full.numpy(),
                                **TOL)
 
@@ -307,8 +314,7 @@ def test_weights_come_from_the_seed_on_every_device():
     assert not any(p.requires_grad for p in a.parameters())
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b",
-                                  "mamba2-370m", "recurrentgemma-9b",
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b",
                                   "whisper-large-v3"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

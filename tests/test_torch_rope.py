@@ -194,9 +194,12 @@ def _rotate_emulated(x, c, s, inverse):
     return torch.cat([(a - b).to(dt), (d + e).to(dt)], dim=-1)
 
 
+@pytest.mark.parametrize("shape", [(3, 32, 9, 3, 64), (8, 1, 16, 1, 64)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_the_kernels_inverse_rotation_is_the_gradient(dtype):
-    q, k, c, s, gq, gk = _grad_case(3, 32, 9, 3, 64, dtype, 0)
+def test_the_kernels_inverse_rotation_is_the_gradient(shape, dtype):
+    """At a GQA shape and at MLA's decode shape (16 query heads' rope
+    tails and one shared key head)."""
+    q, k, c, s, gq, gk = _grad_case(*shape, dtype, 0)
     want = _autograd_of_plain(q, k, c, s, gq, gk)
     assert torch.equal(_rotate_emulated(gq, c, s, True), want[0])
     assert torch.equal(_rotate_emulated(gk, c, s, True), want[1])
@@ -212,10 +215,12 @@ def test_the_kernels_inverse_rotation_is_the_gradient(dtype):
 
 # (B, S, Hq, Hk, D) walked by the emulation: the decode shape of the
 # served model, a prefill and a ragged one cut in S, the scalar-path head
-# dim, and llama's and gemma3's head dims with their head layouts cut
+# dim, llama's and gemma3's head dims with their head layouts cut, and
+# DeepSeek-V2-Lite's MLA decode (one key head shared by 16 query heads)
 MAP_SHAPES = {"decode": (8, 1, 9, 3, 64), "prefill": (2, 512, 9, 3, 64),
               "ragged": (3, 37, 9, 3, 64), "D10": (2, 16, 4, 2, 10),
-              "D128": (1, 64, 16, 8, 128), "D256": (2, 32, 8, 4, 256)}
+              "D128": (1, 64, 16, 8, 128), "D256": (2, 32, 8, 4, 256),
+              "mla_decode": (8, 1, 16, 1, 64)}
 
 
 def _source_vec(elt):
@@ -380,7 +385,8 @@ def test_cached_rows_equal_fresh_tables(monkeypatch, dtype, base, D):
     assert tabs[0].shape[0] == 8 * first  # doubled to cover 4*first + 1
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "gemma3-4b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "gemma3-4b",
+                                  "deepseek-v2-lite-16b"])
 def test_decode_builds_no_tables_after_its_first_step(monkeypatch, arch):
     """``rope_tables`` runs in the first decode step only (once a base),
     and the tokens and logits equal those of tables built afresh in every
@@ -452,7 +458,7 @@ def _kernel_rule(*tensors):
     (8, 1, 9, 3, 64, 0), (8, 1, 9, 3, 64, 1), (8, 300, 9, 3, 64, 0),
     (3, 32, 9, 3, 64, 0), (2, 16, 4, 2, 8, 0), (2, 16, 4, 2, 10, 0),
     (1, 4096, 64, 8, 128, 0), (8, 512, 8, 4, 256, 0), (4, 33, 8, 2, 128, 1),
-    (2, 7, 4, 2, 256, 1)])
+    (2, 7, 4, 2, 256, 1), (8, 1, 16, 1, 64, 0)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_bitwise_vs_plain_on_the_card(B, S, Hq, Hk, D, offset, dtype):
     """``offset`` 1 hands the kernel q as a contiguous view one element
@@ -493,7 +499,8 @@ def test_kernel_bitwise_vs_plain_on_the_card(B, S, Hq, Hk, D, offset, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,Hq,Hk,D,offset", [
     (8, 1, 9, 3, 64, 0), (8, 300, 9, 3, 64, 0), (8, 300, 9, 3, 64, 1),
-    (2, 16, 4, 2, 10, 0), (1, 1024, 9, 3, 64, 0), (4, 33, 8, 2, 128, 1)])
+    (2, 16, 4, 2, 10, 0), (1, 1024, 9, 3, 64, 0), (4, 33, 8, 2, 128, 1),
+    (8, 1, 16, 1, 64, 0), (4, 128, 16, 1, 64, 0)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_backward_bitwise_vs_autograd_on_the_card(B, S, Hq, Hk, D,
                                                          offset, dtype):

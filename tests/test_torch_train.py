@@ -23,7 +23,8 @@ train, ckpt}`` on the CPU:
   degenerate eigenspace has no defined basis.
 * Which parameters ``SoapGivens`` preconditions: the reference's choice,
   on ``TINY``, on SmolLM-135M reduced (its stacked norms are) and at
-  full width (none), from shapes alone.
+  full width (none), on the reduced MoE configs and DeepSeek-V2-Lite at
+  full width (the MoE layers' stacked ``kv_norm``), from shapes alone.
 * The ``TINY`` train step (``tests/test_substrates.py``'s config,
   float32, the reference's weights): loss within 1e-5 relative, each
   gradient leaf within 1e-4 relative Frobenius, and the parameters
@@ -273,7 +274,10 @@ def test_soap_qr_matches_reference_at_8x8():
 
 
 @pytest.mark.parametrize("arch", ["tiny", "smollm-135m-reduced",
-                                  "smollm-135m", "gemma3-4b-reduced"])
+                                  "smollm-135m", "gemma3-4b-reduced",
+                                  "deepseek-v2-lite-16b-reduced",
+                                  "kimi-k2-1t-a32b-reduced",
+                                  "deepseek-v2-lite-16b"])
 def test_soap_preconditions_what_the_reference_preconditions(arch):
     """From shapes alone (meta tensors; ``jax.eval_shape``): no weights
     are built.  At full width the embedding ``(49152, 576)`` is past
@@ -303,10 +307,15 @@ def test_soap_preconditions_what_the_reference_preconditions(arch):
     assert got == want
     if arch == "smollm-135m":
         assert got == []
+    if arch == "deepseek-v2-lite-16b":  # the 26 MoE layers' (26, 512)
+        assert got == ["['group1'][0]['attn']['kv_norm']['g']"]
     if arch == "smollm-135m-reduced":
         assert "['embed']['e']" in got
         assert "['group0'][0]['ln1']['g']" in got
         assert not any("['w']" in p for p in got)
+    if arch.startswith(("deepseek", "kimi")):
+        # the experts' stacks are 4-D, the router's 3-D: never eligible
+        assert not any("['mlp']['w_" in p or "router" in p for p in got)
 
 
 # ----------------------------------------------------- the train step ----
@@ -496,8 +505,10 @@ def test_resume_from_a_reference_checkpoint(tmp_path):
         assert np.array_equal(a, b), path
 
 
-def test_launcher_trains_on_the_host(capsys):
-    hist = launch_train.main(["--arch", "smollm-135m", "--reduced",
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-v2-lite-16b",
+                                  "kimi-k2-1t-a32b"])
+def test_launcher_trains_on_the_host(capsys, arch):
+    hist = launch_train.main(["--arch", arch, "--reduced",
                               "--steps", "3", "--batch", "2", "--seq",
                               "16", "--device", "cpu"])
     assert len(hist["loss"]) == 3 and np.isfinite(hist["loss"]).all()
