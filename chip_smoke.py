@@ -96,6 +96,19 @@ tokens, logits within ``PARITY_RTOL``); and one float32 train step of
 its ``reduced()`` config on both (loss and gradients within
 ``TRAIN_PARITY_TOL``).  Each parity twin reaches the card through
 ``convert.lm_params_from_reference``.
+Then the recurrent and encoder-decoder families, served as SmolLM is:
+RecurrentGemma-9B at full width, its depth cut to one (R, R, A)
+repetition and the config's 2-block recurrent tail (the local
+attention's RoPE one kernel launch a step at the ``griffin_decode``
+shape the rope lines hold bit for bit); Mamba2-370M and Whisper-large-v3
+with nothing cut and no RoPE launch, Whisper's encoder prefill on 8 x
+1500 stub frames timed apart from its decode steps.  Each has a float32
+twin decoding on the card and on the host (equal tokens, logits within
+``PARITY_RTOL``; Whisper's on 2 x 300 frames), Mamba2's also holding its
+chunked forward to step-by-step decode over two chunks of 256 and one
+backward at that chunk to finite gradients; one float32 train step of
+each ``reduced()`` config on both; and a few ``SoapGivens`` steps on
+reduced Mamba2, whose refreshes launch the rotation kernels.
 Then training (``repro_torch.{train,optim,data,ckpt,parallel}``): the
 RoPE kernel's backward (one launch rotating by ``-sin``) held bit for bit
 to autograd of its plain version at every ``ROPE_SHAPES`` case, timed by
@@ -180,6 +193,20 @@ PARITY_RTOL = 1e-3   # per step: max|card - host| <= PARITY_RTOL * max|host|
 # and one MoE layer
 MOE_ARCH = "deepseek-v2-lite-16b"
 MOE_LAYERS, MOE_PARITY_LAYERS = 4, 2
+# the recurrent and encoder-decoder families, served as the LM path is:
+# RecurrentGemma-9B at full width, its depth cut to one (R, R, A)
+# repetition and the config's own 2-block recurrent tail (all 38 layers
+# are 9.4 B parameters, 37.6 GB of float32 masters: too long to draw on
+# the host, and no room left for the parity twin); Mamba2-370M and
+# Whisper-large-v3 with nothing cut, Whisper on 8 stub frame sequences
+# of 1500 (its 30 s encoder length), its parity twin on 2 of 300
+HYBRID_ARCH, HYBRID_LAYERS = "recurrentgemma-9b", 5
+SSM_ARCH, AUDIO_ARCH = "mamba2-370m", "whisper-large-v3"
+AUDIO_FRAMES, AUDIO_PARITY_FRAMES = 1500, 300
+SSM_CHUNKS = (2, 512)    # B, S of the card's forward against its decode
+SSM_DECODE_RTOL = 1e-3   # max|forward - decode| <= this * max|forward|
+SSM_SOAP_STEPS, SSM_SOAP_FREQ = 10, 5
+AUDIO_TRAIN = (1, 128, 16)   # batch, frames, decoder tokens
 # the training slice: SmolLM-135M at full width, seeded f32 master weights
 TRAIN_BATCH, TRAIN_SEQ = 4, 1024   # S = 1024: attention's flash path
 # RoPE at the decode shape of the serving run, a prefill and a ragged
@@ -188,7 +215,9 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 1024   # S = 1024: attention's flash path
 # sequence, gemma3's head dim, a head dim the vector path cannot take,
 # the decode shape as a view one element into its buffer, and MLA's
 # decode (DeepSeek-V2-Lite's 16 query heads' rope tails and the one key
-# head they share; moe_serving_phase holds it to the config):
+# head they share; moe_serving_phase holds it to the config), and
+# RecurrentGemma's local attention at decode (16 query heads of 256 and
+# one key head; hybrid_serving_phase holds it to the config):
 # (B, S, Hq, Hk, D)
 ROPE_SHAPES = {"decode": (8, 1, 9, 3, 64), "prefill": (8, 2048, 9, 3, 64),
                "ragged": (8, 300, 9, 3, 64),
@@ -196,7 +225,8 @@ ROPE_SHAPES = {"decode": (8, 1, 9, 3, 64), "prefill": (8, 2048, 9, 3, 64),
                "llama_prefill": (1, 4096, 64, 8, 128),
                "gemma3": (8, 512, 8, 4, 256), "scalar_d10": (2, 16, 4, 2, 10),
                "misaligned": (8, 1, 9, 3, 64),
-               "mla_decode": (LM_BATCH, 1, 16, 1, 64)}
+               "mla_decode": (LM_BATCH, 1, 16, 1, 64),
+               "griffin_decode": (LM_BATCH, 1, 16, 1, 256)}
 ROPE_OFFSET = {"misaligned": 1}   # elements q starts into its buffer
 # the path each shape must take on the card, in both dtypes
 ROPE_PATH = {"scalar_d10": "scalar", "misaligned": "scalar"}
@@ -1982,9 +2012,51 @@ def lm_prompts(vocab: int, batch: int):
     return [rng.integers(0, vocab, size=int(n)).tolist() for n in lens]
 
 
-def lm_decode_numbers(dev, kernels, cfg=None) -> dict:
+def rope_layers(cfg) -> int:
+    """Layers whose attention rotates by RoPE: every layer of the
+    transformers, every third of the RG-LRU hybrid, none of Mamba2 or
+    Whisper."""
+    if cfg.pos_type != "rope":
+        return 0
+    return cfg.n_layers // 3 if cfg.family == "hybrid" else cfg.n_layers
+
+
+class Prefilled:
+    """An encoder-decoder model served through ``ServeEngine``: its cache
+    is made from ``frames`` by the model's ``init_cache(frames, max_len,
+    dtype)`` (the prefill: the encoder and each decoder layer's cross
+    K/V), timed on its own ``runs`` times (the first warms cuBLAS up); each
+    ``init_cache(batch, max_len, dtype)`` of the engine then gets that
+    cache with its self-attention caches zeroed, so the engine's runs
+    time the decode steps alone."""
+
+    def __init__(self, model, frames, max_len: int, dtype, runs: int = 2):
+        import torch
+        self.model, self.device = model, model.device
+        self.decode_step = model.decode_step
+        self.prefill_s = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                self.cache = model.init_cache(frames, max_len, dtype=dtype)
+            torch.cuda.synchronize()
+            self.prefill_s.append(time.perf_counter() - t0)
+
+    def init_cache(self, batch: int, max_len: int, dtype):
+        for c in self.cache["layers"]:
+            check(c["k"].shape[:2] == (batch, max_len)
+                  and c["k"].dtype == dtype, "prefilled cache mismatch")
+            c["k"].zero_()
+            c["v"].zero_()
+        self.cache["idx"] = 0
+        return self.cache
+
+
+def lm_decode_numbers(dev, kernels, cfg=None, serve=None) -> dict:
     """``cfg`` (SmolLM-135M at full width by default) through
-    ``ServeEngine`` on the card, its weights drawn from ``SEED``: a
+    ``ServeEngine`` on the card (``serve(model)`` if given, e.g. a
+    :class:`Prefilled`), its weights drawn from ``SEED``: a
     warm-up ``generate`` from an empty RoPE table cache, then ``LM_RUNS``
     timed ones (every kernel's launches, and RoPE's by path, counted over
     the first), then a profiled one; the peak memory from the model's
@@ -2007,7 +2079,8 @@ def lm_decode_numbers(dev, kernels, cfg=None) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prompts = lm_prompts(cfg.vocab, LM_BATCH)
-    eng = ServeEngine(model, cfg, batch=LM_BATCH, max_len=LM_MAX_LEN)
+    served = serve(model) if serve else model
+    eng = ServeEngine(served, cfg, batch=LM_BATCH, max_len=LM_MAX_LEN)
     finite, built, at = [], [], [0]
     step, fresh = eng._step, attention.rope_tables
 
@@ -2058,8 +2131,10 @@ def lm_decode_numbers(dev, kernels, cfg=None) -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
     return dict(
         cfg=cfg, prompts=prompts, outs=outs, finite=finite, counts=counts,
-        paths=paths, warm_up=warm, rope_tables_calls=len(built), row=dict(
-            arch=cfg.name, dtype=cfg.dtype, n_layers=cfg.n_layers,
+        paths=paths, warm_up=warm, rope_tables_calls=len(built),
+        served=served, row=dict(
+            arch=cfg.name, family=cfg.family, dtype=cfg.dtype,
+            n_layers=cfg.n_layers,
             d_model=cfg.d_model, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, mla=cfg.mla,
             n_experts=cfg.n_experts, top_k=cfg.top_k, vocab=cfg.vocab,
@@ -2085,32 +2160,38 @@ def lm_decode_numbers(dev, kernels, cfg=None) -> dict:
             first_outputs=outs[0][:8], profile=prof))
 
 
-def lm_serving_phase(dev, kernels, cfg=None, phase="lm_serving") -> dict:
+def lm_serving_phase(dev, kernels, cfg=None, phase="lm_serving",
+                     serve=None, extra=None) -> dict:
     """``cfg`` (SmolLM-135M at full width by default) through
     ``ServeEngine`` on the card, with every kernel's launches counted over
-    the serving run: one RoPE launch a layer a step, each on the vector
-    path; no decode step after the warm-up's first builds a RoPE table."""
+    the serving run: one RoPE launch a rotating layer (:func:`rope_layers`)
+    a step, each on the vector path; no decode step after the warm-up's
+    first builds a RoPE table (a model with no RoPE builds none).
+    ``extra(served)`` adds keys to the line."""
     import torch
     t0 = time.perf_counter()
-    run = lm_decode_numbers(dev, kernels, cfg)
+    run = lm_decode_numbers(dev, kernels, cfg, serve)
     cfg, prompts, outs, counts = (run["cfg"], run["prompts"], run["outs"],
                                   run["counts"])
     steps = run["row"]["decode_steps"]
     want_steps = max(len(p) for p in prompts) - 1 + LM_MAX_NEW
     check(steps == want_steps, f"{steps} decode steps, expected {want_steps}")
-    check(counts["rope"] == cfg.n_layers * steps,
-          f"rope launches {counts['rope']} != {cfg.n_layers} x {steps}")
+    roped = rope_layers(cfg)
+    check(counts["rope"] == roped * steps,
+          f"rope launches {counts['rope']} != {roped} x {steps}")
     check(run["paths"]["vector"] == counts["rope"],
           f"rope launches by path {run['paths']}: not all vector")
     by_step = run["warm_up"]
-    check(by_step[0] >= 1 and not any(by_step[1:])
+    check(by_step[0] >= min(roped, 1) and not any(by_step[1:])
           and run["rope_tables_calls"] == 0,
           f"rope_tables calls by warm-up step {by_step}, "
           f"{run['rope_tables_calls']} in the serving runs")
     check(all(len(o) == LM_MAX_NEW and all(0 <= t < cfg.vocab for t in o)
               for o in outs), "generated tokens out of range or short")
     check(bool(torch.stack(run["finite"]).all()), "non-finite logits")
-    emit(phase=phase, **run["row"], phase_seconds=time.perf_counter() - t0)
+    emit(phase=phase, **run["row"],
+         **(extra(run["served"]) if extra else {}),
+         phase_seconds=time.perf_counter() - t0)
     return dict(counts=counts, ms_per_step=run["row"]["ms_per_step"])
 
 
@@ -2175,17 +2256,19 @@ def card_twin(host, cfg, dev):
     ``convert.lm_params_from_reference`` (its tree stacked as the
     reference's)."""
     from repro_torch.convert import lm_params_from_reference
-    from repro_torch.models.transformer import stack_params
+    from repro_torch.models.zoo import stack_params
     return lm_params_from_reference(stack_params(cfg, host.params()), cfg,
                                     device=dev)
 
 
 def lm_parity_phase(dev, cfg=None, phase="lm_parity",
-                    seed: int = SEED + 7) -> None:
+                    seed: int = SEED + 7, serve=None, extra=None) -> None:
     """The float32 twin of the served model (``cfg``, SmolLM-135M by
     default) decodes on the card and on the host from the same seeded
     weights: equal tokens, logits within ``PARITY_RTOL`` of the host's at
-    every step."""
+    every step.  ``serve(model)`` is what each engine serves, if given;
+    ``extra(card, cfg)`` runs more checks on the card's twin and adds
+    their keys to the line."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -2200,7 +2283,8 @@ def lm_parity_phase(dev, cfg=None, phase="lm_parity",
     prompts = lm_prompts(cfg.vocab, LM_BATCH)[:PARITY_BATCH]
     runs = {}
     for name, model in (("card", card), ("host", host)):
-        eng = ServeEngine(model, cfg, batch=PARITY_BATCH, max_len=LM_MAX_LEN)
+        eng = ServeEngine(serve(model) if serve else model, cfg,
+                          batch=PARITY_BATCH, max_len=LM_MAX_LEN)
         log = []
         step = eng._step
 
@@ -2220,11 +2304,13 @@ def lm_parity_phase(dev, cfg=None, phase="lm_parity",
     check(c_out == h_out, f"tokens differ: card {c_out}, host {h_out}")
     check(max(errs) <= PARITY_RTOL,
           f"logits differ by {max(errs)} of their max > {PARITY_RTOL}")
+    more = extra(card, cfg) if extra else {}
     emit(phase=phase, arch=cfg.name, dtype=cfg.dtype, n_layers=cfg.n_layers,
          batch=PARITY_BATCH, max_new=PARITY_MAX_NEW, steps=len(c_log),
          tokens_equal=True, tokens=c_out, max_rel_logit_err=max(errs),
          rtol=PARITY_RTOL, card_seconds=c_s, host_seconds=h_s,
-         init_seconds=init_s, seconds=time.perf_counter() - t_phase)
+         init_seconds=init_s, **more,
+         seconds=time.perf_counter() - t_phase)
     del card, host
     torch.cuda.empty_cache()
 
@@ -2290,7 +2376,7 @@ def train_setup(cfg, dev, seed: int):
     training tree (the reference's stacked layout)."""
     import torch
     from repro_torch.models import build_model
-    from repro_torch.models.transformer import stack_params
+    from repro_torch.models.zoo import stack_params
     model = build_model(cfg, device=dev,
                         generator=torch.Generator().manual_seed(seed))
     return model, stack_params(cfg, model.params())
@@ -2422,19 +2508,31 @@ def train_phase(dev, kernels) -> dict:
 def train_parity_phase(dev, cfg=None, phase="train_parity",
                        seed: int = SEED + 10) -> None:
     """One float32 step's loss and gradients of ``cfg`` (SmolLM-135M at
-    full width by default), ``TRAIN_PARITY`` tokens, on the card and on
+    full width by default), ``TRAIN_PARITY`` tokens (an encoder-decoder:
+    ``AUDIO_TRAIN`` seeded frames and decoder tokens), on the card and on
     the host from the same weights, TF32 off: the card's RoPE backward is
-    the kernel's, the host's autograd of the plain version."""
+    the kernel's, the host's autograd of the plain version.  A leaf whose
+    gradient is zero on both (a weight the forward never reads, as the
+    RG-LRU hybrid's MLP gate) counts as equal."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, make_batch
-    from repro_torch.models.transformer import stack_params
+    from repro_torch.models.zoo import stack_params
     from repro_torch.train.step import _value_and_grad
     from repro_torch.tree import flatten_with_paths
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(cfg or get_config(LM_ARCH), dtype="float32")
     b, s = TRAIN_PARITY
-    batch = make_batch(DataConfig(cfg.vocab, s, b), 0)
+    frames = None
+    if cfg.is_encdec:
+        b, frames, s = AUDIO_TRAIN
+        toks = make_batch(DataConfig(cfg.vocab, s, b), 0)
+        batch = {"frames": torch.randn(
+            (b, frames, cfg.d_model),
+            generator=torch.Generator().manual_seed(seed)),
+            "dec_tokens": toks["tokens"], "labels": toks["labels"]}
+    else:
+        batch = make_batch(DataConfig(cfg.vocab, s, b), 0)
     host, params = train_setup(cfg, torch.device("cpu"), seed)
     card = card_twin(host, cfg, dev)
     out = {}
@@ -2446,7 +2544,10 @@ def train_parity_phase(dev, cfg=None, phase="train_parity",
                      time.perf_counter() - t0)
     (lc, gc, sc), (lh, gh, sh) = out["card"], out["host"]
     loss_err = abs(lc - lh) / abs(lh)
-    errs = {path: rel_err(a.cpu(), b) for (path, a), (_, b) in zip(gc, gh)}
+    zero = [path for (path, a), (_, h) in zip(gc, gh)
+            if not (a.any() or h.any())]
+    errs = {path: 0.0 if path in zero else rel_err(a.cpu(), h)
+            for (path, a), (_, h) in zip(gc, gh)}
     worst = max(errs, key=errs.get)
     check(loss_err <= TRAIN_PARITY_TOL["loss"],
           f"train parity loss {lc} vs {lh}")
@@ -2457,7 +2558,8 @@ def train_parity_phase(dev, cfg=None, phase="train_parity",
               if path.endswith(roped)), "card wq/wk/wkv_a gradient zero")
     emit(phase=phase, arch=cfg.name, dtype=cfg.dtype,
          n_layers=cfg.n_layers, d_model=cfg.d_model, batch=b,
-         seq=s, loss_card=lc, loss_host=lh, loss_rel_err=loss_err,
+         seq=s, frames=frames, loss_card=lc, loss_host=lh,
+         loss_rel_err=loss_err, zero_grad_leaves=zero,
          max_grad_rel_err=errs[worst], worst_leaf=worst,
          grad_rel_err={p: e for p, e in errs.items()
                        if p.endswith(roped) or "embed" in p},
@@ -2566,6 +2668,189 @@ def soap_phase(dev, kernels) -> None:
          losses=hist["loss"], seconds=seconds, refreshes=refreshes,
          refresh_seconds=[r["seconds"] for r in refreshes],
          picks_by_side=picks, qr_refresh=qr, qr_orth_tol=SOAP_ORTH_TOL)
+
+
+def hybrid_config():
+    """RecurrentGemma-9B at full width, its depth cut to
+    ``HYBRID_LAYERS``: one (R, R, A) repetition and the 2-block recurrent
+    tail the config's 38 layers end in."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(HYBRID_ARCH),
+                               n_layers=HYBRID_LAYERS)
+
+
+def hybrid_serving_phase(dev, kernels) -> dict:
+    """The hybrid through ``ServeEngine``: the local attention's RoPE
+    through the kernel, one launch a step at the shape
+    ``ROPE_SHAPES["griffin_decode"]`` held it at; the ring of
+    ``min(window, max_len)`` slots."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = hybrid_config()
+    check(ROPE_SHAPES["griffin_decode"] == (
+        LM_BATCH, 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+        f"ROPE_SHAPES['griffin_decode'] {ROPE_SHAPES['griffin_decode']} "
+        f"is not the served local attention's q and k")
+    full = get_config(HYBRID_ARCH).n_layers
+    check(rope_layers(cfg) == 1 and cfg.n_layers % 3 == full % 3,
+          "the cut hybrid is not one (R, R, A) and the config's tail")
+    out = lm_serving_phase(dev, kernels, cfg, "hybrid_serving",
+                           extra=lambda served: dict(
+                               lru_width=cfg.lru_width, window=cfg.window,
+                               ring_slots=min(cfg.window, LM_MAX_LEN),
+                               layers=["rec", "rec", "attn", "rec", "rec"],
+                               depth_cut=f"{cfg.n_layers} of {full} layers"))
+    torch.cuda.empty_cache()
+    return out
+
+
+def stub_frames(batch: int, frames: int, d: int, seed: int):
+    """Seeded stub frontend output ``(batch, frames, d)`` on the host."""
+    import torch
+    return torch.randn((batch, frames, d),
+                       generator=torch.Generator().manual_seed(seed))
+
+
+def audio_serving_phase(dev, kernels) -> dict:
+    """Whisper-large-v3 with nothing cut: ``init_cache`` runs the encoder
+    on ``LM_BATCH x AUDIO_FRAMES`` stub frames (timed apart, on the dense
+    attention route) and caches each decoder layer's cross K/V in float32,
+    then ``ServeEngine`` decodes the LM path's prompts (no RoPE launch)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    cfg = get_config(AUDIO_ARCH)
+    frames = stub_frames(LM_BATCH, AUDIO_FRAMES, cfg.d_model,
+                         SEED + 14).to(dev)
+
+    def extra(served):
+        layers = served.cache["layers"]
+        return dict(
+            frames=list(frames.shape), prefill_ms=served.prefill_s[-1] * 1e3,
+            prefill_ms_runs=[t * 1e3 for t in served.prefill_s],
+            encoder_route=("flash" if attention._chunked(AUDIO_FRAMES,
+                                                         AUDIO_FRAMES)
+                           else "dense"),
+            cross_kv_bytes=sum(c[k].numel() * c[k].element_size()
+                               for c in layers for k in ("xk", "xv")),
+            decode_timing="decode steps alone; the prefill timed apart")
+
+    out = lm_serving_phase(
+        dev, kernels, cfg, "audio_serving",
+        serve=lambda m: Prefilled(m, frames, LM_MAX_LEN, torch.float32),
+        extra=extra)
+    del frames
+    torch.cuda.empty_cache()
+    return out
+
+
+def audio_parity_phase(dev) -> None:
+    """The float32 Whisper twin on the card and on the host, each
+    prefilled from the same ``PARITY_BATCH x AUDIO_PARITY_FRAMES`` stub
+    frames (the host's encoder is cut from the served 1500 frames)."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(AUDIO_ARCH)
+    frames = stub_frames(PARITY_BATCH, AUDIO_PARITY_FRAMES, cfg.d_model,
+                         SEED + 15)
+    lm_parity_phase(
+        dev, cfg, "audio_parity", SEED + 16,
+        serve=lambda m: Prefilled(m, frames.to(m.device), LM_MAX_LEN,
+                                  torch.float32, runs=1),
+        extra=lambda card, cfg: dict(
+            frames=list(frames.shape),
+            cut=f"encoder on {PARITY_BATCH} x {AUDIO_PARITY_FRAMES} frames "
+                f"(served: {LM_BATCH} x {AUDIO_FRAMES})"))
+
+
+def ssm_card_checks(card, cfg) -> dict:
+    """On the card's float32 Mamba2 twin: the chunked forward against
+    step-by-step decode over ``SSM_CHUNKS`` tokens (two chunks of the
+    published 256), within ``SSM_DECODE_RTOL`` of the forward's largest
+    logit; and one backward of the train step at that chunk with every
+    gradient finite (the reference's decay mask gives NaN there)."""
+    import torch
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models.zoo import stack_params
+    from repro_torch.train.step import _value_and_grad
+    from repro_torch.tree import flatten_with_paths
+    b, s = SSM_CHUNKS
+    check(s == 2 * cfg.ssm_chunk, f"{s} tokens are not two chunks")
+    batch = make_batch(DataConfig(cfg.vocab, s, b), 0)
+    toks = torch.from_numpy(batch["tokens"]).long().to(card.device)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        full = card(toks)
+        cache = card.init_cache(b, s, dtype=torch.float32)
+        err = 0.0
+        for t in range(s):
+            lg, cache = card.decode_step(cache, toks[:, t:t + 1])
+            err = max(err, float((lg[:, 0] - full[:, t]).abs().max()))
+        rel = err / float(full.abs().max())
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    check(rel <= SSM_DECODE_RTOL,
+          f"mamba2 forward vs decode at {b} x {s}: {rel} > {SSM_DECODE_RTOL}")
+    del full, cache
+    t0 = time.perf_counter()
+    metrics, grads = _value_and_grad(card, cfg, stack_params(
+        cfg, card.params()), batch, False)
+    flat = flatten_with_paths(grads)
+    bad = [p for p, g in flat if not bool(torch.isfinite(g).all())]
+    torch.cuda.synchronize()
+    check(not bad and math.isfinite(float(metrics["loss"])),
+          f"mamba2 backward at chunk {cfg.ssm_chunk}: non-finite {bad}")
+    del grads
+    torch.cuda.empty_cache()
+    return dict(
+        forward_vs_decode=dict(batch=b, seq=s, chunk=cfg.ssm_chunk,
+                               max_rel_err=rel, rtol=SSM_DECODE_RTOL,
+                               seconds=fwd_s),
+        backward=dict(batch=b, seq=s, chunk=cfg.ssm_chunk,
+                      loss=float(metrics["loss"]), leaves=len(flat),
+                      all_finite=True, seconds=time.perf_counter() - t0))
+
+
+def ssm_soap_phase(dev, kernels) -> None:
+    """``SSM_SOAP_STEPS`` steps of ``SoapGivens`` (a refresh every
+    ``SSM_SOAP_FREQ``) on reduced Mamba2 on the card: the paper's
+    rotations reach the attention-free model through the optimizer.
+    Finite losses; the refreshes launch the rotation kernels; every
+    preconditioned leaf's bases orthogonal within ``SOAP_ORTH_TOL``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.optim import SoapGivens, warmup_cosine
+    from repro_torch.tree import flatten_with_paths
+    cfg = get_config(SSM_ARCH).reduced()
+    t0 = time.perf_counter()
+    model, params = train_setup(cfg, dev, SEED + 17)
+    sched = warmup_cosine(TRAIN_LR, warmup=SSM_SOAP_STEPS // 10 + 1,
+                          total=SSM_SOAP_STEPS)
+    before = {name: k.LAUNCHES for name, k in kernels.items()}
+    loop, hist = train_run(model, cfg, params,
+                           SoapGivens(lr=sched, update_freq=SSM_SOAP_FREQ),
+                           SSM_SOAP_STEPS, SOAP_BATCH, SOAP_SEQ, dev)
+    torch.cuda.synchronize()
+    launches = {name: k.LAUNCHES - before[name]
+                for name, k in kernels.items()}
+    check(all(map(math.isfinite, hist["loss"])),
+          f"ssm soap losses {hist['loss']}")
+    rot = sum(n for name, n in launches.items() if name != "rope")
+    check(rot > 0, f"no rotation kernel launched by the refreshes: "
+                   f"{launches}")
+    orth, leaves = 0.0, []
+    for path, Q in flatten_with_paths(loop.opt_state["per"]):
+        if path.endswith(("['QL']", "['QR']")):
+            n = Q.shape[0]
+            orth = max(orth, float((Q.double().T @ Q.double() - torch.eye(
+                n, dtype=torch.float64, device=dev)).abs().max()))
+            leaves.append(path)
+    check(leaves and orth <= SOAP_ORTH_TOL, f"ssm soap bases: orth {orth}")
+    emit(phase="ssm_soap", arch=cfg.name, reduced=True,
+         steps=SSM_SOAP_STEPS, update_freq=SSM_SOAP_FREQ, batch=SOAP_BATCH,
+         seq=SOAP_SEQ, losses=hist["loss"], launches=launches,
+         rotation_launches=rot, bases=len(leaves), max_orth_err=orth,
+         orth_tol=SOAP_ORTH_TOL, seconds=time.perf_counter() - t0)
 
 
 def compression_phase(dev, kernels) -> None:
@@ -2924,16 +3209,38 @@ def run() -> int:
                        "moe_train_parity", SEED + 13)
     emit(phase="moe", seconds=time.perf_counter() - t_moe)
 
+    # -- the recurrent and encoder-decoder families -----------------------
+    from repro_torch.configs import get_config
+    t_fam = time.perf_counter()
+    all_k = {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
+             "rotseq_batched": batched_k, "rope": rope_k}
+    served = {"hybrid_serving": hybrid_serving_phase(dev, all_k)}
+    lm_parity_phase(dev, hybrid_config(), "hybrid_parity", SEED + 18)
+    served["ssm_serving"] = lm_serving_phase(
+        dev, all_k, get_config(SSM_ARCH), "ssm_serving")
+    lm_parity_phase(dev, get_config(SSM_ARCH), "ssm_parity", SEED + 19,
+                    extra=ssm_card_checks)
+    served["audio_serving"] = audio_serving_phase(dev, all_k)
+    audio_parity_phase(dev)
+    for family, arch, seed in (("hybrid", HYBRID_ARCH, SEED + 20),
+                               ("ssm", SSM_ARCH, SEED + 21),
+                               ("audio", AUDIO_ARCH, SEED + 22)):
+        train_parity_phase(dev, get_config(arch).reduced(),
+                           f"{family}_train_parity", seed)
+    ssm_soap_phase(dev, all_k)
+    for out in served.values():
+        entries["rope"]["launches"] += out["counts"]["rope"]
+    emit(phase="families", seconds=time.perf_counter() - t_fam)
+
     # -- training: RoPE's backward, SmolLM-135M steps, SOAP, checkpoints --
     t_train = time.perf_counter()
     rope_backward_phase(dev, entries["rope"]["rows"])
-    all_k = {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
-             "rotseq_batched": batched_k, "rope": rope_k}
     train = train_phase(dev, all_k)
-    # the serving run's launches and the train run's, each also apart
+    # each path's launches apart
     entries["rope"]["launches_by_path"] = {
         "lm_serving": lm["counts"]["rope"],
         "moe_serving": moe["counts"]["rope"],
+        **{path: out["counts"]["rope"] for path, out in served.items()},
         "train": train["counts"]["rope"]}
     entries["rope"]["launches"] += train["counts"]["rope"]
     train_parity_phase(dev)

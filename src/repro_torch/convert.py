@@ -7,8 +7,8 @@ same keys holding numpy arrays, and rebuilds the waves bit for bit as a
 port :class:`~repro_torch.core.sequence.RotationSequence`.
 :func:`requests_from_reference` does the same for a request stream of
 ``(sequence dict, numpy target)`` pairs.
-:func:`lm_params_from_reference` loads the reference ``Transformer.init``
-tree, as numpy arrays, into the port's LM, and
+:func:`lm_params_from_reference` loads the reference model's ``init``
+tree (any family), as numpy arrays, into the port's LM, and
 :func:`train_state_from_reference` carries a training state across (the
 parameters and the optimizer state of ``AdamW``, its ``Quantized`` q8
 states, or ``SoapGivens``).  All read plain data only and import nothing
@@ -68,23 +68,24 @@ def _tensors(tree, device):
 
 
 def lm_params_from_reference(params, cfg, *, device="cuda"):
-    """A port :class:`~repro_torch.models.transformer.Transformer` holding
-    the reference's weights, bit for bit, on ``device``.
+    """The port's model of ``cfg`` (``models.build_model``) holding the
+    reference's weights, bit for bit, on ``device``.
 
-    ``params`` is the reference ``Transformer(cfg).init(key)`` tree with
-    numpy leaves: ``embed``, ``ln_f``, ``lm_head`` (untied configs) and
-    ``group{gi}``, a list over the group's slots whose leaves are stacked
-    ``(reps, ...)``.  Global layer ``start + r * len(slots) + s`` takes
-    repetition ``r`` of slot ``s``
-    (:func:`~repro_torch.models.transformer.unstack_params`).  Dense
-    weights keep their ``(d_in, d_out)`` layout: nothing is transposed.
+    ``params`` is the reference ``build_model(cfg).init(key)`` tree with
+    numpy leaves, its layers stacked as the reference stacks them: the
+    Transformer's ``group{gi}`` (a list over a group's slots, leaves
+    ``(reps, ...)``), Mamba2's ``blocks``, the RG-LRU hybrid's ``group0``
+    and ``tail{i}``, Whisper's ``enc`` and ``dec``; the zoo's
+    :func:`~repro_torch.models.zoo.unstack_params` names each row by the
+    port's parameter.  Dense weights keep their ``(d_in, d_out)`` layout:
+    nothing is transposed.
     """
-    from repro_torch.models.transformer import Transformer, unstack_params
+    from repro_torch.models.zoo import build_model, unstack_params
 
     state = unstack_params(cfg, _tensors(params, "cpu"))
     # a template on the meta device draws no weight; assign=True makes
     # the loaded tensors its parameters
-    model = Transformer(cfg, device="meta")
+    model = build_model(cfg, device="meta")
     model.load_state_dict(state, strict=True, assign=True)
     return model.to(resolve_device(device))
 
@@ -95,7 +96,8 @@ def train_state_from_reference(params, opt_state, cfg, *, device="cuda"):
     ``CheckpointManager.restore`` read with no ``like``, or
     ``jax.tree.map(np.asarray, ...)`` of the live trees).
 
-    The port trains in the reference's tree (``stack_params``), so
+    The port trains in the reference's tree (the zoo's
+    ``stack_params``), so
     ``params`` and ``opt_state`` keep their structure: ``step``, AdamW's
     ``m``/``v`` (float32 or ``Quantized``), SoapGivens' ``per`` leaves
     with ``L``/``R``/``QL``/``QR`` where the reference preconditions.

@@ -1,10 +1,16 @@
 """Serving launcher: batched LM decoding, or batched rotation serving.
 
 Mirror of :mod:`repro.launch.serve`.  LM mode (default) drives the
-``ServeEngine`` with weights drawn from ``--seed``::
+``ServeEngine`` with weights drawn from ``--seed``, for every family but
+the encoder-decoder one (``audio``: refused, its cache is made from
+encoder frames)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --reduced --batch 4 --max-new 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch recurrentgemma-9b --reduced --device cpu
 
 Rotation mode drives the shape-bucketed ``RotationService`` over a
 seeded mixed-shape stream of recorded rotation sequences (``--check``
@@ -67,6 +73,14 @@ def _write_obs(args, mode: str, requests: int, seconds: float,
 
 def _run_lm(args, device) -> None:
     cfg = get_config(args.arch)
+    if cfg.is_encdec:
+        # the reference's launcher fails here too: its ServeEngine calls
+        # init_cache(batch, max_len), and the encoder-decoder's cache is
+        # made from frames (init_cache(frames, max_len))
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family} family is not served by this "
+            f"launcher; its cache needs encoder frames (drive "
+            f"model.init_cache(frames, max_len) and model.decode_step)")
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg, device=device,

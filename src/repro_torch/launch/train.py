@@ -24,7 +24,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.sequence import resolve_device
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.models import build_model
-from repro_torch.models.transformer import stack_params
+from repro_torch.models.zoo import stack_params
 from repro_torch.optim import AdamW, SoapGivens, warmup_cosine
 from repro_torch.train import StragglerMonitor, TrainLoop, make_train_step
 from repro_torch.tree import leaves

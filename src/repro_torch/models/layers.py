@@ -18,12 +18,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.sequence import resolve_device
+
 __all__ = [
     "dense_init", "dense",
     "rmsnorm_init", "rmsnorm",
+    "layernorm_init", "layernorm",
     "embed_init",
     "mlp_init", "mlp_swiglu", "mlp_gelu",
-    "softcap", "ParamTree", "to_module",
+    "causal_conv", "softcap", "ParamTree", "to_module", "tensors_of",
+    "TreeModel", "stack_trees", "named_leaves", "unstack_rows",
 ]
 
 
@@ -46,6 +50,18 @@ def rmsnorm(p, x):
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + 1e-6)
     return (y * (1.0 + p["g"].float())).to(x.dtype)
+
+
+def layernorm_init(d: int):
+    return {"g": torch.ones((d,)), "b": torch.zeros((d,))}
+
+
+def layernorm(p, x):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + 1e-5)
+    return (y * p["g"].float() + p["b"].float()).to(x.dtype)
 
 
 def embed_init(gen, vocab: int, d: int):
@@ -71,6 +87,14 @@ def mlp_gelu(p, x):
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(dense(p["up"], x), approximate="tanh")
     return dense(p["down"], h)
+
+
+def causal_conv(x, w):
+    """Causal depthwise convolution of ``x (B, L, D)`` with ``w (W, D)``
+    along axis 1, summed tap by tap as the reference sums it."""
+    W, L = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, W - 1, 0))
+    return sum(w[i] * pad[:, i:i + L] for i in range(W))
 
 
 def softcap(x, cap: float):
@@ -103,3 +127,106 @@ def to_module(tree) -> nn.Module:
     if isinstance(tree, (list, tuple)):
         return nn.ModuleList(to_module(t) for t in tree)
     return ParamTree(tree)
+
+
+def stack_trees(trees):
+    """One tree of matching ``trees``, each leaf their leaves stacked on a
+    new first axis (``jax.tree.map(jnp.stack)``); new tensors."""
+    if isinstance(trees[0], dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def named_leaves(tree, prefix: str) -> dict:
+    """``{dotted name: leaf}`` of a nested dict under ``prefix``, as a
+    module holding it names its parameters."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(named_leaves(v, f"{prefix}.{k}"))
+        return out
+    return {prefix: tree}
+
+
+def unstack_rows(stacked, prefix_of) -> dict:
+    """``{prefix_of(r) + "." + name: row r}`` of a tree whose leaves are
+    stacked rows, split by ``torch.unbind`` (views, whose backward stacks
+    the rows' gradients in one copy)."""
+    out = {}
+    for name, leaf in named_leaves(stacked, "").items():
+        for r, row in enumerate(torch.unbind(leaf)):
+            out[f"{prefix_of(r)}{name}"] = row
+    return out
+
+
+def tensors_of(m) -> dict:
+    """The nested dict of the tensors module ``m`` holds now, indexed as
+    ``m`` is (for ``torch.utils.checkpoint``: under ``functional_call``
+    the recomputation in the backward runs after the swapped-in weights
+    have left the module)."""
+    out = dict(m.named_parameters(recurse=False))
+    out.update((k, tensors_of(c)) for k, c in m.named_children())
+    return out
+
+
+class TreeModel(nn.Module):
+    """An LM whose parameters are the tree ``init(cfg, gen)`` draws, each
+    top-level key an attribute (a tensor as a parameter, a dict or list
+    as :func:`to_module` makes it), frozen as built.
+
+    ``generator`` (a CPU ``torch.Generator``, by default seeded 0) draws
+    the weights on the host, in float32 as the reference's ``init``
+    does, and they are then moved to ``device``, so one seed gives the
+    same weights on every device; on ``device="meta"`` nothing is drawn
+    (a template for ``load_state_dict(..., assign=True)``).
+    """
+
+    def __init__(self, cfg, init, generator=None, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        if device.type == "meta":
+            with device:
+                tree = init(cfg, None)
+        else:
+            gen = generator if generator is not None else \
+                torch.Generator().manual_seed(0)
+            tree = init(cfg, gen)
+        for key, sub in tree.items():
+            if isinstance(sub, torch.Tensor):
+                self.register_parameter(
+                    key, nn.Parameter(sub, requires_grad=False))
+            else:
+                setattr(self, key, to_module(sub))
+        self.to(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["e"].device
+
+    def _embed(self, tokens):
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        # gather, then cast: the same values as casting the whole table
+        x = self.embed["e"][tokens].to(dt)
+        if cfg.emb_scale:
+            x = x * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=dt))
+        return x
+
+    def _logits(self, x):
+        # the final norm, then the tied embedding as the head
+        x = rmsnorm(self.ln_f, x)
+        return x @ self.embed["e"].to(x.dtype).T
+
+    def params(self):
+        """The parameter tree ``init`` drew, as new tensors detached from
+        the module."""
+        def tree(m):
+            if isinstance(m, nn.ModuleList):
+                return [tree(c) for c in m]
+            out = {k: v.detach().clone()
+                   for k, v in m.named_parameters(recurse=False)}
+            out.update((k, tree(c)) for k, c in m.named_children())
+            return out
+
+        return tree(self)

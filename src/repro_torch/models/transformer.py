@@ -30,19 +30,17 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 from torch.utils.checkpoint import checkpoint
-
-from repro_torch.core.sequence import resolve_device
 
 from .attention import (gqa_attention, gqa_decode, gqa_init,
                         init_mla_cache, mla_attention, mla_decode, mla_init)
-from .layers import (dense, dense_init, embed_init, mlp_gelu, mlp_init,
-                     mlp_swiglu, rmsnorm, rmsnorm_init, softcap, to_module)
+from .layers import (TreeModel, dense, dense_init, embed_init, mlp_gelu,
+                     mlp_init, mlp_swiglu, named_leaves, rmsnorm,
+                     rmsnorm_init, softcap, stack_trees, tensors_of,
+                     unstack_rows)
 from .moe import moe_ffn, moe_init
 
-__all__ = ["Transformer", "init_params", "stack_params", "unstack_params",
-           "reference_shapes"]
+__all__ = ["Transformer", "init_params", "stack_params", "unstack_params"]
 
 
 def _layer_kinds(cfg):
@@ -104,12 +102,6 @@ def init_params(cfg, gen):
     return tree
 
 
-def _stack_tree(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack_tree([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 def stack_params(cfg, tree):
     """The reference's parameter tree from :func:`init_params`' layout:
     global layer ``start + r * len(slots) + s`` becomes repetition ``r``
@@ -119,17 +111,8 @@ def stack_params(cfg, tree):
     for gi, (start, count, slot_kinds) in enumerate(_groups(cfg)):
         P = len(slot_kinds)
         out[f"group{gi}"] = [
-            _stack_tree([layers[start + r * P + s] for r in range(count // P)])
+            stack_trees([layers[start + r * P + s] for r in range(count // P)])
             for s in range(P)]
-    return out
-
-
-def _names(tree, prefix, out, value):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            _names(v, f"{prefix}{k}.", out, value)
-    else:
-        out[prefix[:-1]] = value(tree)
     return out
 
 
@@ -141,60 +124,23 @@ def unstack_params(cfg, tree) -> dict:
     out = {}
     for key in ("embed", "ln_f", "lm_head"):
         if key in tree:
-            _names(tree[key], f"{key}.", out, lambda t: t)
+            out.update(named_leaves(tree[key], key))
     for gi, (start, count, slot_kinds) in enumerate(_groups(cfg)):
         P = len(slot_kinds)
         for s, slot in enumerate(tree[f"group{gi}"]):
-            for name, rows in _names(slot, "", {}, torch.unbind).items():
-                for r, row in enumerate(rows):
-                    out[f"layers.{start + r * P + s}.{name}"] = row
+            out.update(unstack_rows(
+                slot, lambda r, s=s: f"layers.{start + r * P + s}"))
     return out
 
 
-def reference_shapes(cfg):
-    """The reference's parameter tree as meta tensors: its shapes, with
-    no weights built."""
-    with torch.device("meta"):
-        return stack_params(cfg, init_params(cfg, None))
-
-
-def _tensors(m) -> dict:
-    """The nested dict of the tensors module ``m`` holds now, indexed as
-    ``m`` is."""
-    out = dict(m.named_parameters(recurse=False))
-    out.update((k, _tensors(c)) for k, c in m.named_children())
-    return out
-
-
-class Transformer(nn.Module):
-    """Decoder-only LM; see the module docstring.
-
-    ``generator`` (a CPU ``torch.Generator``, by default seeded 0) draws
-    the weights, in float32 as the reference's ``init`` does; on
-    ``device="meta"`` no weight is drawn (a template for
-    ``load_state_dict(..., assign=True)``).
-    """
+class Transformer(TreeModel):
+    """Decoder-only LM; see the module docstring and
+    :class:`~repro_torch.models.layers.TreeModel` (weights, devices)."""
 
     def __init__(self, cfg, *, generator: Optional[torch.Generator] = None,
                  device="cuda"):
-        super().__init__()
-        device = resolve_device(device)
-        self.cfg = cfg
+        super().__init__(cfg, init_params, generator, device)
         self.kinds = _layer_kinds(cfg)
-        if device.type == "meta":
-            with device:
-                tree = init_params(cfg, None)
-        else:
-            gen = generator if generator is not None else \
-                torch.Generator().manual_seed(0)
-            tree = init_params(cfg, gen)
-        for key, sub in tree.items():
-            setattr(self, key, to_module(sub))
-        self.to(device)
-
-    @property
-    def device(self) -> torch.device:
-        return self.embed["e"].device
 
     def _attn_args(self, attn_kind):
         cfg = self.cfg
@@ -208,15 +154,6 @@ class Transformer(nn.Module):
         if mlp_kind == "moe":
             return moe_ffn(p["mlp"], self.cfg, x)
         return (mlp_swiglu if self.cfg.mlp_gated else mlp_gelu)(p["mlp"], x)
-
-    def _embed(self, tokens):
-        cfg = self.cfg
-        dt = getattr(torch, cfg.dtype)
-        # gather, then cast: the same values as casting the whole table
-        x = self.embed["e"][tokens].to(dt)
-        if cfg.emb_scale:
-            x = x * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=dt))
-        return x
 
     def _logits(self, x):
         cfg = self.cfg
@@ -251,28 +188,11 @@ class Transformer(nn.Module):
         x = self._embed(tokens)
         for p, kinds in zip(self.layers, self.kinds):
             if remat:
-                # the layer's tensors as they are now: under
-                # functional_call the recomputation in the backward runs
-                # after the swapped-in weights have left the module
-                x = checkpoint(self._block, _tensors(p), kinds, x,
+                x = checkpoint(self._block, tensors_of(p), kinds, x,
                                use_reentrant=False)
             else:
                 x = self._block(p, kinds, x)
         return self._logits(x)
-
-    def params(self):
-        """The parameter tree of :func:`init_params`' layout, as new
-        float32-or-own-dtype tensors detached from the module."""
-        def tree(m):
-            if isinstance(m, nn.ModuleList):
-                return [tree(c) for c in m]
-            out = {k: v.detach().clone()
-                   for k, v in m.named_parameters(recurse=False)}
-            out.update((k, tree(c)) for k, c in m.named_children())
-            return out
-
-        return {key: tree(getattr(self, key)) for key in
-                ("embed", "ln_f", "lm_head", "layers") if hasattr(self, key)}
 
     # ---------------------------------------------------------- decode ----
 

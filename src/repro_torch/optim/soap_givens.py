@@ -24,7 +24,7 @@ The update is eager, so both solvers run wherever it is called (the
 reference refuses ``"qr"`` under ``jit``).  Which parameters are
 preconditioned is decided on the tree the optimizer is given, as in the
 reference: the training path hands it the reference's stacked layout
-(:func:`repro_torch.models.transformer.stack_params`), where a layer
+(:func:`repro_torch.models.zoo.stack_params`), where a layer
 group's dense weights are 3-D and never eligible.
 """
 from __future__ import annotations

@@ -26,9 +26,10 @@ class _Slot:
 
 
 class ServeEngine:
-    """Greedy decoding of up to ``batch`` prompts through ``model``
-    (a :class:`~repro_torch.models.transformer.Transformer` holding its
-    weights on its device)."""
+    """Greedy decoding of up to ``batch`` prompts through ``model`` (a
+    model of :func:`repro_torch.models.build_model` holding its weights
+    on its device: anything with ``device``, ``init_cache(batch,
+    max_len, dtype=)`` and ``decode_step(cache, tokens)``)."""
 
     def __init__(self, model, cfg, *, batch: int, max_len: int,
                  eos: Optional[int] = None):

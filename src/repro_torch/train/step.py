@@ -1,10 +1,12 @@
 """Train / serve step factories: mirror of :mod:`repro.train.step`.
 
 ``make_train_step`` builds ``(params, opt_state, batch) -> (params,
-opt_state, metrics)`` for the port's transformer, where ``params`` is the
-reference's parameter tree (``stack_params``: float32 master weights,
-each scan group stacked) and ``batch`` holds numpy ``tokens``/``labels``
-(``repro_torch.data``), moved to the model's device here.  The forward
+opt_state, metrics)`` for any of the port's models, where ``params`` is
+the reference's parameter tree (the zoo's ``stack_params``: float32
+master weights, each scan group stacked) and ``batch`` holds numpy
+``tokens``/``labels`` (``repro_torch.data``), or ``frames``/
+``dec_tokens``/``labels`` for an encoder-decoder config, moved to the
+model's device here.  The forward
 runs the model with these weights through
 ``torch.func.functional_call``; gradients come back float32 in the same
 tree.  ``make_serve_step`` and ``make_prefill_fn`` serve such a tree
@@ -18,7 +20,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from repro_torch.models.transformer import unstack_params
+from repro_torch.models.zoo import unstack_params
 from repro_torch.tree import leaves, map_tree
 
 from .losses import softmax_cross_entropy
@@ -38,21 +40,25 @@ def _loss_fn(model, cfg, params, batch, *, remat=True):
     # top of the differentiated function, as the reference does: each
     # weight's gradient is cast back to float32 by this one cast's
     # backward
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            "encoder-decoder training waits for the Whisper slice "
-            "(ROADMAP Queue 1 item 12)")
     cdt = getattr(torch, cfg.dtype)
     params = map_tree(
         lambda w: w.to(cdt) if w.dtype == torch.float32 else w, params)
     dev = model.device
-    tokens = _on(dev, batch["tokens"]).long()
+    if cfg.is_encdec:
+        args = (_on(dev, batch["frames"]),
+                _on(dev, batch["dec_tokens"]).long())
+    else:
+        args = (_on(dev, batch["tokens"]).long(),)
     labels = _on(dev, batch["labels"])
-    logits = functional_call(model, unstack_params(cfg, params), (tokens,),
+    logits = functional_call(model, unstack_params(cfg, params), args,
                              {"remat": remat})
     loss, z_loss = softmax_cross_entropy(logits, labels)
     return loss + 1e-4 * z_loss, {"loss": loss.detach(),
                                   "z_loss": z_loss.detach()}
+
+
+def _or_zeros(g, p):
+    return torch.zeros_like(p) if g is None else g
 
 
 def _value_and_grad(model, cfg, params, batch, remat):
@@ -60,9 +66,11 @@ def _value_and_grad(model, cfg, params, batch, remat):
     with torch.enable_grad():
         live = map_tree(lambda p: p.detach().requires_grad_(True), params)
         total, metrics = _loss_fn(model, cfg, live, batch, remat=remat)
-        grads = torch.autograd.grad(total, leaves(live))
+        # a weight the forward never reads (the RG-LRU hybrid's MLP gate,
+        # as in the reference) gets a zero gradient, as jax.grad gives it
+        grads = torch.autograd.grad(total, leaves(live), allow_unused=True)
     it = iter(grads)
-    return metrics, map_tree(lambda _: next(it), params)
+    return metrics, map_tree(lambda p: _or_zeros(next(it), p), params)
 
 
 def make_train_step(model, cfg, optimizer, *, remat: bool = True,
@@ -81,7 +89,7 @@ def make_train_step(model, cfg, optimizer, *, remat: bool = True,
             metrics, grads = _value_and_grad(model, cfg, params, batch,
                                              remat)
         else:
-            n = len(batch["tokens"]) // grad_accum
+            n = len(batch["labels"]) // grad_accum
             grads = metrics = None
             for i in range(grad_accum):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}

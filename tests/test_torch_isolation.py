@@ -46,6 +46,7 @@ def test_no_jax_or_reference_imports_in_the_port():
                  "configs/base.py", "configs/smollm_135m.py",
                  "models/layers.py", "models/attention.py",
                  "models/transformer.py", "models/zoo.py",
+                 "models/rglru.py", "models/mamba2.py", "models/whisper.py",
                  "kernels/rope/ref.py", "kernels/rope/kernel.py",
                  "kernels/rope/ops.py", "core/jacobi.py", "eig/__init__.py",
                  "eig/api.py", "eig/delayed.py", "eig/qr_shift.py",

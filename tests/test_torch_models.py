@@ -32,6 +32,7 @@ from repro_torch.kernels.rope import kernel as rope_k
 from repro_torch.models import attention as attn
 from repro_torch.models import build_model, layers
 from repro_torch.models.transformer import Transformer, _groups
+from repro_torch.models.zoo import reference_shapes, unstack_params
 
 TOL = dict(atol=5e-5, rtol=1e-4)
 FORWARD_ARCHS = ["smollm-135m", "starcoder2-3b", "gemma3-4b",
@@ -314,11 +315,20 @@ def test_weights_come_from_the_seed_on_every_device():
     assert not any(p.requires_grad for p in a.parameters())
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b",
-                                  "whisper-large-v3"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config(arch).reduced(), device="cpu")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_family_builds(arch):
+    """Every config at full width on the meta device (no weight drawn):
+    the family's class, one parameter a row of the reference's tree."""
+    cfg = get_config(arch)
+    model = build_model(cfg, device="meta")
+    want = {"ssm": "Mamba2", "hybrid": "RecurrentHybrid",
+            "audio": "WhisperBackbone"}.get(cfg.family, "Transformer")
+    assert type(model).__name__ == want
+    assert model.device.type == "meta"
+    state = model.state_dict()
+    rows = unstack_params(cfg, reference_shapes(cfg))
+    assert set(rows) == set(state)
+    assert all(rows[k].shape == state[k].shape for k in state)
 
 
 def test_the_model_defaults_to_the_card():

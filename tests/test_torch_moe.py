@@ -48,7 +48,8 @@ from repro_torch.kernels.rope import kernel as rope_k
 from repro_torch.kernels.rope.ops import apply_rope_ref
 from repro_torch.models import attention as attn
 from repro_torch.models import moe
-from repro_torch.models.transformer import _groups, reference_shapes
+from repro_torch.models.transformer import _groups
+from repro_torch.models.zoo import reference_shapes
 from repro_torch.train.step import _value_and_grad
 from repro_torch.tree import flatten_with_paths, leaves, map_tree
 
@@ -313,7 +314,9 @@ def test_lm_params_from_reference_carries_the_moe_tree(arch):
     assert not any(p.requires_grad for p in model.parameters())
 
 
-@pytest.mark.parametrize("arch,target", [(DS, 1.57e10), (KIMI, 1.03e12)])
+@pytest.mark.parametrize("arch,target", [
+    (DS, 1.57e10), (KIMI, 1.03e12), ("mamba2-370m", 3.7e8),
+    ("recurrentgemma-9b", 9.4e9), ("whisper-large-v3", 1.54e9)])
 def test_param_counts_match_published(arch, target):
     """From shapes alone, as ``tests/test_models.py`` counts the
     reference's."""

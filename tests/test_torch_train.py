@@ -77,8 +77,8 @@ from repro_torch.data import DataConfig, SyntheticLM, make_batch
 from repro_torch.kernels.rope import kernel as rope_k
 from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model
-from repro_torch.models.transformer import (reference_shapes, stack_params,
-                                            unstack_params)
+from repro_torch.models.zoo import (reference_shapes, stack_params,
+                                    unstack_params)
 from repro_torch.optim import (AdamW, SoapGivens, dequantize_q8,
                                quantize_q8, warmup_cosine)
 from repro_torch.train import (StragglerMonitor, TrainLoop, make_prefill_fn,
@@ -277,7 +277,10 @@ def test_soap_qr_matches_reference_at_8x8():
                                   "smollm-135m", "gemma3-4b-reduced",
                                   "deepseek-v2-lite-16b-reduced",
                                   "kimi-k2-1t-a32b-reduced",
-                                  "deepseek-v2-lite-16b"])
+                                  "deepseek-v2-lite-16b",
+                                  "mamba2-370m-reduced",
+                                  "recurrentgemma-9b-reduced",
+                                  "whisper-large-v3-reduced"])
 def test_soap_preconditions_what_the_reference_preconditions(arch):
     """From shapes alone (meta tensors; ``jax.eval_shape``): no weights
     are built.  At full width the embedding ``(49152, 576)`` is past
@@ -506,7 +509,8 @@ def test_resume_from_a_reference_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-v2-lite-16b",
-                                  "kimi-k2-1t-a32b"])
+                                  "kimi-k2-1t-a32b", "mamba2-370m",
+                                  "recurrentgemma-9b"])
 def test_launcher_trains_on_the_host(capsys, arch):
     hist = launch_train.main(["--arch", arch, "--reduced",
                               "--steps", "3", "--batch", "2", "--seq",
