@@ -17,7 +17,10 @@ the blocked plain version), a ragged signed problem through both tiled
 kernels and a gradient, counting the kernel launches of that run, and
 times ``auto``'s pick against every rotation kernel at the paper shape,
 one ``1024 x 1024`` target and a shared-sequence batch of 8 paper-shape
-targets.  Then the serving
+targets.  Then the paper's own sweep (``configs/rotseq_paper.py``:
+``m = n`` in 240 .. 3840 at ``k = 180``): each rotation kernel's
+``plan.apply``, ``auto``'s pick, ``torch.matmul`` and the bound a size,
+every kernel held to its plain version up to 1920.  Then the serving
 path at a realistic bucket: 16 requests of ``m = n = 1024`` float32
 targets, each with its own sequence of 33-64 waves padded to 64.  The
 fused batched kernel is held against its plain version, on the
@@ -124,8 +127,13 @@ orthogonal, and one ``solver="qr"`` refresh; ``compress_lowrank`` of a
 ``(1024, 512)`` gradient at rank 32 against ``np.linalg.svd``'s optimum
 and ``compressed_psum`` over a one-rank NCCL group; the full-width
 params and AdamW state through ``CheckpointManager`` bit for bit and a
-loop resumed at step 4 against an uninterrupted one; and
-``python -m repro_torch.launch.train`` in a child process.
+loop resumed at step 4 against an uninterrupted one;
+``python -m repro_torch.launch.train`` in a child process; and the
+full-width SmolLM-135M step under a ``(1, 1)`` ``("data", "model")``
+mesh over a one-rank NCCL group (``DTensor`` parameters, optimizer state
+and batches placed by ``launch.specs.sharding_trees``), held to the step
+without a mesh (losses, the first step's gradients, RoPE launches), ms a
+step both ways.
 Every phase prints one JSON line and raises on failure.  The line before
 the last holds the card's name and power limit, the last ``{"ok": true,
 "device": {...}}``.  Exits non-zero, with no result, when there is no
@@ -235,6 +243,7 @@ TRAIN_STEPS, TRAIN_TIMED, TRAIN_Q8_STEPS = 8, 6, 4
 TRAIN_LR = 3e-3
 TRAIN_PARITY = (1, 128)            # batch, seq of the card/host step
 TRAIN_PARITY_TOL = {"loss": 1e-4, "grad": 1e-3}   # relative
+MESH_STEPS = 3   # mesh_train: steps timed after a warm one, both ways
 SOAP_STEPS, SOAP_FREQ = 20, 10     # the launcher's --reduced example
 SOAP_BATCH, SOAP_SEQ = 8, 64
 SOAP_ORTH_TOL = 1e-4
@@ -263,6 +272,9 @@ AUTOTUNE_SLACK = 1.10
 ALONE_SECONDS = 1.0
 ALONE_MAX_ROUNDS = 2000
 NEIGHBOUR = (3000, 3000, 150)
+# the paper's sweep (configs/rotseq_paper.py): every size's kernels held
+# to their plain versions up to this one (the main path checks 3840)
+PAPER_CHECK_MAX = 1920
 
 
 def emit(**row):
@@ -557,6 +569,84 @@ def planner_phase(ctx, seq) -> None:
                            auto_vs_fastest=ms["auto"] / ms[best])
     del points
     emit(phase="planner", points=rows)
+
+
+def paper_sweep_phase(dev, kernels) -> dict:
+    """The paper's own sweep (``configs/rotseq_paper.py``): ``m = n`` over
+    ``CONFIG.sizes`` at ``k = CONFIG.k``, float32, seeded.  At each size
+    ``plan.apply`` of ``cuda_wave``, of ``cuda_mxu`` at the config's tiles
+    and at 64/64 and of ``cuda_batched``, ``auto``'s pick and its
+    ``plan.apply``, ``torch.matmul(A, Q)`` (TF32 off) and the bound, each
+    kernel's ms over it.  Up to ``PAPER_CHECK_MAX`` every kernel is held
+    to its plain version: ``cuda_wave`` and ``cuda_batched`` bit for bit
+    to the blocked plain version, ``cuda_mxu`` within ``MXU_TOL`` of the
+    eager accumulated path (the paper shape is the main path's)."""
+    import torch
+    from repro_torch import random_sequence
+    from repro_torch.configs.rotseq_paper import CONFIG
+    from repro_torch.core.accumulate import rot_sequence_accumulated
+    from repro_torch.core.blocked import rot_sequence_blocked
+    from repro_torch.kernels.rotseq.ops import rot_sequence_wave
+    t0 = time.perf_counter()
+    k = CONFIG.k
+    tiles = {"cuda_wave": WAVE_TILES,
+             f"cuda_mxu {CONFIG.mxu_n_b}/{CONFIG.mxu_k_b}": dict(
+                 n_b=CONFIG.mxu_n_b, k_b=CONFIG.mxu_k_b),
+             "cuda_mxu 64/64": dict(n_b=64, k_b=64), "cuda_batched": {}}
+    for kern in kernels.values():
+        kern.LAUNCHES = 0
+    rows = []
+    for m in CONFIG.sizes:
+        gen = torch.Generator().manual_seed(SEED + 30 + m)
+        A = torch.randn((m, m), generator=gen).to(dev)
+        seq = random_sequence(m, k, generator=gen, device=dev)
+        C, S = seq.cos, seq.sin
+        reps = max(3, min(50, 3840 // m * 3))
+        plans = {label: seq.plan(like=A, method=label.split()[0], **kw)
+                 for label, kw in tiles.items()}
+        auto = seq.plan(like=A)
+        outs = {label: pl.apply(A) for label, pl in plans.items()}
+        errs = {}
+        if m <= PAPER_CHECK_MAX:
+            plain_w = rot_sequence_blocked(
+                A, C, S, **dict(plans["cuda_wave"].kwargs))
+            for label, out in outs.items():
+                if label.startswith("cuda_mxu"):
+                    errs[label] = rel_err(out, rot_sequence_accumulated(
+                        A, C, S, **tiles[label]))
+                    check(errs[label] <= MXU_TOL, f"paper sweep m={m}: "
+                          f"{label} rel err {errs[label]} vs plain")
+                else:
+                    errs[label] = max_abs(out, plain_w)
+                    check(errs[label] == 0.0, f"paper sweep m={m}: "
+                          f"{label} max|d| {errs[label]} vs plain")
+        for label, out in outs.items():
+            check(bool(torch.isfinite(out).all()),
+                  f"paper sweep m={m}: {label} non-finite")
+        ms = {label: time_ms(lambda pl=pl: pl.apply(A), reps)
+              for label, pl in plans.items()}
+        auto_ms = time_ms(lambda: auto.apply(A), reps)
+        Q = rot_sequence_wave(torch.eye(m, device=dev), C, S, **WAVE_TILES)
+        mm_ms = time_ms(lambda: torch.matmul(A, Q), reps)
+        b_ms, b_by = bound(6.0 * m * (m - 1) * k,
+                           4.0 * (2 * m * m + 3 * (m - 1) * k))
+        rows.append(dict(
+            m=m, n=m, k=k, ms=ms,
+            auto={"method": auto.method, "tiles": dict(auto.kwargs),
+                  "ms": auto_ms},
+            matmul_ms=mm_ms, bound_ms=b_ms, bound_by=b_by,
+            over_bound={label: t / b_ms for label, t in ms.items()},
+            checked_vs_plain=errs))
+        del A, Q, outs
+    launches = {name: kern.LAUNCHES for name, kern in kernels.items()}
+    for name, n_launched in launches.items():
+        check(n_launched > 0, f"paper sweep: {name} never launched")
+    torch.cuda.empty_cache()
+    out = dict(phase="paper_sweep", sizes=list(CONFIG.sizes), k=k,
+               check_max=PAPER_CHECK_MAX, mxu_tol=MXU_TOL, rows=rows,
+               launches=launches, seconds=time.perf_counter() - t0)
+    emit(**out)
+    return out
 
 
 def pack_batched(A, sequences):
@@ -1644,11 +1734,11 @@ def turns_ms(fns: dict, reps: int = DIST_REPS) -> dict:
     return ms
 
 
-def dist_mesh(dev):
+def dist_mesh(dev, store_name: str = "dist_store"):
     """A one-rank process group on ``dev``'s backend (NCCL on the card,
-    gloo on the host) through a ``FileStore`` in the run's temporary
-    directory, and the ``(1, 1)`` ``("data", "model")`` mesh over it.
-    One collective checks that the backend came up."""
+    gloo on the host) through a ``FileStore`` ``store_name`` in the run's
+    temporary directory, and the ``(1, 1)`` ``("data", "model")`` mesh
+    over it.  One collective checks that the backend came up."""
     import datetime
     import torch
     import torch.distributed as tdist
@@ -1657,7 +1747,7 @@ def dist_mesh(dev):
     if dev.type == "cuda":
         torch.cuda.set_device(dev)   # the device NCCL's communicator binds
     store = tdist.FileStore(os.path.join(os.environ["CHIP_SMOKE_TMP"],
-                                         "dist_store"), 1)
+                                         store_name), 1)
     tdist.init_process_group(backend, store=store, rank=0, world_size=1,
                              timeout=datetime.timedelta(seconds=120))
     one = torch.ones(1, device=dev)
@@ -2505,6 +2595,133 @@ def train_phase(dev, kernels) -> dict:
     return dict(loop=loop, model=model, cfg=cfg, counts=counts)
 
 
+class GradRecorder:
+    """An optimizer that keeps the full gradients of its first update,
+    then updates as ``opt`` does."""
+
+    def __init__(self, opt):
+        self.opt, self.first = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params, **kw):
+        if self.first is None:
+            from torch.distributed.tensor import DTensor
+            from repro_torch.tree import flatten_with_paths
+            self.first = [(path, g.full_tensor() if isinstance(g, DTensor)
+                           else g.clone())
+                          for path, g in flatten_with_paths(grads)]
+        return self.opt.update(grads, state, params, **kw)
+
+
+def mesh_train_phase(dev, kernels) -> dict:
+    """The train step under a mesh: SmolLM-135M at full width, seeded
+    float32 master weights and bf16 compute, ``TRAIN_BATCH x TRAIN_SEQ``
+    tokens a step, AdamW, over a one-rank NCCL group and the ``(1, 1)``
+    ``("data", "model")`` mesh, with ``make_rules_for_mesh``'s rules and
+    the parameters, optimizer state and batches placed by
+    ``sharding_trees`` (``DTensor``s; ``grad_shardings`` the parameters').
+    One warm step and ``MESH_STEPS`` steps under the mesh, then the same
+    steps without it from the same weights: each step's loss within
+    ``TRAIN_PARITY_TOL["loss"]`` and the first step's gradients within
+    ``TRAIN_PARITY_TOL["grad"]`` (relative) of the step without a mesh;
+    the RoPE launches of the two runs equal (the kernel ran once a shard,
+    no plain version in its place); ms a step both ways; the placements
+    of the embedding, an attention and an MLP weight."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.kernels.rope import kernel as rope_k
+    from repro_torch.launch.mesh import make_rules_for_mesh
+    from repro_torch.launch.specs import distribute_tree, sharding_trees
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel.sharding import axis_rules
+    from repro_torch.train import make_train_step
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    model, params = train_setup(cfg, dev, SEED + 23)
+    batches = [make_batch(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH), s)
+               for s in range(1 + MESH_STEPS)]
+    opt = AdamW(lr=TRAIN_LR)
+    backend, mesh = dist_mesh(model.device, "mesh_train_store")
+    runs = {}
+    try:
+        rules = make_rules_for_mesh(mesh)
+        trees = sharding_trees(model, cfg, ShapeConfig(
+            "mesh_train", TRAIN_SEQ, TRAIN_BATCH, "train"), opt, rules, mesh)
+        placed = distribute_tree(params, trees["params"])
+        for label in ("mesh", "plain"):
+            rec = GradRecorder(opt)
+            meshed = label == "mesh"
+            step = make_train_step(
+                model, cfg, rec, remat=False,
+                grad_shardings=trees["params"] if meshed else None)
+            p = placed if meshed else params
+            state = opt.init(p)
+            losses, times = [], []
+            with axis_rules(rules, mesh) if meshed \
+                    else contextlib.nullcontext():
+                for i, b in enumerate(batches):
+                    if i == 1:
+                        for k in kernels.values():
+                            k.LAUNCHES = 0
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if meshed:
+                        b = distribute_tree(b, trees["batch"])
+                    p, state, m = step(p, state, b)
+                    losses.append(float(m["loss"]))
+                    times.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            runs[label] = dict(losses=losses, ms=[t * 1e3 for t in times],
+                               grads=rec.first,
+                               counts={n: k.LAUNCHES
+                                       for n, k in kernels.items()})
+            del p, state
+        layer = trees["params"]["group0"][0]
+        shown = {path: [str(pl) for pl in sh.placements] for path, sh in (
+            ("['embed']['e']", trees["params"]["embed"]["e"]),
+            ("['group0'][0]['attn']['wq']['w']", layer["attn"]["wq"]["w"]),
+            ("['group0'][0]['mlp']['up']['w']", layer["mlp"]["up"]["w"]))}
+    finally:
+        tdist.destroy_process_group()
+    mesh_r, plain_r = runs["mesh"], runs["plain"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(mesh_r["losses"], plain_r["losses"]))
+    errs = {path: rel_err(a, b) if b.any() or a.any() else 0.0
+            for (path, a), (_, b) in zip(mesh_r["grads"], plain_r["grads"])}
+    worst = max(errs, key=errs.get)
+    check(all(math.isfinite(x) for x in mesh_r["losses"]),
+          f"mesh_train losses {mesh_r['losses']}")
+    check(loss_err <= TRAIN_PARITY_TOL["loss"],
+          f"mesh_train losses {mesh_r['losses']} vs {plain_r['losses']}")
+    check(errs[worst] <= TRAIN_PARITY_TOL["grad"],
+          f"mesh_train gradient {worst}: rel err {errs[worst]}")
+    per_run = 2 * cfg.n_layers * MESH_STEPS
+    check(mesh_r["counts"]["rope"] == plain_r["counts"]["rope"] == per_run,
+          f"mesh_train rope launches: mesh {mesh_r['counts']['rope']}, "
+          f"plain {plain_r['counts']['rope']}, want {per_run}")
+    ms = {label: statistics.median(r["ms"][1:]) for label, r in runs.items()}
+    out = dict(phase="mesh_train", arch=cfg.name, dtype=cfg.dtype,
+               param_dtype="float32", backend=backend,
+               mesh={"shape": [1, 1], "names": ["data", "model"]},
+               rules=rules.rules, fsdp_axes=list(rules.fsdp_axes),
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=MESH_STEPS,
+               placements=shown, losses_mesh=mesh_r["losses"],
+               losses_plain=plain_r["losses"], loss_rel_err=loss_err,
+               max_grad_rel_err=errs[worst], worst_leaf=worst,
+               tol=TRAIN_PARITY_TOL, ms_per_step_mesh=ms["mesh"],
+               ms_per_step_plain=ms["plain"],
+               mesh_over_plain=ms["mesh"] / ms["plain"],
+               ms_all={label: r["ms"] for label, r in runs.items()},
+               launches={label: r["counts"] for label, r in runs.items()},
+               seconds=time.perf_counter() - t_phase)
+    emit(**out)
+    return dict(counts=mesh_r["counts"])
+
+
 def train_parity_phase(dev, cfg=None, phase="train_parity",
                        seed: int = SEED + 10) -> None:
     """One float32 step's loss and gradients of ``cfg`` (SmolLM-135M at
@@ -3160,6 +3377,10 @@ def run() -> int:
     emit(phase="gradient", method=plan.method, rel_err=g_err, tol=GRAD_TOL,
          seconds=time.perf_counter() - t0)
 
+    # -- the paper's sweep of m = n at k = 180 ------------------------------
+    paper_sweep_phase(dev, {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
+                            "rotseq_batched": batched_k})
+
     # -- the serving path at a realistic bucket ----------------------------
     gen_b = torch.Generator().manual_seed(SEED + 2)
     ks = torch.randint(KMIN, KMAX + 1, (B,), generator=gen_b).tolist()
@@ -3249,6 +3470,11 @@ def run() -> int:
     ckpt_phase(dev, train)
     del train
     train_launcher_phase()
+    # -- the train step under a (1, 1) mesh over NCCL ----------------------
+    meshed = mesh_train_phase(dev, all_k)
+    entries["rope"]["launches_by_path"]["mesh_train"] = \
+        meshed["counts"]["rope"]
+    entries["rope"]["launches"] += meshed["counts"]["rope"]
     emit(phase="training", seconds=time.perf_counter() - t_train)
 
     # the two tiled kernels' numbers are taken at the paper configuration

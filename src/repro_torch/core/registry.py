@@ -889,7 +889,10 @@ _MEASURE_MAX_ROUNDS = 200
 # 80GB HBM3 (700 W), autotune's cuda_mxu 64/32 over cuda_wave ratio and
 # the same ratio timed alone through plan.apply just after differed by
 # up to 0.3 (tools/autotune_flush.py), so a smaller gain picked a plan
-# slower in use about as often as a faster one.
+# slower in use about as often as a faster one.  Timing the candidates
+# through plan.apply, and for 0.25 s each instead of 20 ms, left the
+# two ratios up to 0.23 apart in 38 trials: the ratio itself moves that
+# much from one second to the next there.
 _MEASURED_MARGIN = 1.10
 
 
@@ -900,7 +903,14 @@ _time_call = obs.timing.call_seconds
 
 def _time_medians(fns: List[Callable],
                   device: torch.device) -> List[float]:
-    """Median seconds of one call of each of ``fns``, which were called
+    """Median seconds of one call of each of ``fns``
+    (:func:`_time_samples`)."""
+    return [sorted(t)[len(t) // 2] for t in _time_samples(fns, device)]
+
+
+def _time_samples(fns: List[Callable],
+                  device: torch.device) -> List[List[float]]:
+    """Seconds of each timed call of each of ``fns``, which were called
     once each already (the warm call): rounds of one call each, in a
     seeded random order a round (so no function always follows the same
     one, whose traffic leaves the caches in one state), at least
@@ -915,7 +925,7 @@ def _time_medians(fns: List[Callable],
         for i in order.permutation(len(fns)):
             ts[i].append(_time_call(fns[i], device))
         rounds += 1
-    return [sorted(t)[len(t) // 2] for t in ts]
+    return ts
 
 
 def _synthetic_workload(problem: Problem):
@@ -924,12 +934,14 @@ def _synthetic_workload(problem: Problem):
     each candidate, and ``bind(plan)``, one application at ``plan``'s
     tiles.
 
-    A shared-sequence batch runs flattened through ``spec.fn`` as the
-    ``(batch*m, n)`` problem dispatch runs.  A per-request batch runs
-    ``batch`` distinct sequences through ``SequencePlan.apply_batched(A,
-    sequences=..., direct=True)``: the route (fused launch, vmap or
-    loop) and the per-sequence setup that serving pays.  The waves match
-    the problem record (:func:`_synthetic_waves`).
+    A shared-sequence batch runs flattened, as one ``(batch*m, n)``
+    target, through ``SequencePlan.apply``: what a caller of the plan
+    runs, its host packing (``cuda_mxu``'s factor calls) included.  A
+    per-request batch runs ``batch`` distinct sequences through
+    ``SequencePlan.apply_batched(A, sequences=..., direct=True)``: the
+    route (fused launch, vmap or loop) and the per-sequence setup that
+    serving pays.  The waves match the problem record
+    (:func:`_synthetic_waves`).
     """
     # deferred: sequence.py imports this module
     from repro_torch.core import sequence as _sequence
@@ -959,11 +971,14 @@ def _synthetic_workload(problem: Problem):
             return lambda: sp.apply_batched(A, sequences=seqs, direct=True)
     else:
         A = put(rng.standard_normal((problem.m_total, problem.n)))
-        C, S, G = (put(x) for x in _synthetic_waves(problem, rng))
+        seq = _sequence.RotationSequence(
+            *(put(x) for x in _synthetic_waves(problem, rng)))
 
         def bind(plan: Plan) -> Callable:
-            spec, kw = get_backend(plan.method), plan.kwargs()
-            return lambda: spec.fn(A, C, S, reflect=False, G=G, **kw)
+            sp = _sequence.SequencePlan(
+                seq, plan.method, tuple(sorted(plan.kwargs().items())),
+                plan)
+            return lambda: sp.apply(A)
     return bind, device
 
 

@@ -26,12 +26,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.rope.ops import apply_rope, rope_tables
+from repro_torch.parallel.sharding import shard
 
-from .layers import dense, dense_init, rmsnorm, rmsnorm_init, softcap
+from .layers import (dense, dense_init, dense_spec, rmsnorm, rmsnorm_init,
+                     rmsnorm_spec, softcap)
 
-__all__ = ["gqa_init", "gqa_attention", "gqa_decode", "attn_mask",
-           "rope_rows", "mla_init", "mla_attention", "init_mla_cache",
-           "mla_decode"]
+__all__ = ["gqa_init", "gqa_spec", "gqa_attention", "gqa_decode",
+           "attn_mask", "rope_rows", "mla_init", "mla_spec",
+           "mla_attention", "init_mla_cache", "mla_decode"]
 
 _FLASH_CHUNK = 512
 _MASKED = -1e30
@@ -53,6 +55,19 @@ def gqa_init(gen, cfg):
     if cfg.qk_norm:
         p["qn"] = rmsnorm_init(Dh)
         p["kn"] = rmsnorm_init(Dh)
+    return p
+
+
+def gqa_spec(cfg):
+    p = {
+        "wq": dense_spec("embed", "heads"),
+        "wk": dense_spec("embed", "kv_heads"),
+        "wv": dense_spec("embed", "kv_heads"),
+        "wo": dense_spec("heads", "embed"),
+    }
+    if cfg.qk_norm:
+        p["qn"] = rmsnorm_spec()
+        p["kn"] = rmsnorm_spec()
     return p
 
 
@@ -97,12 +112,20 @@ def rope_rows(start: int, count: int, head_dim: int, base: float, dtype,
 def _proj_qkv(p, cfg, x, start: int, base: float):
     B, S, d = x.shape
     H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = shard(x, "batch", None, "embed")  # SP: gather seq at matmul entry
     q = dense(p["wq"], x).reshape(B, S, H, Dh)
     k = dense(p["wk"], x).reshape(B, S, Hk, Dh)
     v = dense(p["wv"], x).reshape(B, S, Hk, Dh)
     if cfg.qk_norm:
         q = rmsnorm(p["qn"], q)
         k = rmsnorm(p["kn"], k)
+    # Megatron-SP convention: sequence is sharded BETWEEN blocks only;
+    # inside attention the activations shard over batch x heads.  The
+    # reference constrains q/k/v after RoPE; here before it, so the RoPE
+    # kernel runs once a shard on whole sequences and heads
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
     if cfg.pos_type == "rope":
         cos, sin = rope_rows(start, S, Dh, base, q.dtype, x.device)
         q, k = apply_rope(q, k, cos, sin)
@@ -173,8 +196,13 @@ def _sdpa(q, k, v, mask, scale, cap=0.0, *, causal=True, window=None,
     A long query routes to the chunked flash path, which derives its
     masks from ``causal``/``window``/``q_offset`` (``mask`` is ignored
     there and may be None); a short one (decode) takes the dense path
-    with the explicit ``mask``.
+    with the explicit ``mask``.  ``DTensor`` q, k, v (a step under a
+    mesh) attend once a shard (:func:`_sdpa_per_shard`).
     """
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        return _sdpa_per_shard(q, k, v, mask, scale, cap, causal=causal,
+                               window=window, q_offset=q_offset)
     B, S, H, Dh = q.shape
     T, Hk = k.shape[1], k.shape[2]
     G = H // Hk
@@ -187,6 +215,29 @@ def _sdpa(q, k, v, mask, scale, cap=0.0, *, causal=True, window=None,
     return o.reshape(B, S, H * Dh)
 
 
+def _sdpa_per_shard(q, k, v, mask, scale, cap, **route):
+    """:func:`_sdpa` of ``DTensor`` q ``(B, S, H, D)`` and k, v ``(B, T,
+    Hk, D)`` on each rank's local tensors: attention is independent
+    across batch rows and heads, so a rank's rows and its contiguous
+    block of query heads need only its block of key heads.  A mesh
+    dimension on which q, k and v do not share a batch (dim 0) or heads
+    (dim 2) shard is replicated first.  The output ``(B, S, H * D)``
+    keeps those placements (its last dim holds the heads)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    pl = tuple(a if a == b == c and isinstance(a, Shard) and a.dim in (0, 2)
+               else Replicate()
+               for a, b, c in zip(q.placements, k.placements, v.placements))
+    q, k, v = (x if tuple(x.placements) == pl else x.redistribute(mesh, pl)
+               for x in (q, k, v))
+    o = _sdpa(q.to_local(), k.to_local(), v.to_local(), mask, scale, cap,
+              **route)
+    B, S, H, Dh = q.shape
+    return DTensor.from_local(o, mesh, pl, run_check=False,
+                              shape=(B, S, H * Dh),
+                              stride=(S * H * Dh, H * Dh, 1))
+
+
 def gqa_attention(p, cfg, x, *, window=None, rope_base=None, q_offset=0):
     """Full-sequence causal attention (train / prefill)."""
     S = x.shape[1]
@@ -197,6 +248,7 @@ def gqa_attention(p, cfg, x, *, window=None, rope_base=None, q_offset=0):
             attn_mask(S, S, window=window, device=x.device))
     o = _sdpa(q, k, v, mask, cfg.head_dim ** -0.5, causal=True,
               window=window)
+    o = shard(o, "batch", None, "heads")
     return dense(p["wo"], o), (k, v)
 
 
@@ -250,12 +302,28 @@ def mla_init(gen, cfg):
     return p
 
 
+def mla_spec(cfg):
+    p = {}
+    if cfg.q_lora:
+        p["wq_a"] = dense_spec("embed", None)
+        p["q_norm"] = rmsnorm_spec()
+        p["wq_b"] = dense_spec(None, "heads")
+    else:
+        p["wq"] = dense_spec("embed", "heads")
+    p["wkv_a"] = dense_spec("embed", None)
+    p["kv_norm"] = rmsnorm_spec()
+    p["wkv_b"] = dense_spec(None, "heads")
+    p["wo"] = dense_spec("heads", "embed")
+    return p
+
+
 def _mla_qkv(p, cfg, x, start: int):
     """``(q_nope (B,S,H,dn), q_rope (B,S,H,dr), c_kv (B,S,L), k_rope
     (B,S,dr))`` of positions ``start .. start + S - 1``."""
     B, S, _ = x.shape
     H, L = cfg.n_heads, cfg.kv_lora
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    x = shard(x, "batch", None, "embed")  # SP: gather seq at matmul entry
     if cfg.q_lora:
         q = dense(p["wq_b"], rmsnorm(p["q_norm"], dense(p["wq_a"], x)))
     else:
@@ -267,7 +335,10 @@ def _mla_qkv(p, cfg, x, start: int):
     # one launch for the query heads' rope tails and the shared key head
     q_rope, k_rope = apply_rope(q[..., dn:].contiguous(),
                                 kv[:, :, None, L:].contiguous(), cos, sin)
-    return q[..., :dn], q_rope, c_kv, k_rope[:, :, 0]
+    q_nope = shard(q[..., :dn], "batch", None, "heads", None)
+    q_rope = shard(q_rope, "batch", None, "heads", None)
+    c_kv = shard(c_kv, "batch", None, None)
+    return q_nope, q_rope, c_kv, k_rope[:, :, 0]
 
 
 def _mla_flash(q_lat, q_rope, c_kv, k_rope, scale, q_offset):

@@ -6,9 +6,11 @@ modules :func:`to_module` makes of them, which index the same way), kept in the 
 float32 weights from a ``torch.Generator`` with the reference
 initialiser's distribution; the two frameworks give different numbers
 from one seed, so parity tests load the reference's weights
-(:func:`repro_torch.convert.lm_params_from_reference`).  The
-reference's ``shard(...)`` constraints are no-ops without mesh rules and
-are left out until the distributed slice.
+(:func:`repro_torch.convert.lm_params_from_reference`).  Each
+``*_init`` has the reference's ``*_spec`` twin, the matching tree of
+*logical axis tuples* that :mod:`repro_torch.parallel.sharding` turns
+into placements, and the reference's ``shard(...)`` annotations stand
+where it has them: they return their input without mesh rules.
 """
 from __future__ import annotations
 
@@ -17,17 +19,20 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.sequence import resolve_device
+from repro_torch.parallel.sharding import shard
 
 __all__ = [
-    "dense_init", "dense",
-    "rmsnorm_init", "rmsnorm",
-    "layernorm_init", "layernorm",
-    "embed_init",
-    "mlp_init", "mlp_swiglu", "mlp_gelu",
+    "dense_init", "dense_spec", "dense",
+    "rmsnorm_init", "rmsnorm_spec", "rmsnorm",
+    "layernorm_init", "layernorm_spec", "layernorm",
+    "embed_init", "embed_spec",
+    "mlp_init", "mlp_spec", "mlp_swiglu", "mlp_gelu",
     "causal_conv", "softcap", "ParamTree", "to_module", "tensors_of",
-    "TreeModel", "stack_trees", "named_leaves", "unstack_rows",
+    "TreeModel", "stack_trees", "stacked_spec", "named_leaves",
+    "unstack_rows",
 ]
 
 
@@ -37,12 +42,20 @@ def dense_init(gen, d_in: int, d_out: int, scale=None):
     return {"w": w}
 
 
+def dense_spec(l_in, l_out):
+    return {"w": (l_in, l_out)}
+
+
 def dense(p, x):
     return x @ p["w"].to(x.dtype)
 
 
 def rmsnorm_init(d: int):
     return {"g": torch.zeros((d,))}  # gemma-style (1 + g)
+
+
+def rmsnorm_spec():
+    return {"g": (None,)}
 
 
 def rmsnorm(p, x):
@@ -54,6 +67,10 @@ def rmsnorm(p, x):
 
 def layernorm_init(d: int):
     return {"g": torch.ones((d,)), "b": torch.zeros((d,))}
+
+
+def layernorm_spec():
+    return {"g": (None,), "b": (None,)}
 
 
 def layernorm(p, x):
@@ -68,6 +85,10 @@ def embed_init(gen, vocab: int, d: int):
     return {"e": torch.randn((vocab, d), generator=gen) * 0.02}
 
 
+def embed_spec():
+    return {"e": ("vocab", "embed")}
+
+
 def mlp_init(gen, d: int, d_ff: int, gated: bool):
     p = {
         "up": dense_init(gen, d, d_ff),
@@ -78,14 +99,30 @@ def mlp_init(gen, d: int, d_ff: int, gated: bool):
     return p
 
 
+def mlp_spec(gated: bool):
+    p = {
+        "up": dense_spec("embed", "ff"),
+        "down": dense_spec("ff", "embed"),
+    }
+    if gated:
+        p["gate"] = dense_spec("embed", "ff")
+    return p
+
+
 def mlp_swiglu(p, x):
+    # Megatron-SP: gather seq before the matmuls so the ff-sharded weights
+    # are used in place
+    x = shard(x, "batch", None, "embed")
     h = F.silu(dense(p["gate"], x)) * dense(p["up"], x)
+    h = shard(h, "batch", None, "ff")
     return dense(p["down"], h)
 
 
 def mlp_gelu(p, x):
+    x = shard(x, "batch", None, "embed")
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(dense(p["up"], x), approximate="tanh")
+    h = shard(h, "batch", None, "ff")
     return dense(p["down"], h)
 
 
@@ -127,6 +164,14 @@ def to_module(tree) -> nn.Module:
     if isinstance(tree, (list, tuple)):
         return nn.ModuleList(to_module(t) for t in tree)
     return ParamTree(tree)
+
+
+def stacked_spec(spec):
+    """A logical-axis tree with a leading unsharded axis on every leaf:
+    the spec of its layers stacked (:func:`stack_trees`)."""
+    if isinstance(spec, dict):
+        return {k: stacked_spec(v) for k, v in spec.items()}
+    return (None,) + spec
 
 
 def stack_trees(trees):
@@ -208,14 +253,22 @@ class TreeModel(nn.Module):
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         # gather, then cast: the same values as casting the whole table
-        x = self.embed["e"][tokens].to(dt)
+        table = self.embed["e"]
+        if isinstance(table, DTensor):
+            # under a mesh: the table gathered whole (FSDP's all-gather,
+            # its gradient reduce-scattered back), the rows taken by
+            # F.embedding, whose backward DTensor can place (indexing's
+            # index_put it cannot, on the card's torch)
+            x = F.embedding(tokens, shard(table, None, None)).to(dt)
+        else:
+            x = table[tokens].to(dt)
         if cfg.emb_scale:
             x = x * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=dt))
         return x
 
     def _logits(self, x):
         # the final norm, then the tied embedding as the head
-        x = rmsnorm(self.ln_f, x)
+        x = shard(rmsnorm(self.ln_f, x), "batch", None, "embed")
         return x @ self.embed["e"].to(x.dtype).T
 
     def params(self):

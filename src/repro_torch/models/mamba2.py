@@ -26,8 +26,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .layers import (TreeModel, causal_conv, dense, dense_init, embed_init,
-                     named_leaves, rmsnorm, rmsnorm_init, stack_trees,
+from repro_torch.parallel.sharding import shard
+
+from .layers import (TreeModel, causal_conv, dense, dense_init, dense_spec,
+                     embed_init, embed_spec, named_leaves, rmsnorm,
+                     rmsnorm_init, rmsnorm_spec, stack_trees, stacked_spec,
                      tensors_of, unstack_rows)
 
 __all__ = ["Mamba2", "init_params", "stack_params", "unstack_params",
@@ -153,6 +156,32 @@ class Mamba2(TreeModel):
         (self.d_inner, self.H, self.G, self.N, self.P,
          self.conv_dim) = _dims(cfg)
 
+    # -------------------------------------------------- logical axes ----
+
+    def param_logical(self):
+        """The logical axes of the reference's tree (:func:`stack_params`),
+        leaf for leaf."""
+        block = {
+            "norm": rmsnorm_spec(),
+            "in_proj": dense_spec("embed", "ff"),
+            "conv_w": (None, "ff"),
+            "conv_b": ("ff",),
+            "A_log": (None,),
+            "D": (None,),
+            "dt_bias": (None,),
+            "out_norm": rmsnorm_spec(),
+            "out_proj": dense_spec("ff", "embed"),
+        }
+        return {"embed": embed_spec(), "ln_f": rmsnorm_spec(),
+                "blocks": stacked_spec(block)}
+
+    def cache_logical(self):
+        """The logical axes of :meth:`init_cache`'s cache, leaf for leaf."""
+        return {"idx": (), "layers": [
+            {"conv": ("batch", None, "ff"), "ssm": ("batch", None, None,
+                                                    None)}
+            for _ in range(self.cfg.n_layers)]}
+
     def _split(self, zxbcdt):
         di, cd = self.d_inner, self.conv_dim
         return (zxbcdt[..., :di], zxbcdt[..., di:di + cd],
@@ -179,7 +208,11 @@ class Mamba2(TreeModel):
 
     def _block(self, p, x):
         Bsz, L, _ = x.shape
-        z, xBC, dt = self._split(dense(p["in_proj"], rmsnorm(p["norm"], x)))
+        h = shard(rmsnorm(p["norm"], x), "batch", None, "embed")
+        z, xBC, dt = self._split(dense(p["in_proj"], h))
+        # temporal mixing needs the whole sequence: batch/ff sharding only
+        z = shard(z, "batch", None, "ff")
+        xBC = shard(xBC, "batch", None, "ff")
         xBC = F.silu(causal_conv(xBC, p["conv_w"].to(x.dtype))
                      + p["conv_b"].to(x.dtype))
         xs, Bm, Cm = self._heads(xBC, (Bsz, L))
@@ -193,7 +226,7 @@ class Mamba2(TreeModel):
     def forward(self, tokens, remat: bool = False):
         """tokens (B, S) int -> logits (B, S, vocab); ``remat`` recomputes
         each layer in the backward, as the reference's does."""
-        x = self._embed(tokens)
+        x = shard(self._embed(tokens), "batch", "seq", "embed")
         for p in self.layers:
             if remat:
                 x = checkpoint(self._block, tensors_of(p), x,

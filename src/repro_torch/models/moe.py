@@ -14,8 +14,9 @@ K / E))``), with chunk-local slots when ``N`` splits into ``n_chunks``.
 A token's slot in its expert is its rank among the chunk's routed
 ``(token, k)`` pairs in token-major order: the reference's stable
 ``argsort``, kept by ``torch.argsort(..., stable=True)``, so the same
-tokens are dropped.  The reference's logical sharding axes
-(``moe_spec``) wait for ``parallel.sharding``.
+tokens are dropped.  ``moe_spec`` gives the reference's logical axes
+(experts over ``"model"``), and its ``shard`` annotations stand where
+it has them.
 """
 from __future__ import annotations
 
@@ -24,10 +25,12 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .layers import dense_init, mlp_init, mlp_swiglu
+from repro_torch.parallel.sharding import shard
 
-__all__ = ["moe_init", "moe_route", "moe_ffn", "moe_ffn_dense_ref",
-           "Route"]
+from .layers import dense_init, dense_spec, mlp_init, mlp_spec, mlp_swiglu
+
+__all__ = ["moe_init", "moe_spec", "moe_route", "moe_ffn",
+           "moe_ffn_dense_ref", "Route"]
 
 _EXACT_ROUTED = 4096   # routed (token, k) pairs served drop-free
 
@@ -42,6 +45,18 @@ def moe_init(gen, cfg):
     }
     if cfg.n_shared_experts:
         p["shared"] = mlp_init(gen, d, dff * cfg.n_shared_experts, True)
+    return p
+
+
+def moe_spec(cfg):
+    p = {
+        "router": dense_spec("embed", None),
+        "w_gate": ("experts", "embed", None),
+        "w_up": ("experts", "embed", None),
+        "w_down": ("experts", None, "embed"),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_spec(True)
     return p
 
 
@@ -95,7 +110,7 @@ def moe_ffn(p, cfg, x, *, n_chunks: int = 1):
     """x (B, S, d) -> (B, S, d); top-k routed + optional shared experts."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    xt = x.reshape(B * S, d)
+    xt = shard(x.reshape(B * S, d), "batch", None)
     r = moe_route(p, cfg, xt, n_chunks)
     C, Nl, _ = r.pos.shape
     keepf = r.keep.to(xt.dtype)
@@ -105,15 +120,18 @@ def moe_ffn(p, cfg, x, *, n_chunks: int = 1):
 
     # dispatch: a kept pair lands alone in its slot; a dropped one adds
     # zero to its expert's last slot
-    upd = xt.reshape(C, Nl, 1, d) * keepf[..., None]     # (C, Nl, K, d)
+    xc = shard(xt.reshape(C, Nl, d), "batch", None, None)
+    upd = xc[:, :, None, :] * keepf[..., None]           # (C, Nl, K, d)
     buf = torch.zeros((C, E, r.cap, d), dtype=xt.dtype, device=x.device)
     buf = buf.index_put((chunk, idx_c, posc), upd, accumulate=True)
+    buf = shard(buf, "batch", "experts", None, None)
 
     # the experts' SwiGLU, batched over E
     h = torch.einsum("cend,edf->cenf", buf, p["w_gate"].to(xt.dtype))
     u = torch.einsum("cend,edf->cenf", buf, p["w_up"].to(xt.dtype))
     ye = torch.einsum("cenf,efd->cend", F.silu(h) * u,
                       p["w_down"].to(xt.dtype))
+    ye = shard(ye, "batch", "experts", None, None)
 
     # combine: gather each pair's slot back, mixed by its gate
     yk = ye[chunk, idx_c, posc]                          # (C, Nl, K, d)

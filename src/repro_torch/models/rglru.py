@@ -32,10 +32,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .attention import gqa_attention, gqa_decode, gqa_init
-from .layers import (TreeModel, causal_conv, dense, dense_init, embed_init,
-                     mlp_gelu, mlp_init, named_leaves, rmsnorm,
-                     rmsnorm_init, stack_trees, tensors_of, unstack_rows)
+from repro_torch.parallel.sharding import shard
+
+from .attention import gqa_attention, gqa_decode, gqa_init, gqa_spec
+from .layers import (TreeModel, causal_conv, dense, dense_init, dense_spec,
+                     embed_init, embed_spec, mlp_gelu, mlp_init, mlp_spec,
+                     named_leaves, rmsnorm, rmsnorm_init, rmsnorm_spec,
+                     stack_trees, stacked_spec, tensors_of, unstack_rows)
 
 __all__ = ["RecurrentHybrid", "init_params", "stack_params",
            "unstack_params", "linear_scan"]
@@ -46,6 +49,30 @@ _PATTERN = ("rec", "rec", "attn")
 def _kind(i: int) -> str:
     # the tail repeats the pattern's head, so layer i is slot i % 3
     return _PATTERN[i % 3]
+
+
+def _temporal_spec(cfg, kind):
+    if kind == "attn":
+        return {"attn": gqa_spec(cfg)}
+    return {
+        "in_x": dense_spec("embed", "ff"),
+        "in_y": dense_spec("embed", "ff"),
+        "conv_w": (None, "ff"),
+        "conv_b": ("ff",),
+        "gate_a": dense_spec("ff", None),
+        "gate_i": dense_spec("ff", None),
+        "lam": ("ff",),
+        "out": dense_spec("ff", "embed"),
+    }
+
+
+def _block_spec(cfg, kind):
+    return {
+        "ln1": rmsnorm_spec(),
+        "temporal": _temporal_spec(cfg, kind),
+        "ln2": rmsnorm_spec(),
+        "mlp": mlp_spec(True),
+    }
 
 
 def _temporal_init(gen, cfg, kind):
@@ -144,11 +171,35 @@ class RecurrentHybrid(TreeModel):
         self.lru = cfg.lru_width or cfg.d_model
         self.kinds = [_kind(i) for i in range(cfg.n_layers)]
 
+    # -------------------------------------------------- logical axes ----
+
+    def param_logical(self):
+        """The logical axes of the reference's tree (:func:`stack_params`),
+        leaf for leaf."""
+        cfg = self.cfg
+        spec = {"embed": embed_spec(), "ln_f": rmsnorm_spec()}
+        if cfg.n_layers // 3:
+            spec["group0"] = [stacked_spec(_block_spec(cfg, kind))
+                              for kind in _PATTERN]
+        for t in range(cfg.n_layers % 3):
+            spec[f"tail{t}"] = _block_spec(cfg, _PATTERN[t])
+        return spec
+
+    def cache_logical(self):
+        """The logical axes of :meth:`init_cache`'s cache, leaf for leaf."""
+        rec = {"h": ("batch", "ff"), "conv": ("batch", None, "ff")}
+        attn = {"k": ("batch", "seq", "kv_heads", None),
+                "v": ("batch", "seq", "kv_heads", None)}
+        return {"idx": (), "layers": [dict(attn if kind == "attn" else rec)
+                                      for kind in self.kinds]}
+
     # -------------------------------------------------------- forward ----
 
     def _recurrent(self, p, x):
-        xw = dense(p["in_x"], x)
-        yw = F.gelu(dense(p["in_y"], x), approximate="tanh")
+        x = shard(x, "batch", None, "embed")
+        xw = shard(dense(p["in_x"], x), "batch", None, "ff")
+        yw = shard(F.gelu(dense(p["in_y"], x), approximate="tanh"),
+                   "batch", None, "ff")
         xw = (causal_conv(xw, p["conv_w"].to(x.dtype))
               + p["conv_b"].to(x.dtype))
         h, _ = _rglru(p, xw)
@@ -162,12 +213,13 @@ class RecurrentHybrid(TreeModel):
         else:
             a = self._recurrent(p["temporal"], h)
         x = x + a
-        return x + mlp_gelu(p["mlp"], rmsnorm(p["ln2"], x))
+        x = x + mlp_gelu(p["mlp"], rmsnorm(p["ln2"], x))
+        return shard(x, "batch", "seq", "embed")
 
     def forward(self, tokens, remat: bool = False):
         """tokens (B, S) int -> logits (B, S, vocab); ``remat`` recomputes
         each layer in the backward, as the reference's does."""
-        x = self._embed(tokens)
+        x = shard(self._embed(tokens), "batch", "seq", "embed")
         for p, kind in zip(self.layers, self.kinds):
             if remat:
                 x = checkpoint(self._block, tensors_of(p), kind, x,

@@ -32,13 +32,17 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .attention import (gqa_attention, gqa_decode, gqa_init,
-                        init_mla_cache, mla_attention, mla_decode, mla_init)
-from .layers import (TreeModel, dense, dense_init, embed_init, mlp_gelu,
-                     mlp_init, mlp_swiglu, named_leaves, rmsnorm,
-                     rmsnorm_init, softcap, stack_trees, tensors_of,
+from repro_torch.parallel.sharding import shard
+
+from .attention import (gqa_attention, gqa_decode, gqa_init, gqa_spec,
+                        init_mla_cache, mla_attention, mla_decode, mla_init,
+                        mla_spec)
+from .layers import (TreeModel, dense, dense_init, dense_spec, embed_init,
+                     embed_spec, mlp_gelu, mlp_init, mlp_spec, mlp_swiglu,
+                     named_leaves, rmsnorm, rmsnorm_init, rmsnorm_spec,
+                     softcap, stack_trees, stacked_spec, tensors_of,
                      unstack_rows)
-from .moe import moe_ffn, moe_init
+from .moe import moe_ffn, moe_init, moe_spec
 
 __all__ = ["Transformer", "init_params", "stack_params", "unstack_params"]
 
@@ -142,6 +146,41 @@ class Transformer(TreeModel):
         super().__init__(cfg, init_params, generator, device)
         self.kinds = _layer_kinds(cfg)
 
+    # -------------------------------------------------- logical axes ----
+
+    def _block_spec(self, kinds):
+        cfg = self.cfg
+        _, mlp_kind = kinds
+        return {
+            "ln1": rmsnorm_spec(),
+            "attn": mla_spec(cfg) if cfg.mla else gqa_spec(cfg),
+            "ln2": rmsnorm_spec(),
+            "mlp": (moe_spec(cfg) if mlp_kind == "moe"
+                    else mlp_spec(cfg.mlp_gated)),
+        }
+
+    def param_logical(self):
+        """The logical axes of the reference's tree (:func:`stack_params`),
+        leaf for leaf; a group's stacked (reps) axis is never sharded."""
+        cfg = self.cfg
+        spec = {"embed": embed_spec(), "ln_f": rmsnorm_spec()}
+        if not cfg.tie_embeddings:
+            spec["lm_head"] = dense_spec("embed", "vocab")
+        for gi, (_, _, slot_kinds) in enumerate(_groups(cfg)):
+            spec[f"group{gi}"] = [stacked_spec(self._block_spec(kinds))
+                                  for kinds in slot_kinds]
+        return spec
+
+    def cache_logical(self):
+        """The logical axes of :meth:`init_cache`'s cache, leaf for leaf."""
+        if self.cfg.mla:
+            one = {"ckv": ("batch", "seq", None),
+                   "kr": ("batch", "seq", None)}
+        else:
+            one = {"k": ("batch", "seq", "kv_heads", None),
+                   "v": ("batch", "seq", "kv_heads", None)}
+        return {"idx": (), "layers": [dict(one) for _ in self.kinds]}
+
     def _attn_args(self, attn_kind):
         cfg = self.cfg
         window = cfg.window if attn_kind == "local" else None
@@ -158,11 +197,13 @@ class Transformer(TreeModel):
     def _logits(self, x):
         cfg = self.cfg
         x = rmsnorm(self.ln_f, x)
+        x = shard(x, "batch", None, "embed")  # SP: gather seq for lm head
         if cfg.tie_embeddings:
             logits = x @ self.embed["e"].to(x.dtype).T
         else:
             logits = dense(self.lm_head, x)
-        return softcap(logits, cfg.logit_softcap)
+        logits = softcap(logits, cfg.logit_softcap)
+        return shard(logits, "batch", None, "vocab")
 
     # -------------------------------------------------------- forward ----
 
@@ -175,8 +216,11 @@ class Transformer(TreeModel):
             window, base = self._attn_args(attn_kind)
             a, _ = gqa_attention(p["attn"], self.cfg, h, window=window,
                                  rope_base=base)
-        x = x + a
-        return x + self._mlp(p, mlp_kind, rmsnorm(p["ln2"], x))
+        # seq-shard the partial attention output before the residual add
+        x = x + shard(a, "batch", "seq", "embed")
+        m = self._mlp(p, mlp_kind, rmsnorm(p["ln2"], x))
+        x = x + shard(m, "batch", "seq", "embed")
+        return shard(x, "batch", "seq", "embed")
 
     def forward(self, tokens, remat: bool = False):
         """tokens (B, S) int -> logits (B, S, vocab).
@@ -185,7 +229,7 @@ class Transformer(TreeModel):
         (``torch.utils.checkpoint``), as the reference's ``remat`` does
         for each repetition of its scan; the values are the same.
         """
-        x = self._embed(tokens)
+        x = shard(self._embed(tokens), "batch", "seq", "embed")
         for p, kinds in zip(self.layers, self.kinds):
             if remat:
                 x = checkpoint(self._block, tensors_of(p), kinds, x,

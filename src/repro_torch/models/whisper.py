@@ -23,10 +23,14 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .attention import _proj_qkv, _sdpa, attn_mask, gqa_decode, gqa_init
-from .layers import (TreeModel, dense, dense_init, embed_init, layernorm,
-                     layernorm_init, mlp_gelu, mlp_init, named_leaves,
-                     stack_trees, tensors_of, unstack_rows)
+from repro_torch.parallel.sharding import shard
+
+from .attention import (_proj_qkv, _sdpa, attn_mask, gqa_decode, gqa_init,
+                        gqa_spec)
+from .layers import (TreeModel, dense, dense_init, dense_spec, embed_init,
+                     embed_spec, layernorm, layernorm_init, layernorm_spec,
+                     mlp_gelu, mlp_init, mlp_spec, named_leaves,
+                     stack_trees, stacked_spec, tensors_of, unstack_rows)
 
 __all__ = ["WhisperBackbone", "init_params", "stack_params",
            "unstack_params", "sinusoid"]
@@ -93,6 +97,34 @@ class WhisperBackbone(TreeModel):
                  device="cuda"):
         super().__init__(cfg, init_params, generator, device)
 
+    # -------------------------------------------------- logical axes ----
+
+    def param_logical(self):
+        """The logical axes of the reference's tree (:func:`stack_params`),
+        leaf for leaf."""
+        cfg = self.cfg
+        enc = {"ln1": layernorm_spec(), "attn": gqa_spec(cfg),
+               "ln2": layernorm_spec(), "mlp": mlp_spec(False)}
+        xattn = {"wq": dense_spec("embed", "heads"),
+                 "wk": dense_spec("embed", "heads"),
+                 "wv": dense_spec("embed", "heads"),
+                 "wo": dense_spec("heads", "embed")}
+        dec = {"ln1": layernorm_spec(), "attn": gqa_spec(cfg),
+               "lnx": layernorm_spec(), "xattn": xattn,
+               "ln2": layernorm_spec(), "mlp": mlp_spec(False)}
+        return {"embed": embed_spec(), "pos_dec": ("seq", "embed"),
+                "ln_enc": layernorm_spec(), "ln_dec": layernorm_spec(),
+                "enc": stacked_spec(enc), "dec": stacked_spec(dec)}
+
+    def cache_logical(self):
+        """The logical axes of :meth:`init_cache`'s cache, leaf for leaf."""
+        one = {"k": ("batch", "seq", "kv_heads", None),
+               "v": ("batch", "seq", "kv_heads", None),
+               "xk": ("batch", "seq", "heads", None),
+               "xv": ("batch", "seq", "heads", None)}
+        return {"idx": (), "layers": [dict(one)
+                                      for _ in range(self.cfg.dec_layers)]}
+
     def _logits(self, x):
         x = layernorm(self.ln_dec, x)
         return x @ self.embed["e"].to(x.dtype).T
@@ -107,7 +139,8 @@ class WhisperBackbone(TreeModel):
         # flash one
         a = _sdpa(q, k, v, None, cfg.head_dim ** -0.5, causal=False)
         x = x + dense(p["attn"]["wo"], a)
-        return x + mlp_gelu(p["mlp"], layernorm(p["ln2"], x))
+        x = x + mlp_gelu(p["mlp"], layernorm(p["ln2"], x))
+        return shard(x, "batch", "seq", "embed")
 
     def encode(self, frames, remat: bool = False):
         """frames ``(B, S_enc, d_model)``, the stub frontend's output ->
@@ -116,6 +149,7 @@ class WhisperBackbone(TreeModel):
         dt = getattr(torch, cfg.dtype)
         x = frames.to(dt) + sinusoid(frames.shape[1], cfg.d_model, dt,
                                      frames.device)
+        x = shard(x, "batch", "seq", "embed")
         for p in self.enc:
             if remat:
                 x = checkpoint(self._enc_block, tensors_of(p), x,
@@ -149,7 +183,8 @@ class WhisperBackbone(TreeModel):
         a = _sdpa(q, k, v, attn_mask(S, S, device=x.device),
                   cfg.head_dim ** -0.5)
         x = x + dense(p["attn"]["wo"], a)
-        return self._cross(p, x, *self._cross_kv(p, enc_out))
+        x = self._cross(p, x, *self._cross_kv(p, enc_out))
+        return shard(x, "batch", "seq", "embed")
 
     def forward(self, frames, dec_tokens, remat: bool = False):
         """Teacher-forced: frames ``(B, S_enc, d_model)`` and decoder tokens

@@ -22,6 +22,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import any_dtensor
 from repro_torch.tree import leaves, map_tree
 
 __all__ = ["AdamW", "Quantized", "quantize_q8", "dequantize_q8"]
@@ -88,8 +89,13 @@ class AdamW:
         return _float32(self.lr(step) if callable(self.lr) else self.lr)
 
     def init(self, params):
+        if self.quantized and any_dtensor(params):
+            raise NotImplementedError(
+                "8-bit AdamW state under a mesh (DTensor parameters)")
+
         def zeros_like_state(p):
-            z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            # a DTensor parameter's moments keep its placements
+            z = torch.zeros_like(p, dtype=torch.float32)
             return quantize_q8(z) if self.quantized else z
 
         return {
@@ -100,6 +106,9 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads, state, params, *, grad_scale: float = 1.0):
+        if self.quantized and any_dtensor(params):
+            raise NotImplementedError(
+                "8-bit AdamW state under a mesh (DTensor parameters)")
         step = int(state["step"]) + 1
         if self.clip_norm:
             gnorm = grad_scale * torch.sqrt(sum(

@@ -35,6 +35,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core.jacobi import jacobi_apply_basis, jacobi_eigh
+from repro_torch.parallel.sharding import any_dtensor
 from repro_torch.tree import map_tree
 
 from .adamw import _float32, bias_correction
@@ -87,6 +88,10 @@ class SoapGivens:
         return _eligible(p) and max(p.shape) <= self.max_dim
 
     def init(self, params):
+        if any_dtensor(params):
+            raise NotImplementedError(
+                "SoapGivens under a mesh (DTensor parameters)")
+
         def one(p):
             st = {
                 "m": torch.zeros(p.shape, dtype=torch.float32,
@@ -106,6 +111,9 @@ class SoapGivens:
 
     @torch.no_grad()
     def update(self, grads, state, params, *, grad_scale: float = 1.0):
+        if any_dtensor(params):
+            raise NotImplementedError(
+                "SoapGivens under a mesh (DTensor parameters)")
         step = int(state["step"]) + 1
         lr = self._lr(step)
         b1c = bias_correction(self.b1, step)

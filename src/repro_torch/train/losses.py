@@ -14,8 +14,9 @@ def softmax_cross_entropy(logits, labels):
     GSPMD; the value is the same).
     """
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    last = lf.dim() - 1
+    lse = torch.logsumexp(lf, dim=last)
+    ll = torch.gather(lf, last, labels[..., None].long())[..., 0]
     ce = torch.mean(lse - ll)
     z = torch.mean(torch.square(lse))
     return ce, z

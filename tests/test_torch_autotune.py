@@ -703,3 +703,31 @@ def test_autotune_on_the_card_measures_a_kernel(batch, monkeypatch):
     want = torch.stack([rot_sequence_blocked(A[i], s.cos, s.sin)
                         for i, s in enumerate(seqs)])
     _same_family(out, want, [plan.method])
+
+
+def test_shared_sequence_candidates_are_timed_through_plan_apply(
+        monkeypatch):
+    """A shared-sequence candidate is timed as its caller runs it, through
+    ``SequencePlan.apply`` on the problem's synthetic inputs (every
+    plan's host packing included), one call a warm-up and one a round."""
+    from repro_torch.core import sequence as seqmod
+    calls = []
+    orig = seqmod.SequencePlan.apply
+
+    def apply(self, A):
+        calls.append((self.method, dict(self.kwargs), tuple(A.shape)))
+        return orig(self, A)
+
+    monkeypatch.setattr(seqmod.SequencePlan, "apply", apply)
+    t = 2.0 ** -10
+    monkeypatch.setattr(registry, "_time_call",
+                        lambda fn, device: (fn(), t)[1])
+    prob = Problem(m=8, n=12, k=5, platform="cpu", batch=3)
+    plans = registry._modeled_plans(prob)[:3]
+    assert registry._measure_plans(prob, plans) == [t] * 3
+    rounds = math.ceil(registry._MEASURE_SECONDS / t)
+    assert len(calls) == 3 * (1 + rounds)
+    assert {c[2] for c in calls} == {(24, 12)}
+    assert {(meth, tuple(sorted(kw.items()))) for meth, kw, _ in calls} \
+        == {(pl.method, tuple(sorted(pl.kwargs().items()))) for pl in plans}
+

@@ -58,7 +58,9 @@ def test_no_jax_or_reference_imports_in_the_port():
                  "train/__init__.py", "train/step.py", "train/loop.py",
                  "train/losses.py", "ckpt/__init__.py", "ckpt/manager.py",
                  "parallel/__init__.py", "parallel/compression.py",
-                 "launch/train.py"):
+                 "launch/train.py", "parallel/sharding.py",
+                 "launch/mesh.py", "launch/specs.py",
+                 "configs/rotseq_paper.py"):
         assert PORT / part in files
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if _banned(name)]
@@ -90,7 +92,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.distributed, repro_torch.data, "
             "repro_torch.optim, repro_torch.train, repro_torch.ckpt, "
             "repro_torch.parallel, repro_torch.launch.train, "
-            "repro_torch.tree; "
+            "repro_torch.tree, repro_torch.parallel.sharding, "
+            "repro_torch.launch.mesh, repro_torch.launch.specs, "
+            "repro_torch.configs.rotseq_paper; "
             "[__import__('repro_torch.configs.' + a.replace('-', '_')) "
             "for a in repro_torch.configs.ARCHS]; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] "
@@ -125,14 +129,18 @@ def test_constructors_default_to_the_card():
 def test_training_defaults_to_the_card(tmp_path):
     """``launch.train``, ``TrainLoop`` and ``CheckpointManager.restore``
     put their tensors on the card unless told otherwise, and refuse
-    without one."""
+    without one; ``launch.mesh.make_production_mesh`` builds a card
+    mesh unless told otherwise."""
     import inspect
 
     from repro_torch.ckpt import CheckpointManager
     from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.train import TrainLoop
     assert inspect.signature(TrainLoop).parameters["device"].default == \
         "cuda"
+    assert inspect.signature(make_production_mesh).parameters[
+        "device_type"].default == "cuda"
     assert inspect.signature(
         CheckpointManager.restore).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
