@@ -134,6 +134,13 @@ mesh over a one-rank NCCL group (``DTensor`` parameters, optimizer state
 and batches placed by ``launch.specs.sharding_trees``), held to the step
 without a mesh (losses, the first step's gradients, RoPE launches), ms a
 step both ways.
+Then the dry run (``repro_torch.launch.dryrun``): the records of
+SmolLM-135M's train step and decode step, built on the meta device,
+held to the same steps run on the card under the step analysis
+(argument bytes, dot flops and flops equal, the record's peak against
+``max_memory_allocated``, RoPE launched), with the three roofline terms,
+``roofline_fraction`` and ``mfu`` beside the measured ms a step, and the
+H100 record's ``hbm_bytes`` against the card's memory.
 Every phase prints one JSON line and raises on failure.  The line before
 the last holds the card's name and power limit, the last ``{"ok": true,
 "device": {...}}``.  Exits non-zero, with no result, when there is no
@@ -2722,6 +2729,182 @@ def mesh_train_phase(dev, kernels) -> dict:
     return dict(counts=mesh_r["counts"])
 
 
+DRYRUN_TIMED = 5   # dryrun: steps timed outside the analysis, after a warm one
+# dryrun: bytes the allocator may give a step beyond the storages of the
+# ops the analysis sees: temporaries an op allocates inside itself and
+# frees before it returns (on the train step logsumexp's 805 MB and the
+# sums' up to 151 MB, none at its peak; 0.75 MiB live at the peak with
+# this line alone, 4.9 MiB after the whole script's earlier phases)
+DRYRUN_UNTRACKED = 8 * 2**20
+
+
+def dryrun_cell(dev, kind: str, kernels, smi: str) -> dict:
+    """One cell of the dry run held against the card: SmolLM-135M at full
+    width, ``train`` the ``train`` line's step (``TRAIN_BATCH x
+    TRAIN_SEQ``, float32 masters, bf16 compute, AdamW, no remat) or
+    ``decode`` the ``lm_serving`` line's (``LM_BATCH`` slots of
+    ``LM_MAX_LEN``, float32 weights and cache).  The record is built on
+    ``meta`` with no mesh; the same step then runs on the card from
+    seeded weights once warm and once under the step analysis (peak
+    memory reset just before it), then ``DRYRUN_TIMED`` times outside
+    it.  Argument bytes and dot flops must be equal, flops equal, the
+    record's peak not below ``max_memory_allocated`` less the allocator's
+    overheads: what the card held before the step besides its arguments
+    (the model module's own weights, which ``functional_call`` swaps
+    out, and other blocks: cuBLAS's workspace, earlier phases' caches),
+    the rounding of each block to 512 bytes (the record's
+    ``allocator_rounding_bytes``), and what the allocator gave the step
+    beyond the storages of the ops the analysis saw on the card, an op's
+    own temporaries (``untracked_bytes``, at most ``DRYRUN_UNTRACKED``);
+    and the step
+    must have launched RoPE once a layer (twice, training)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.hw import PLATFORMS
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import leaves
+    cfg = get_config(LM_ARCH)
+    f32 = torch.float32
+    if kind == "train":
+        shape = ShapeConfig("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+        opt = AdamW(lr=TRAIN_LR)
+    else:
+        shape = ShapeConfig("chip_decode", LM_MAX_LEN, LM_BATCH, "decode")
+        opt = None
+    t0 = time.perf_counter()
+    rec = dryrun.step_record(cfg, shape, optimizer=opt, remat=False,
+                             param_dtype=f32, cache_dtype=f32)
+    record_s = time.perf_counter() - t0
+    model, params = train_setup(cfg, dev, SEED + 24)
+    if kind == "train":
+        toks = make_batch(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH), 0)
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in toks.items()}
+        args = (params, opt.init(params), batch)
+    else:
+        tokens = torch.randint(0, cfg.vocab, (LM_BATCH, 1),
+                               generator=torch.Generator().manual_seed(
+                                   SEED + 25), dtype=torch.int32).to(dev)
+        args = (params, model.init_cache(LM_BATCH, LM_MAX_LEN, dtype=f32),
+                {"tokens": tokens})
+    step = dryrun.cell_step(model, cfg, kind, optimizer=opt, remat=False)
+    step(*args)                      # warm: cuBLAS, the allocator
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels.values():
+        k.LAUNCHES = 0
+    card = dryrun.measure(step, args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {name: k.LAUNCHES for name, k in kernels.items()}
+    times = []
+    for _ in range(DRYRUN_TIMED):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    ms = statistics.median(times) * 1e3
+    held_args = sum(x.nbytes for x in leaves(args)
+                    if isinstance(x, torch.Tensor))
+    # the module's own weights that are not also leaves of the tree
+    shared = {x.untyped_storage().data_ptr() for x in leaves(args)
+              if isinstance(x, torch.Tensor)}
+    module_bytes = sum(p.nbytes for p in model.parameters()
+                       if p.untyped_storage().data_ptr() not in shared)
+    m, hc = rec["memory"], rec["hlo_cost"]
+    cm, chc = card["memory"], card["hlo_cost"]
+    record_peak = rec["fits"]["peak_bytes"]
+    other = held - held_args
+    # what the allocator gave the step beyond the storages of the ops the
+    # analysis saw on the card, in its blocks
+    untracked = (peak - held) - (cm["temp_bytes"] + cm["output_bytes"]
+                                 - cm["alias_bytes"]
+                                 + cm["allocator_rounding_bytes"])
+    an = roofline.analyze(
+        {"cell": f"{cfg.name}__{shape.name}", "arch": cfg.name,
+         "kind": kind, "chips": 1, "memory": m, "hlo_cost": hc},
+        dims=(shape.seq_len, shape.global_batch))
+    hw = PLATFORMS["cuda"]
+    row = dict(
+        cell=kind, arch=cfg.name, batch=shape.global_batch,
+        seq=shape.seq_len, record_seconds=record_s,
+        record_trace_s=rec["trace_s"], card_trace_s=card["trace_s"],
+        argument_bytes=m["argument_bytes"],
+        card_argument_bytes=held_args,
+        dot_flops=hc["dot_flops_per_device"],
+        card_dot_flops=chc["dot_flops_per_device"],
+        flops=hc["flops_per_device"], card_flops=chc["flops_per_device"],
+        flops_diff=chc["flops_per_device"] - hc["flops_per_device"],
+        bytes=hc["bytes_per_device"], card_bytes=chc["bytes_per_device"],
+        bytes_lo=hc["bytes_lo_per_device"],
+        transcendentals=hc["transcendentals"],
+        record_memory=m, card_memory=cm, record_peak_bytes=record_peak,
+        max_memory_allocated_bytes=peak, held_before_step_bytes=held,
+        module_weight_bytes=module_bytes,
+        other_held_bytes=other - module_bytes,
+        peak_over_max_allocated=record_peak / peak,
+        peak_over_max_allocated_less_held=record_peak / (peak - other),
+        allocator_rounding_bytes=m["allocator_rounding_bytes"],
+        untracked_bytes=untracked,
+        rope_launches=launches.get("rope", 0),
+        compute_ms=an["compute_s"] * 1e3, memory_ms=an["memory_s"] * 1e3,
+        collective_ms=an["collective_s"] * 1e3, dominant=an["dominant"],
+        ms_per_step=ms, ms_per_step_runs=[t * 1e3 for t in times],
+        model_flops=an["model_flops"],
+        roofline_fraction=an["roofline_fraction"],
+        mfu=an["model_flops"] / (ms / 1e3 * hw.tc_bf16_flops),
+        tc_bf16_flops=hw.tc_bf16_flops, nvidia_smi=smi)
+    check(m["argument_bytes"] == held_args == cm["argument_bytes"],
+          f"dryrun {kind}: argument bytes {m['argument_bytes']} != card "
+          f"{held_args}")
+    check(hc["dot_flops_per_device"] == chc["dot_flops_per_device"],
+          f"dryrun {kind}: dot flops {hc['dot_flops_per_device']} != card "
+          f"{chc['dot_flops_per_device']}")
+    check(hc["flops_per_device"] == chc["flops_per_device"],
+          f"dryrun {kind}: flops {hc['flops_per_device']} != card "
+          f"{chc['flops_per_device']}")
+    rounding = m["allocator_rounding_bytes"]
+    check(untracked <= DRYRUN_UNTRACKED,
+          f"dryrun {kind}: {untracked} bytes allocated outside the ops "
+          f"the analysis sees (limit {DRYRUN_UNTRACKED})")
+    check(record_peak + rounding + max(untracked, 0) >= peak - other,
+          f"dryrun {kind}: record peak {record_peak} (+ {rounding} of "
+          f"allocator blocks, {untracked} untracked) below the card's "
+          f"{peak} less {other} held before the step")
+    rope = 2 * cfg.n_layers if kind == "train" else cfg.n_layers
+    check(launches.get("rope", 0) == rope,
+          f"dryrun {kind}: {launches.get('rope', 0)} rope launches in the "
+          f"analyzed step, expected {rope}")
+    del model, params, args
+    torch.cuda.empty_cache()
+    return row
+
+
+def dryrun_phase(dev, kernels, smi: str) -> dict:
+    """The dry run's predictions against the card on SmolLM-135M's train
+    and decode steps at full width (:func:`dryrun_cell`), and the H100
+    record's ``hbm_bytes`` against the card's ``total_memory``.  No
+    process group: the ``dist`` and ``mesh_train`` phases own NCCL's."""
+    import torch
+    from repro_torch.hw import PLATFORMS
+    t0 = time.perf_counter()
+    cells = {kind: dryrun_cell(dev, kind, kernels, smi)
+             for kind in ("train", "decode")}
+    total = torch.cuda.get_device_properties(dev).total_memory
+    emit(phase="dryrun", cells=cells, total_memory=total,
+         hbm_bytes=PLATFORMS["cuda"].hbm_bytes,
+         seconds=time.perf_counter() - t0)
+    check(PLATFORMS["cuda"].hbm_bytes == total,
+          f"hw hbm_bytes {PLATFORMS['cuda'].hbm_bytes} != the card's "
+          f"total_memory {total}")
+    return {"rope": sum(c["rope_launches"] for c in cells.values())}
+
+
 def train_parity_phase(dev, cfg=None, phase="train_parity",
                        seed: int = SEED + 10) -> None:
     """One float32 step's loss and gradients of ``cfg`` (SmolLM-135M at
@@ -3476,6 +3659,11 @@ def run() -> int:
         meshed["counts"]["rope"]
     entries["rope"]["launches"] += meshed["counts"]["rope"]
     emit(phase="training", seconds=time.perf_counter() - t_train)
+
+    # -- the dry run's records against the card ----------------------------
+    dry = dryrun_phase(dev, all_k, smi)
+    entries["rope"]["launches_by_path"]["dryrun"] = dry["rope"]
+    entries["rope"]["launches"] += dry["rope"]
 
     # the two tiled kernels' numbers are taken at the paper configuration
     order = ["name", "route", "source", "replaces", "launches",

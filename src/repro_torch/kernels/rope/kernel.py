@@ -13,6 +13,12 @@ kernel with ``inverse`` set, which reads ``sin`` negated, an exact sign
 flip, so the gradient equals autograd of the plain version bit for bit;
 on the CPU the plain version runs with ``-sin``.
 
+On ``meta`` tensors (the dry run, ``repro_torch.launch.dryrun``) the
+plain version's ops run on the meta tensors, computing only shapes, so a
+step's count prices RoPE as the reference's dry run does; a launch
+tells :func:`repro_torch.launch.step_analysis.opaque` the same ops, so a
+step analyzed on the card counts them too.
+
 The decode step calls this once a layer, so the host work of a call is
 kept small: each ctypes entry is resolved and typed once a dtype, the
 stream is read without switching devices when the tensor lies on the
@@ -25,6 +31,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import step_analysis
 
 from .ref import apply_rope_ref
 
@@ -132,11 +139,10 @@ def _rotate(q, k, cos, sin, inverse: bool):
             or sin.shape != cos.shape:
         _refuse_shapes(q, k, cos, sin)
     if not q.is_cuda:
-        if q.device.type != "cpu":
-            raise ValueError(f"rope runs on cuda or cpu, not {q.device}")
-        if inverse:
-            sin = -sin
-        return apply_rope_ref(q, cos, sin), apply_rope_ref(k, cos, sin)
+        if q.device.type not in ("cpu", "meta"):
+            raise ValueError(f"rope runs on cuda, cpu or meta, not "
+                             f"{q.device}")
+        return _plain(q, k, cos, sin, inverse)
     dtype, dev = q.dtype, q.get_device()
     if dtype not in _ENTRY or k.dtype != dtype or cos.dtype != dtype \
             or sin.dtype != dtype or k.get_device() != dev \
@@ -162,7 +168,16 @@ def _rotate(q, k, cos, sin, inverse: bool):
                     torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise RuntimeError(f"rope launch failed: CUDA error {rc}")
+    step_analysis.opaque(_plain, q, k, cos, sin, inverse)
     LAUNCHES += 1
     PATH_LAUNCHES["vector" if vector_path(D, q.element_size(), ptrs)
                   else "scalar"] += 1
     return qo, ko
+
+
+def _plain(q, k, cos, sin, inverse: bool):
+    """The plain version (``inverse``: by ``-sin``): what a CPU tensor
+    runs, and, on ``meta`` tensors, the shapes alone."""
+    if inverse:
+        sin = -sin
+    return apply_rope_ref(q, cos, sin), apply_rope_ref(k, cos, sin)

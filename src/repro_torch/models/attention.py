@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.rope.ops import apply_rope, rope_tables
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import gather_last_unless, shard
 
 from .layers import (dense, dense_init, dense_spec, rmsnorm, rmsnorm_init,
                      rmsnorm_spec, softcap)
@@ -109,13 +109,21 @@ def rope_rows(start: int, count: int, head_dim: int, base: float, dtype,
     return tabs[0][start:end], tabs[1][start:end]
 
 
+def _split_heads(y, H: int, Dh: int):
+    """``(B, S, H * Dh) -> (B, S, H, Dh)``.  A ``DTensor`` whose last dim
+    is split into shards that do not divide ``H`` (SmolLM's 9 heads over a
+    16-wide ``model`` axis) has that dim gathered first: ``DTensor``
+    cannot unflatten it."""
+    return gather_last_unless(y, H).reshape(*y.shape[:-1], H, Dh)
+
+
 def _proj_qkv(p, cfg, x, start: int, base: float):
     B, S, d = x.shape
     H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = shard(x, "batch", None, "embed")  # SP: gather seq at matmul entry
-    q = dense(p["wq"], x).reshape(B, S, H, Dh)
-    k = dense(p["wk"], x).reshape(B, S, Hk, Dh)
-    v = dense(p["wv"], x).reshape(B, S, Hk, Dh)
+    q = _split_heads(dense(p["wq"], x), H, Dh)
+    k = _split_heads(dense(p["wk"], x), Hk, Dh)
+    v = _split_heads(dense(p["wv"], x), Hk, Dh)
     if cfg.qk_norm:
         q = rmsnorm(p["qn"], q)
         k = rmsnorm(p["kn"], k)

@@ -267,9 +267,11 @@ class TreeModel(nn.Module):
         return x
 
     def _logits(self, x):
-        # the final norm, then the tied embedding as the head
+        # the final norm, then the tied embedding as the head; under a
+        # mesh its FSDP shards are gathered (vocab stays over "model"),
+        # not the activations' batch
         x = shard(rmsnorm(self.ln_f, x), "batch", None, "embed")
-        return x @ self.embed["e"].to(x.dtype).T
+        return x @ shard(self.embed["e"], "vocab", None).to(x.dtype).T
 
     def params(self):
         """The parameter tree ``init`` drew, as new tensors detached from

@@ -199,7 +199,9 @@ class Transformer(TreeModel):
         x = rmsnorm(self.ln_f, x)
         x = shard(x, "batch", None, "embed")  # SP: gather seq for lm head
         if cfg.tie_embeddings:
-            logits = x @ self.embed["e"].to(x.dtype).T
+            # under a mesh the table's FSDP shards are gathered (vocab
+            # stays over "model"), not the activations' batch
+            logits = x @ shard(self.embed["e"], "vocab", None).to(x.dtype).T
         else:
             logits = dense(self.lm_head, x)
         logits = softcap(logits, cfg.logit_softcap)

@@ -13,6 +13,14 @@ the reference.  The reference scans its update over the stack axis of
 large quantized leaves to bound XLA's temporaries; eager PyTorch holds
 one leaf's temporaries at a time anyway, and blockwise last-axis
 quantization commutes with that slicing, so the result is the same.
+
+Under a mesh (``DTensor`` parameters) the 8-bit state is quantized and
+dequantized once a shard, on each rank's local tensor: the same blocks
+as the whole tensor's where every shard of the last axis is a whole
+number of blocks (or that axis is not sharded).  Where a shard of it is
+not (Llama-3-405B's 1024-wide key projection in 16 shards), that axis
+is gathered before quantizing, so the state of that leaf is held whole
+along it.  The scales keep their tensor's placements.
 """
 from __future__ import annotations
 
@@ -22,7 +30,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.sharding import any_dtensor
+from repro_torch.parallel.sharding import gather_last_unless
 from repro_torch.tree import leaves, map_tree
 
 __all__ = ["AdamW", "Quantized", "quantize_q8", "dequantize_q8"]
@@ -39,9 +47,28 @@ def _is_q(x) -> bool:
     return isinstance(x, Quantized)
 
 
+def _from_local(local, like, shape):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
 def quantize_q8(x) -> Quantized:
     """Blockwise int8 along the LAST axis only: leading axes keep their
-    shape."""
+    shape.  A ``DTensor`` is quantized once a shard."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        # shards of the last axis in whole blocks, else that axis whole
+        last = x.shape[-1] if x.dim() else 1
+        x = gather_last_unless(x, last // _BLOCK if last % _BLOCK == 0
+                               else 1)
+        qv = quantize_q8(x.to_local())
+        nblocks = -(-x.shape[-1] // _BLOCK) if x.dim() else 1
+        return Quantized(_from_local(qv.q, x, x.shape),
+                         _from_local(qv.scale, x,
+                                     tuple(x.shape[:-1]) + (nblocks,)))
     lead = tuple(x.shape[:-1])
     last = x.shape[-1] if x.dim() else 1
     xr = x.reshape(lead + (last,)) if x.dim() else x.reshape(1)
@@ -54,6 +81,12 @@ def quantize_q8(x) -> Quantized:
 
 
 def dequantize_q8(qv: Quantized, shape):
+    from torch.distributed.tensor import DTensor
+    if isinstance(qv.q, DTensor):
+        local = qv.q.to_local()
+        return _from_local(
+            dequantize_q8(Quantized(local, qv.scale.to_local()),
+                          local.shape), qv.q, shape)
     shape = tuple(shape)
     lead, last = shape[:-1], shape[-1] if len(shape) else 1
     pad = (-last) % _BLOCK
@@ -89,10 +122,6 @@ class AdamW:
         return _float32(self.lr(step) if callable(self.lr) else self.lr)
 
     def init(self, params):
-        if self.quantized and any_dtensor(params):
-            raise NotImplementedError(
-                "8-bit AdamW state under a mesh (DTensor parameters)")
-
         def zeros_like_state(p):
             # a DTensor parameter's moments keep its placements
             z = torch.zeros_like(p, dtype=torch.float32)
@@ -106,9 +135,6 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads, state, params, *, grad_scale: float = 1.0):
-        if self.quantized and any_dtensor(params):
-            raise NotImplementedError(
-                "8-bit AdamW state under a mesh (DTensor parameters)")
         step = int(state["step"]) + 1
         if self.clip_norm:
             gnorm = grad_scale * torch.sqrt(sum(

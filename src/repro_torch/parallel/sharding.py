@@ -27,7 +27,7 @@ from typing import Dict, Optional, Tuple
 
 __all__ = ["AxisRules", "axis_rules", "current_rules", "current_mesh",
            "shard", "logical_to_spec", "param_spec", "PartitionSpec",
-           "to_placements", "NamedSharding",
+           "to_placements", "NamedSharding", "gather_last_unless",
            "any_dtensor", "DEFAULT_RULES"]
 
 _state = threading.local()
@@ -244,6 +244,24 @@ def shard(x, *logical: Optional[str]):
     if tuple(x.placements) == placements:
         return x
     return x.redistribute(mesh, placements)
+
+
+def gather_last_unless(x, n: int):
+    """A ``DTensor`` whose last dim is split into a number of shards that
+    does not divide ``n``, with that dim gathered (its other placements
+    kept); ``x`` itself otherwise, and for a plain tensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    last = Shard(x.dim() - 1)
+    ways = 1
+    for i, pl in enumerate(x.placements):
+        if pl == last:
+            ways *= x.device_mesh.size(i)
+    if n % ways == 0:
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if pl == last else pl
+                                          for pl in x.placements])
 
 
 def any_dtensor(tree) -> bool:

@@ -60,7 +60,8 @@ def test_no_jax_or_reference_imports_in_the_port():
                  "parallel/__init__.py", "parallel/compression.py",
                  "launch/train.py", "parallel/sharding.py",
                  "launch/mesh.py", "launch/specs.py",
-                 "configs/rotseq_paper.py"):
+                 "configs/rotseq_paper.py", "launch/dryrun.py",
+                 "launch/roofline.py", "launch/step_analysis.py"):
         assert PORT / part in files
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if _banned(name)]
@@ -94,7 +95,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.parallel, repro_torch.launch.train, "
             "repro_torch.tree, repro_torch.parallel.sharding, "
             "repro_torch.launch.mesh, repro_torch.launch.specs, "
-            "repro_torch.configs.rotseq_paper; "
+            "repro_torch.configs.rotseq_paper, "
+            "repro_torch.launch.dryrun, repro_torch.launch.roofline, "
+            "repro_torch.launch.step_analysis; "
             "[__import__('repro_torch.configs.' + a.replace('-', '_')) "
             "for a in repro_torch.configs.ARCHS]; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] "

@@ -33,8 +33,11 @@ TILES = [dict(), dict(n_b=64, k_b=16), dict(n_b=128, k_b=128),
 
 
 def test_cpu_hardware_row_is_the_reference_row():
+    # every field of the reference's record equal; the port's record adds
+    # two the registry does not read (tc_bf16_flops, hbm_bytes)
     ref = J_PLATFORMS["cpu"]
-    assert dataclasses.astuple(PLATFORMS["cpu"]) == dataclasses.astuple(ref)
+    assert {f.name: getattr(PLATFORMS["cpu"], f.name)
+            for f in dataclasses.fields(ref)} == dataclasses.asdict(ref)
     h100 = PLATFORMS["cuda"]
     assert h100.vpu_flops == h100.mxu_flops == 67e12
     assert (h100.hbm_bw, h100.link_bw) == (3.35e12, 450e9)

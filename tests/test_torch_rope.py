@@ -123,9 +123,13 @@ def test_wrapper_refusals():
     for args in bad:
         with pytest.raises(ValueError):
             rope_k.rope(*args)
+    # meta tensors (the dry run) take the plain version's shapes, and
+    # are refused for the same bad shapes
     meta = [t.to("meta") for t in (q, k, c, s)]
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        rope_k.rope(*meta)
+    qo, ko = rope_k.rope(*meta)
+    assert (qo.device.type, qo.shape, ko.shape) == ("meta", q.shape, k.shape)
+    with pytest.raises(ValueError):
+        rope_k.rope(meta[0][0], *meta[1:])
 
 
 # ----------------------------------------------------- the gradient ----
