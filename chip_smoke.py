@@ -165,6 +165,13 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 SEED = 0
 
+# the port's one clock, repro_torch.obs.timing: bound here when src/ is
+# already on the path (a phase imported and called by hand), else by run()
+try:
+    from repro_torch.obs import timing
+except ImportError:
+    timing = None
+
 # H100 SXM peaks (NVIDIA data sheet): float32 off the tensor cores, HBM3
 PEAK_F32 = 67e12
 PEAK_BW = 3.35e12
@@ -594,7 +601,7 @@ def paper_sweep_phase(dev, kernels) -> dict:
     from repro_torch.core.accumulate import rot_sequence_accumulated
     from repro_torch.core.blocked import rot_sequence_blocked
     from repro_torch.kernels.rotseq.ops import rot_sequence_wave
-    t0 = time.perf_counter()
+    t0 = timing.now()
     k = CONFIG.k
     tiles = {"cuda_wave": WAVE_TILES,
              f"cuda_mxu {CONFIG.mxu_n_b}/{CONFIG.mxu_k_b}": dict(
@@ -651,7 +658,7 @@ def paper_sweep_phase(dev, kernels) -> dict:
     torch.cuda.empty_cache()
     out = dict(phase="paper_sweep", sizes=list(CONFIG.sizes), k=k,
                check_max=PAPER_CHECK_MAX, mxu_tol=MXU_TOL, rows=rows,
-               launches=launches, seconds=time.perf_counter() - t0)
+               launches=launches, seconds=timing.now() - t0)
     emit(**out)
     return out
 
@@ -809,7 +816,7 @@ def serving_phase(bctx, kernels) -> dict:
 
     for k in kernels.values():
         k.LAUNCHES = 0
-    t0 = time.perf_counter()
+    t0 = timing.now()
     svc = RotationService(slots=B, method="auto", store=False)
     outs = svc.apply_many(bucket + mixed)
     plan_t = stairs[0].plan(like=A, batch=B, shared_sequence=False)
@@ -824,7 +831,7 @@ def serving_phase(bctx, kernels) -> dict:
     eng.close(drain=True)
     streamed = [t.result(timeout=600) for t in tickets]
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    seconds = timing.now() - t0
     counts = {name: k.LAUNCHES for name, k in kernels.items()}
 
     methods = {"x".join(map(str, key.as_list()[:2])) + f"/k{key.k_pad}"
@@ -886,9 +893,9 @@ def serving_phase(bctx, kernels) -> dict:
     rates = {}
     for name, fn in (("sync", run_sync), ("stream", run_stream)):
         fn()
-        t1 = time.perf_counter()
+        t1 = timing.now()
         fn()
-        rates[name] = STREAM_REQUESTS / (time.perf_counter() - t1)
+        rates[name] = STREAM_REQUESTS / (timing.now() - t1)
     emit(phase="serving", bucket_methods=methods,
          requests=len(bucket) + len(mixed), service_stats=svc.stats,
          bitwise_vs_per_request=True, staircase_waves=stairs[0].k,
@@ -919,10 +926,10 @@ def recorded(module, *names):
 
     def wrap(name, fn):
         def timed(*args, **kw):
-            t0 = time.perf_counter()
+            t0 = timing.now()
             out = fn(*args, **kw)
             torch.cuda.synchronize()
-            seen[name].append((time.perf_counter() - t0, out))
+            seen[name].append((timing.now() - t0, out))
             return out
         return timed
 
@@ -966,7 +973,7 @@ def plain_replay(buf, recordings, what: str) -> dict:
     got = buf.value
     plain = plain_of(plan.method)
     eye = torch.eye(got.shape[-1], dtype=got.dtype, device=got.device)
-    t0 = time.perf_counter()
+    t0 = timing.now()
     pbuf = DelayedRotationBuffer(eye, k_delay=buf.k_delay, method=plain,
                                  **dict(plan.kwargs))
     for C, S in recordings:
@@ -974,7 +981,7 @@ def plain_replay(buf, recordings, what: str) -> dict:
                                             torch.from_numpy(S)))
     want = pbuf.value
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
+    ms = (timing.now() - t0) * 1e3
     err = same_family(got, want, [plan.method],
                       f"{what}: {plan.method} flushes vs {plain}")
     return dict(method=plan.method, tiles=dict(plan.kwargs),
@@ -1000,13 +1007,13 @@ def eig_qr(dev, kernels) -> dict:
     H = (X + X.T) / 2
     for k in kernels.values():
         k.LAUNCHES = 0
-    t0 = time.perf_counter()
+    t0 = timing.now()
     with recorded(eig_api, "tridiagonalize", "tridiag_qr",
                   "DelayedRotationBuffer") as seen:
         w, V = eigh_givens(H, k_delay=EIG_K_DELAY, apply_method="auto",
                            device=dev)
         torch.cuda.synchronize()
-    eigh_s = time.perf_counter() - t0
+    eigh_s = timing.now() - t0
     counts = {name: k.LAUNCHES for name, k in kernels.items()}
     ((tri_s, tri),) = seen["tridiagonalize"]
     ((qr_s, qr),) = seen["tridiag_qr"]
@@ -1087,12 +1094,12 @@ def eig_svd(dev, kernels) -> None:
         np.float32)
     for k in kernels.values():
         k.LAUNCHES = 0
-    t0 = time.perf_counter()
+    t0 = timing.now()
     with recorded(eig_api, "bidiagonalize", "bidiag_qr",
                   "DelayedRotationBuffer") as seen:
         U, s, Vt = svd_givens(A, k_delay=EIG_K_DELAY, device=dev)
         torch.cuda.synchronize()
-    svd_s = time.perf_counter() - t0
+    svd_s = timing.now() - t0
     counts = {name: k.LAUNCHES for name, k in kernels.items()}
     ((bd_s, bd),) = seen["bidiagonalize"]
     ((bq_s, bq),) = seen["bidiag_qr"]
@@ -1150,12 +1157,12 @@ def eig_jacobi(dev, kernels) -> None:
     H = (X + X.T) / 2
     for k in kernels.values():
         k.LAUNCHES = 0
-    t0 = time.perf_counter()
+    t0 = timing.now()
     with recorded(jac, "jacobi_eigh", "jacobi_apply_basis") as seen:
         w, V = eigh_givens(H, method="jacobi", cycles=JACOBI_CYCLES,
                            device=dev)
         torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    seconds = timing.now() - t0
     counts = {name: k.LAUNCHES for name, k in kernels.items()}
     ((loop_s, res),) = seen["jacobi_eigh"]
     ((apply_s, V_raw),) = seen["jacobi_apply_basis"]
@@ -1169,10 +1176,10 @@ def eig_jacobi(dev, kernels) -> None:
           f"{KERNEL_OF[plan.method]} never launched applying the Jacobi "
           f"basis")
     plain = plain_of(plan.method)
-    t1 = time.perf_counter()
+    t1 = timing.now()
     V_plain = jac.jacobi_apply_basis(res, method=plain, **dict(plan.kwargs))
     torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t1) * 1e3
+    plain_ms = (timing.now() - t1) * 1e3
     err_plain = same_family(V_raw, V_plain, [plan.method],
                             f"Jacobi basis: {plan.method} vs {plain}")
     ref = np.linalg.eigvalsh(H.astype(np.float64))
@@ -1214,11 +1221,11 @@ def eig_batched(dev, kernels, rec: dict) -> None:
                            torch.from_numpy(rec["S"]))
     for k in kernels.values():
         k.LAUNCHES = 0
-    t0 = time.perf_counter()
+    t0 = timing.now()
     buf = DelayedRotationBuffer(M, k_delay=EIG_K_DELAY)
     out = buf.push_sequence(seq).value
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms = (timing.now() - t0) * 1e3
     counts = {name: k.LAUNCHES for name, k in kernels.items()}
     (plan,) = buf._plans.values()
     check(plan.method in KERNEL_OF, f"auto planned {plan.method} for the "
@@ -1326,11 +1333,11 @@ def autotune_point(label, sq, X, seqs, model, kernels, seen) -> dict:
     for k in kernels.values():
         k.LAUNCHES = 0
     seen.clear()
-    t0 = time.perf_counter()
+    t0 = timing.now()
     best = registry.select_plan(**prob, autotune=True,
                                 autotune_top=AUTOTUNE_TOP)
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    seconds = timing.now() - t0
     launches = {name: k.LAUNCHES for name, k in kernels.items()}
     skipped = [(p.method, tiles_of(p)) for _, p, t in seen if t is None]
     timed = [(p, secs) for _, p, secs in seen if secs is not None]
@@ -1505,7 +1512,7 @@ def autotune_phase(ctx, seq, bctx, rec, kernels) -> None:
     from repro_torch import RotationSequence
     from repro_torch.core import registry
     dev = ctx["A"].device
-    t0 = time.perf_counter()
+    t0 = timing.now()
     points = {label: (sq, X, None)
               for label, (sq, X, _) in planner_points(ctx, seq).items()}
     points["serving bucket"] = (bctx["padded"][0], bctx["A"],
@@ -1529,7 +1536,7 @@ def autotune_phase(ctx, seq, bctx, rec, kernels) -> None:
         entry = autotune_entry_points(bctx, rec, seen)
     emit(phase="autotune", autotune_top=AUTOTUNE_TOP, slack=AUTOTUNE_SLACK,
          points=rows, persistence=persistence, entry_points=entry,
-         seconds=time.perf_counter() - t0)
+         seconds=timing.now() - t0)
 
 
 # the observability phase: obs-on applications a case, and the 1024^2
@@ -1624,13 +1631,13 @@ def obs_launcher(dev) -> dict:
         metrics, trace = (os.path.join(tmp, "metrics.json"),
                           os.path.join(tmp, "trace.json"))
         env = dict(os.environ, PYTHONPATH=str(SRC), REPRO_PLAN_CACHE="off")
-        t0 = time.perf_counter()
+        t0 = timing.now()
         out = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.serve", "--rotations",
              "--check", "--device", dev.type, "--metrics-json", metrics,
              "--trace", trace], env=env, cwd=str(ROOT), capture_output=True,
             text=True, timeout=600)
-        seconds = time.perf_counter() - t0
+        seconds = timing.now() - t0
         check(out.returncode == 0, f"obs launcher exit {out.returncode}: "
               f"{out.stderr[-2000:]}")
         with open(metrics) as f:
@@ -1674,7 +1681,7 @@ def obs_phase(ctx, seq, bctx, rec, kernels, kind: str, smi: str) -> None:
     from repro_torch.serve import RotationService
     dev = ctx["A"].device
     A = ctx["A"]
-    t0 = time.perf_counter()
+    t0 = timing.now()
     registry.clear_plan_cache()
     cases = {}
     for meth, tiles in (("cuda_wave", WAVE_TILES),
@@ -1723,7 +1730,7 @@ def obs_phase(ctx, seq, bctx, rec, kernels, kind: str, smi: str) -> None:
                         ms_off=cost["off"], ms_on=cost["on"],
                         on_over_off=statistics.median(cost["on"])
                         / statistics.median(cost["off"])),
-         launcher=launcher, seconds=time.perf_counter() - t0)
+         launcher=launcher, seconds=timing.now() - t0)
 
 
 DIST_REPS = 10      # applications a timing, in rounds rep, dist, dist, rep
@@ -1786,7 +1793,7 @@ def dist_phase(ctx, seq, bctx, rec, kernels, smi: str) -> None:
     batched_k = kernels["rotseq_batched"]
     A = ctx["A"]
     dev = A.device
-    t0 = time.perf_counter()
+    t0 = timing.now()
     registry.clear_plan_cache()
     backend, mesh = dist_mesh(dev)
     try:
@@ -1878,10 +1885,10 @@ def dist_phase(ctx, seq, bctx, rec, kernels, smi: str) -> None:
             cplan = dist.plan_sharded(sq, like=X, mesh=mesh,
                                       partition="column", method=method)
             torch.cuda.synchronize()
-            t1 = time.perf_counter()
+            t1 = timing.now()
             cout = cplan.apply(X)
             torch.cuda.synchronize()
-            col_s = time.perf_counter() - t1
+            col_s = timing.now() - t1
             if method == "blocked":
                 cwant = sq.plan(like=X, method="blocked",
                                 **dict(cplan.kwargs)).apply(X)
@@ -1934,7 +1941,7 @@ def dist_phase(ctx, seq, bctx, rec, kernels, smi: str) -> None:
          bucket=dict(shape=[B, MB, NB, KB], launches=bucket_launches,
                      ms=bucket_ms),
          service=service, eig_flush=flush, column=column, obs=obs_row,
-         h100_crossover=crossover, seconds=time.perf_counter() - t0)
+         h100_crossover=crossover, seconds=timing.now() - t0)
 
 
 def rope_inputs(dev, label: str, dtype, gen):
@@ -2022,10 +2029,10 @@ def host_us(fn, calls: int, rounds: int = 5) -> list:
     out = []
     for _ in range(rounds):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = timing.now()
         for _ in range(calls):
             fn()
-        out.append((time.perf_counter() - t0) * 1e6 / calls)
+        out.append((timing.now() - t0) * 1e6 / calls)
     torch.cuda.synchronize()
     return out
 
@@ -2134,11 +2141,11 @@ class Prefilled:
         self.prefill_s = []
         for _ in range(runs):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t0 = timing.now()
             with torch.inference_mode():
                 self.cache = model.init_cache(frames, max_len, dtype=dtype)
             torch.cuda.synchronize()
-            self.prefill_s.append(time.perf_counter() - t0)
+            self.prefill_s.append(timing.now() - t0)
 
     def init_cache(self, batch: int, max_len: int, dtype):
         for c in self.cache["layers"]:
@@ -2170,11 +2177,11 @@ def lm_decode_numbers(dev, kernels, cfg=None, serve=None) -> dict:
     from repro_torch.serve import ServeEngine
     cfg = cfg or get_config(LM_ARCH)
     torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
+    t0 = timing.now()
     model = build_model(cfg, device=dev,
                         generator=torch.Generator().manual_seed(SEED))
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    init_s = timing.now() - t0
     prompts = lm_prompts(cfg.vocab, LM_BATCH)
     served = serve(model) if serve else model
     eng = ServeEngine(served, cfg, batch=LM_BATCH, max_len=LM_MAX_LEN)
@@ -2207,10 +2214,10 @@ def lm_decode_numbers(dev, kernels, cfg=None, serve=None) -> dict:
                     k.LAUNCHES = 0
                 paths = dict(rope_k.PATH_LAUNCHES)
             torch.cuda.synchronize()
-            t0, c0 = time.perf_counter(), time.thread_time()
+            t0, c0 = timing.now(), time.thread_time()
             outs = eng.generate(prompts, max_new=LM_MAX_NEW)
             torch.cuda.synchronize()
-            runs.append(time.perf_counter() - t0)
+            runs.append(timing.now() - t0)
             cpu.append(time.thread_time() - c0)
             if run == 0:
                 counts = {name: k.LAUNCHES for name, k in kernels.items()}
@@ -2266,7 +2273,7 @@ def lm_serving_phase(dev, kernels, cfg=None, phase="lm_serving",
     first builds a RoPE table (a model with no RoPE builds none).
     ``extra(served)`` adds keys to the line."""
     import torch
-    t0 = time.perf_counter()
+    t0 = timing.now()
     run = lm_decode_numbers(dev, kernels, cfg, serve)
     cfg, prompts, outs, counts = (run["cfg"], run["prompts"], run["outs"],
                                   run["counts"])
@@ -2288,7 +2295,7 @@ def lm_serving_phase(dev, kernels, cfg=None, phase="lm_serving",
     check(bool(torch.stack(run["finite"]).all()), "non-finite logits")
     emit(phase=phase, **run["row"],
          **(extra(run["served"]) if extra else {}),
-         phase_seconds=time.perf_counter() - t0)
+         phase_seconds=timing.now() - t0)
     return dict(counts=counts, ms_per_step=run["row"]["ms_per_step"])
 
 
@@ -2370,13 +2377,13 @@ def lm_parity_phase(dev, cfg=None, phase="lm_parity",
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve import ServeEngine
-    t_phase = time.perf_counter()
+    t_phase = timing.now()
     cfg = dataclasses.replace(cfg or get_config(LM_ARCH), dtype="float32")
-    t0 = time.perf_counter()
+    t0 = timing.now()
     host = build_model(cfg, device="cpu",
                        generator=torch.Generator().manual_seed(seed))
     card = card_twin(host, cfg, dev)
-    init_s = time.perf_counter() - t0
+    init_s = timing.now() - t0
     prompts = lm_prompts(cfg.vocab, LM_BATCH)[:PARITY_BATCH]
     runs = {}
     for name, model in (("card", card), ("host", host)):
@@ -2391,9 +2398,9 @@ def lm_parity_phase(dev, cfg=None, phase="lm_parity",
             return logits, cache
 
         eng._step = logged
-        t0 = time.perf_counter()
+        t0 = timing.now()
         outs = eng.generate(prompts, max_new=PARITY_MAX_NEW)
-        runs[name] = (outs, log, time.perf_counter() - t0)
+        runs[name] = (outs, log, timing.now() - t0)
     (c_out, c_log, c_s), (h_out, h_log, h_s) = runs["card"], runs["host"]
     check(len(c_log) == len(h_log), "card and host ran different steps")
     errs = [float((a - b).abs().max() / b.abs().max())
@@ -2407,7 +2414,7 @@ def lm_parity_phase(dev, cfg=None, phase="lm_parity",
          tokens_equal=True, tokens=c_out, max_rel_logit_err=max(errs),
          rtol=PARITY_RTOL, card_seconds=c_s, host_seconds=h_s,
          init_seconds=init_s, **more,
-         seconds=time.perf_counter() - t_phase)
+         seconds=timing.now() - t_phase)
     del card, host
     torch.cuda.empty_cache()
 
@@ -2501,12 +2508,12 @@ def profile_step(step_fn) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0 = timing.now()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step_fn()
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = timing.now() - t0
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages() if e.device_type != DeviceType.CPU]
     total = sum(us for _, us, _ in rows)
@@ -2543,7 +2550,7 @@ def train_phase(dev, kernels) -> dict:
                                    cfg.n_kv_heads, cfg.head_dim),
           f"ROPE_SHAPES['train'] {ROPE_SHAPES['train']} is not the train "
           f"step's q/k")
-    t_phase = time.perf_counter()
+    t_phase = timing.now()
     model, params = train_setup(cfg, dev, SEED + 9)
     sched = warmup_cosine(TRAIN_LR, warmup=TRAIN_STEPS // 10 + 1,
                           total=TRAIN_STEPS)
@@ -2598,7 +2605,7 @@ def train_phase(dev, kernels) -> dict:
                             1.0 - prof["device_ms"] / ms),
          q8_losses=q8["loss"],
          q8_ms_per_step=statistics.median(q8["time"][1:]) * 1e3,
-         seconds=time.perf_counter() - t_phase)
+         seconds=timing.now() - t_phase)
     return dict(loop=loop, model=model, cfg=cfg, counts=counts)
 
 
@@ -2646,7 +2653,7 @@ def mesh_train_phase(dev, kernels) -> dict:
     from repro_torch.optim import AdamW
     from repro_torch.parallel.sharding import axis_rules
     from repro_torch.train import make_train_step
-    t_phase = time.perf_counter()
+    t_phase = timing.now()
     cfg = get_config(LM_ARCH)
     model, params = train_setup(cfg, dev, SEED + 23)
     batches = [make_batch(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH), s)
@@ -2675,12 +2682,12 @@ def mesh_train_phase(dev, kernels) -> dict:
                         for k in kernels.values():
                             k.LAUNCHES = 0
                     torch.cuda.synchronize()
-                    t0 = time.perf_counter()
+                    t0 = timing.now()
                     if meshed:
                         b = distribute_tree(b, trees["batch"])
                     p, state, m = step(p, state, b)
                     losses.append(float(m["loss"]))
-                    times.append(time.perf_counter() - t0)
+                    times.append(timing.now() - t0)
             torch.cuda.synchronize()
             runs[label] = dict(losses=losses, ms=[t * 1e3 for t in times],
                                grads=rec.first,
@@ -2724,7 +2731,7 @@ def mesh_train_phase(dev, kernels) -> dict:
                mesh_over_plain=ms["mesh"] / ms["plain"],
                ms_all={label: r["ms"] for label, r in runs.items()},
                launches={label: r["counts"] for label, r in runs.items()},
-               seconds=time.perf_counter() - t_phase)
+               seconds=timing.now() - t_phase)
     emit(**out)
     return dict(counts=mesh_r["counts"])
 
@@ -2774,10 +2781,10 @@ def dryrun_cell(dev, kind: str, kernels, smi: str) -> dict:
     else:
         shape = ShapeConfig("chip_decode", LM_MAX_LEN, LM_BATCH, "decode")
         opt = None
-    t0 = time.perf_counter()
+    t0 = timing.now()
     rec = dryrun.step_record(cfg, shape, optimizer=opt, remat=False,
                              param_dtype=f32, cache_dtype=f32)
-    record_s = time.perf_counter() - t0
+    record_s = timing.now() - t0
     model, params = train_setup(cfg, dev, SEED + 24)
     if kind == "train":
         toks = make_batch(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH), 0)
@@ -2804,10 +2811,10 @@ def dryrun_cell(dev, kind: str, kernels, smi: str) -> dict:
     times = []
     for _ in range(DRYRUN_TIMED):
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
+        t1 = timing.now()
         step(*args)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t1)
+        times.append(timing.now() - t1)
     ms = statistics.median(times) * 1e3
     held_args = sum(x.nbytes for x in leaves(args)
                     if isinstance(x, torch.Tensor))
@@ -2892,13 +2899,13 @@ def dryrun_phase(dev, kernels, smi: str) -> dict:
     process group: the ``dist`` and ``mesh_train`` phases own NCCL's."""
     import torch
     from repro_torch.hw import PLATFORMS
-    t0 = time.perf_counter()
+    t0 = timing.now()
     cells = {kind: dryrun_cell(dev, kind, kernels, smi)
              for kind in ("train", "decode")}
     total = torch.cuda.get_device_properties(dev).total_memory
     emit(phase="dryrun", cells=cells, total_memory=total,
          hbm_bytes=PLATFORMS["cuda"].hbm_bytes,
-         seconds=time.perf_counter() - t0)
+         seconds=timing.now() - t0)
     check(PLATFORMS["cuda"].hbm_bytes == total,
           f"hw hbm_bytes {PLATFORMS['cuda'].hbm_bytes} != the card's "
           f"total_memory {total}")
@@ -2920,7 +2927,7 @@ def train_parity_phase(dev, cfg=None, phase="train_parity",
     from repro_torch.models.zoo import stack_params
     from repro_torch.train.step import _value_and_grad
     from repro_torch.tree import flatten_with_paths
-    t_phase = time.perf_counter()
+    t_phase = timing.now()
     cfg = dataclasses.replace(cfg or get_config(LM_ARCH), dtype="float32")
     b, s = TRAIN_PARITY
     frames = None
@@ -2937,11 +2944,11 @@ def train_parity_phase(dev, cfg=None, phase="train_parity",
     card = card_twin(host, cfg, dev)
     out = {}
     for name, model in (("card", card), ("host", host)):
-        t0 = time.perf_counter()
+        t0 = timing.now()
         p = stack_params(cfg, model.params())
         metrics, grads = _value_and_grad(model, cfg, p, batch, False)
         out[name] = (float(metrics["loss"]), flatten_with_paths(grads),
-                     time.perf_counter() - t0)
+                     timing.now() - t0)
     (lc, gc, sc), (lh, gh, sh) = out["card"], out["host"]
     loss_err = abs(lc - lh) / abs(lh)
     zero = [path for (path, a), (_, h) in zip(gc, gh)
@@ -2964,7 +2971,7 @@ def train_parity_phase(dev, cfg=None, phase="train_parity",
          grad_rel_err={p: e for p, e in errs.items()
                        if p.endswith(roped) or "embed" in p},
          tol=TRAIN_PARITY_TOL, card_seconds=sc, host_seconds=sh,
-         seconds=time.perf_counter() - t_phase)
+         seconds=timing.now() - t_phase)
 
 
 def soap_phase(dev, kernels) -> None:
@@ -2995,12 +3002,12 @@ def soap_phase(dev, kernels) -> None:
     def timed(self, L, R):
         before = {name: k.LAUNCHES for name, k in kernels.items()}
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0 = timing.now()
         out = real(self, L, R)
         torch.cuda.synchronize()
         refreshes.append(dict(
             sides=[L.shape[0], R.shape[0]], solver=self.solver,
-            seconds=time.perf_counter() - t0,
+            seconds=timing.now() - t0,
             launches={name: k.LAUNCHES - before[name]
                       for name, k in kernels.items()}))
         return out
@@ -3011,11 +3018,11 @@ def soap_phase(dev, kernels) -> None:
     soap_mod.SoapGivens.refresh = timed
     soap_mod.jacobi_apply_basis = basis
     try:
-        t0 = time.perf_counter()
+        t0 = timing.now()
         loop, hist = train_run(model, cfg, params, opt, SOAP_STEPS,
                                SOAP_BATCH, SOAP_SEQ, dev)
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        seconds = timing.now() - t0
     finally:
         soap_mod.SoapGivens.refresh = real
         soap_mod.jacobi_apply_basis = real_basis
@@ -3178,7 +3185,7 @@ def ssm_card_checks(card, cfg) -> dict:
     check(s == 2 * cfg.ssm_chunk, f"{s} tokens are not two chunks")
     batch = make_batch(DataConfig(cfg.vocab, s, b), 0)
     toks = torch.from_numpy(batch["tokens"]).long().to(card.device)
-    t0 = time.perf_counter()
+    t0 = timing.now()
     with torch.inference_mode():
         full = card(toks)
         cache = card.init_cache(b, s, dtype=torch.float32)
@@ -3188,11 +3195,11 @@ def ssm_card_checks(card, cfg) -> dict:
             err = max(err, float((lg[:, 0] - full[:, t]).abs().max()))
         rel = err / float(full.abs().max())
     torch.cuda.synchronize()
-    fwd_s = time.perf_counter() - t0
+    fwd_s = timing.now() - t0
     check(rel <= SSM_DECODE_RTOL,
           f"mamba2 forward vs decode at {b} x {s}: {rel} > {SSM_DECODE_RTOL}")
     del full, cache
-    t0 = time.perf_counter()
+    t0 = timing.now()
     metrics, grads = _value_and_grad(card, cfg, stack_params(
         cfg, card.params()), batch, False)
     flat = flatten_with_paths(grads)
@@ -3208,7 +3215,7 @@ def ssm_card_checks(card, cfg) -> dict:
                                seconds=fwd_s),
         backward=dict(batch=b, seq=s, chunk=cfg.ssm_chunk,
                       loss=float(metrics["loss"]), leaves=len(flat),
-                      all_finite=True, seconds=time.perf_counter() - t0))
+                      all_finite=True, seconds=timing.now() - t0))
 
 
 def ssm_soap_phase(dev, kernels) -> None:
@@ -3222,7 +3229,7 @@ def ssm_soap_phase(dev, kernels) -> None:
     from repro_torch.optim import SoapGivens, warmup_cosine
     from repro_torch.tree import flatten_with_paths
     cfg = get_config(SSM_ARCH).reduced()
-    t0 = time.perf_counter()
+    t0 = timing.now()
     model, params = train_setup(cfg, dev, SEED + 17)
     sched = warmup_cosine(TRAIN_LR, warmup=SSM_SOAP_STEPS // 10 + 1,
                           total=SSM_SOAP_STEPS)
@@ -3250,7 +3257,7 @@ def ssm_soap_phase(dev, kernels) -> None:
          steps=SSM_SOAP_STEPS, update_freq=SSM_SOAP_FREQ, batch=SOAP_BATCH,
          seq=SOAP_SEQ, losses=hist["loss"], launches=launches,
          rotation_launches=rot, bases=len(leaves), max_orth_err=orth,
-         orth_tol=SOAP_ORTH_TOL, seconds=time.perf_counter() - t0)
+         orth_tol=SOAP_ORTH_TOL, seconds=timing.now() - t0)
 
 
 def compression_phase(dev, kernels) -> None:
@@ -3273,10 +3280,10 @@ def compression_phase(dev, kernels) -> None:
     Wd = torch.from_numpy(W).to(dev)
     for k in kernels.values():
         k.LAUNCHES = 0
-    t0 = time.perf_counter()
+    t0 = timing.now()
     P, Q = compress_lowrank(Wd, LOWRANK_RANK)
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    seconds = timing.now() - t0
     counts = {name: k.LAUNCHES for name, k in kernels.items()}
     err = float(np.linalg.norm(W.astype(np.float64) - (
         decompress_lowrank(P, Q).double().cpu().numpy())))
@@ -3318,13 +3325,13 @@ def ckpt_phase(dev, train: dict) -> None:
     tree = {"params": loop.params, "opt": loop.opt_state}
     root = os.path.join(os.environ["CHIP_SMOKE_TMP"], "ckpt")
     mgr = CheckpointManager(os.path.join(root, "full"))
-    t0 = time.perf_counter()
+    t0 = timing.now()
     mgr.save(loop.step, tree, blocking=True)
-    save_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    save_s = timing.now() - t0
+    t0 = timing.now()
     back = mgr.restore(loop.step, tree, device=dev)
     torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
+    restore_s = timing.now() - t0
     check(all(torch.equal(a.to(dev), b) for a, b in
               zip(leaves(tree), leaves(back))), "checkpoint not bit for bit")
     nbytes = sum(t.numel() * t.element_size() for t in leaves(tree))
@@ -3363,11 +3370,11 @@ def train_launcher_phase() -> None:
             "--seq", "256"]
     env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    t0 = time.perf_counter()
+    t0 = timing.now()
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
                           *args], capture_output=True, text=True, env=env,
                          timeout=600, cwd=str(ROOT))
-    seconds = time.perf_counter() - t0
+    seconds = timing.now() - t0
     check(out.returncode == 0 and "final loss" in out.stdout,
           f"launch.train exit {out.returncode}: {out.stderr[-2000:]}")
     emit(phase="train_launcher", args=args, exit=out.returncode,
@@ -3382,6 +3389,9 @@ def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no port package under {SRC}", file=sys.stderr)
         return 1
+    # float32 products in full float32 for the whole run
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     # a fresh plan cache: plans persisted by an earlier run on this
     # machine would change auto's picks in every phase
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3391,8 +3401,10 @@ def main() -> int:
 
 
 def run() -> int:
+    global timing
     import torch
     sys.path.insert(0, str(SRC))
+    from repro_torch.obs import timing
     from repro_torch import RotationSequence, random_sequence
     from repro_torch.core.accumulate import rot_sequence_accumulated
     from repro_torch.core.blocked import rot_sequence_blocked
@@ -3405,8 +3417,6 @@ def run() -> int:
     from repro_torch.kernels.rope import kernel as rope_k
     from repro_torch.kernels.rotseq_mxu import kernel as mxu_k
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -3417,14 +3427,14 @@ def run() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     # -- build ----------------------------------------------------------
-    t0 = time.perf_counter()
+    t0 = timing.now()
     cached = _build._target().exists()
     log = _build.build()
     report = [ln.strip() for ln in log.splitlines()
               if "entry function" in ln or "registers" in ln
               or "spill" in ln or "error" in ln.lower()]
     emit(phase="build", built=not cached,
-         seconds=time.perf_counter() - t0, ptxas=report)
+         seconds=timing.now() - t0, ptxas=report)
 
     gen = torch.Generator().manual_seed(SEED)
     A = torch.randn((M, N), generator=gen).to(dev)
@@ -3464,7 +3474,7 @@ def run() -> int:
     wave_k.LAUNCHES = 0
     mxu_k.LAUNCHES = 0
     batched_k.LAUNCHES = 0
-    t0 = time.perf_counter()
+    t0 = timing.now()
     plan = seq.plan(like=A)
     out = plan.apply(A)
     rplans = {meth: seq_r.plan(like=Ar, method=meth)
@@ -3474,7 +3484,7 @@ def run() -> int:
               for meth, tiles in (("cuda_wave", WAVE_TILES),
                                   ("cuda_mxu", dict(n_b=8, k_b=4)))}
     torch.cuda.synchronize()
-    main_s = time.perf_counter() - t0
+    main_s = timing.now() - t0
     counts = {"rotseq_wave": wave_k.LAUNCHES, "rotseq_mxu": mxu_k.LAUNCHES,
               "rotseq_batched": batched_k.LAUNCHES}
 
@@ -3550,7 +3560,7 @@ def run() -> int:
     # -- gradient ------------------------------------------------------------
     Ag = A.clone().requires_grad_(True)
     W = torch.randn((M, N), generator=gen).to(dev)
-    t0 = time.perf_counter()
+    t0 = timing.now()
     (grad,) = torch.autograd.grad((plan.apply(Ag) * W).sum(), Ag)
     back = plan.apply(grad)
     torch.cuda.synchronize()
@@ -3558,7 +3568,7 @@ def run() -> int:
     check(bool(torch.isfinite(grad).all()), "gradient: non-finite")
     check(g_err <= GRAD_TOL, f"plan.apply(grad) vs W rel err {g_err}")
     emit(phase="gradient", method=plan.method, rel_err=g_err, tol=GRAD_TOL,
-         seconds=time.perf_counter() - t0)
+         seconds=timing.now() - t0)
 
     # -- the paper's sweep of m = n at k = 180 ------------------------------
     paper_sweep_phase(dev, {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
@@ -3601,7 +3611,7 @@ def run() -> int:
     lm_parity_phase(dev)
 
     # -- the MoE family: DeepSeek-V2-Lite at full width, MLA's RoPE -------
-    t_moe = time.perf_counter()
+    t_moe = timing.now()
     moe = moe_serving_phase(dev, {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
                                   "rotseq_batched": batched_k,
                                   "rope": rope_k})
@@ -3611,11 +3621,11 @@ def run() -> int:
     # reduced() deepseek: 4 layers (dense + 3 MoE) at d_model 64
     train_parity_phase(dev, moe_config(MOE_LAYERS).reduced(),
                        "moe_train_parity", SEED + 13)
-    emit(phase="moe", seconds=time.perf_counter() - t_moe)
+    emit(phase="moe", seconds=timing.now() - t_moe)
 
     # -- the recurrent and encoder-decoder families -----------------------
     from repro_torch.configs import get_config
-    t_fam = time.perf_counter()
+    t_fam = timing.now()
     all_k = {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
              "rotseq_batched": batched_k, "rope": rope_k}
     served = {"hybrid_serving": hybrid_serving_phase(dev, all_k)}
@@ -3634,10 +3644,10 @@ def run() -> int:
     ssm_soap_phase(dev, all_k)
     for out in served.values():
         entries["rope"]["launches"] += out["counts"]["rope"]
-    emit(phase="families", seconds=time.perf_counter() - t_fam)
+    emit(phase="families", seconds=timing.now() - t_fam)
 
     # -- training: RoPE's backward, SmolLM-135M steps, SOAP, checkpoints --
-    t_train = time.perf_counter()
+    t_train = timing.now()
     rope_backward_phase(dev, entries["rope"]["rows"])
     train = train_phase(dev, all_k)
     # each path's launches apart
@@ -3658,7 +3668,7 @@ def run() -> int:
     entries["rope"]["launches_by_path"]["mesh_train"] = \
         meshed["counts"]["rope"]
     entries["rope"]["launches"] += meshed["counts"]["rope"]
-    emit(phase="training", seconds=time.perf_counter() - t_train)
+    emit(phase="training", seconds=timing.now() - t_train)
 
     # -- the dry run's records against the card ----------------------------
     dry = dryrun_phase(dev, all_k, smi)

@@ -14,10 +14,9 @@ the GEMM sweep is per-row *stream*.
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
+from ..compat import ieee_float32
 from .blocked import band_inputs, apply_tile, num_tiles, pack_sheared
 
 __all__ = [
@@ -39,17 +38,6 @@ def accumulate_tile_factors(Ct, St, Gt, *, dtype=torch.float32):
     return apply_tile(eye, Ct, St, Gt).contiguous()
 
 
-@contextlib.contextmanager
-def _ieee_f32():
-    """Float32 products in full float32: TF32 off for the duration."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def sweep_band_accumulated(init, fresh, Q):
     """Plain version of one accumulated band, natural layout.
 
@@ -63,7 +51,7 @@ def sweep_band_accumulated(init, fresh, Q):
     k_b = init.shape[1]
     n_b = w - k_b
     carry, out = init, []
-    with _ieee_f32():
+    with ieee_float32():
         for t in range(T):
             X = torch.cat([carry, fresh[:, t * n_b:(t + 1) * n_b]], dim=1)
             Y = X @ Q[t].to(X.dtype)

@@ -38,7 +38,8 @@ import torch.distributed as tdist
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
-from repro_torch.core.accumulate import _ieee_f32, accumulate_tile_factors
+from repro_torch.compat import ieee_float32
+from repro_torch.core.accumulate import accumulate_tile_factors
 from repro_torch.core.blocked import apply_tile, pack_sheared
 from repro_torch.core.sequence import RotationSequence
 from repro_torch.dist.plan import (_distribute, _mesh_devices,
@@ -72,7 +73,7 @@ def _sweep(carry, fresh, Ct, St, Gt, use_mxu: bool):
     for t in range(T):
         X = torch.cat([carry, fresh[:, t * n_b:(t + 1) * n_b]], dim=1)
         if use_mxu:
-            with _ieee_f32():
+            with ieee_float32():
                 X = X @ Q[t]
         else:
             X = apply_tile(X, Ct[t], St[t], Gt[t])

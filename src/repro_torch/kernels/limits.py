@@ -13,7 +13,8 @@ from __future__ import annotations
 __all__ = [
     "WARP", "SMEM_PER_BLOCK", "SMEM_STATIC", "REGS_PER_THREAD",
     "WAVE_KB", "WAVE_WARPS", "WAVE_ROWS", "MXU_ROWS", "MXU_SLAB",
-    "MXU_MAX_W", "BATCHED_M_BLK", "BATCHED_KB", "round_up", "wave_smem_bytes", "mxu_width",
+    "MXU_MAX_W", "BATCHED_M_BLK", "BATCHED_KB", "round_up", "row_blocks",
+    "wave_smem_bytes", "mxu_width",
 ]
 
 WARP = 32
@@ -51,6 +52,12 @@ _F32 = 4
 def round_up(x: int, mult: int) -> int:
     """``x`` rounded up to the next multiple of ``mult``."""
     return ((x + mult - 1) // mult) * mult
+
+
+def row_blocks(m: int) -> int:
+    """Row blocks of one request of the fused batched kernel:
+    :data:`BATCHED_M_BLK` rows a block."""
+    return -(-m // BATCHED_M_BLK)
 
 
 def wave_smem_bytes(warps: int = WAVE_WARPS) -> int:

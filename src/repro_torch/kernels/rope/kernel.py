@@ -30,6 +30,7 @@ import ctypes
 
 import torch
 
+from repro_torch.compat import cuda_current_device, cuda_raw_stream
 from repro_torch.kernels import _build
 from repro_torch.launch import step_analysis
 
@@ -159,13 +160,12 @@ def _rotate(q, k, cos, sin, inverse: bool):
     ptrs = (q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             qo.data_ptr(), ko.data_ptr())
     inv = 1 if inverse else 0
-    if dev == torch._C._cuda_getDevice():
-        rc = fn(*ptrs, B, S, Hq, k.shape[2], D, inv,
-                torch._C._cuda_getCurrentRawStream(dev))
+    if dev == cuda_current_device():
+        rc = fn(*ptrs, B, S, Hq, k.shape[2], D, inv, cuda_raw_stream(dev))
     else:
         with torch.cuda.device(dev):
             rc = fn(*ptrs, B, S, Hq, k.shape[2], D, inv,
-                    torch._C._cuda_getCurrentRawStream(dev))
+                    cuda_raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"rope launch failed: CUDA error {rc}")
     step_analysis.opaque(_plain, q, k, cos, sin, inverse)
@@ -180,4 +180,8 @@ def _plain(q, k, cos, sin, inverse: bool):
     runs, and, on ``meta`` tensors, the shapes alone."""
     if inverse:
         sin = -sin
+    # reached off the card only: _rotate calls it under `not q.is_cuda`,
+    # and step_analysis.opaque replays it on meta copies of a launch's
+    # operands to count the launch's ops
+    # repro-torch-lint: disable-next=RA105
     return apply_rope_ref(q, cos, sin), apply_rope_ref(k, cos, sin)

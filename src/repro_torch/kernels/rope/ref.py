@@ -42,4 +42,7 @@ def apply_rope_ref(x, cos, sin):
     x2 = x[..., half:]
     c = cos[..., :, None, :]
     s = sin[..., :, None, :]
+    # RoPE half-split convention, not the rotation-sequence contract
+    # (csrc/rope.cu spells the same form).
+    # repro-torch-lint: disable-next=RA301
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)

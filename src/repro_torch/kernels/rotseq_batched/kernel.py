@@ -16,9 +16,9 @@ import torch
 
 from repro_torch import obs
 from repro_torch.kernels import _build
-from repro_torch.kernels.limits import BATCHED_KB, BATCHED_M_BLK
+from repro_torch.kernels.limits import BATCHED_KB, BATCHED_M_BLK, row_blocks
 
-from .ref import rotseq_batched_ref, row_blocks
+from .ref import rotseq_batched_ref
 
 __all__ = ["rotseq_batched", "traffic_bytes", "LAUNCHES"]
 

@@ -16,14 +16,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.rotations import step_schedule, sweep_planes
-from repro_torch.kernels.limits import BATCHED_M_BLK
+from repro_torch.kernels.limits import row_blocks
 
 __all__ = ["rotseq_batched_ref", "row_blocks"]
-
-
-def row_blocks(m: int) -> int:
-    """Row blocks of one request: :data:`BATCHED_M_BLK` rows a block."""
-    return -(-m // BATCHED_M_BLK)
 
 
 def rotseq_batched_ref(AT, C, S, G, starts, counts):

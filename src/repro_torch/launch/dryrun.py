@@ -82,8 +82,8 @@ def _placed(x, sharding):
     if not isinstance(x, torch.Tensor):
         return x
     from torch.distributed.tensor import DTensor
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
+
+    from repro_torch.compat import compute_local_shape_and_global_offset
     local, _ = compute_local_shape_and_global_offset(
         x.shape, sharding.mesh, sharding.placements)
     return DTensor.from_local(
@@ -240,8 +240,9 @@ def step_record(cfg, shape, *, mesh=None, rules=None, optimizer=None,
 
 def _fake_world(size: int) -> None:
     import torch.distributed as dist
-    from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+
+    from repro_torch.compat import fake_store
+    dist.init_process_group("fake", store=fake_store(), rank=0,
                             world_size=size)
 
 

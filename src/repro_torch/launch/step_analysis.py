@@ -56,10 +56,9 @@ from dataclasses import dataclass, field
 from typing import Any, Dict
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.compat import TorchDispatchMode, tree_leaves
 from repro_torch.obs import timing
 
 __all__ = ["StepCost", "StepTrace", "analyze_step", "trace_step", "opaque",

@@ -34,6 +34,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.compat import is_functorch_wrapped_tensor
 from repro_torch.obs import metrics, roofline, runtime, timing, trace
 from repro_torch.obs.metrics import zeroed_timings
 from repro_torch.obs.runtime import enabled, override, set_enabled
@@ -46,7 +47,7 @@ __all__ = [
     "runtime", "trace",
 ]
 
-_is_wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+_is_wrapped = is_functorch_wrapped_tensor
 
 
 def traced(x) -> bool:

@@ -4,8 +4,9 @@ Mirror of :mod:`repro.obs.timing`, with the device-aware helpers the
 port needs.  Every host-side timing measurement of ``repro_torch`` (span
 durations, roofline measured seconds, serving latencies and deadlines,
 autotune's candidate times, launcher throughput prints) goes through
-this module; no other module of the package names ``time.perf_counter``,
-``time.time`` or ``timeit`` (``tests/test_torch_obs.py`` checks it).
+this module; no other module of the package, nor ``chip_smoke.py`` or
+the kernel tools, names a stdlib clock or ``timeit`` (rule RA502 of
+``repro_torch.analysis``; ``tests/test_torch_obs.py`` checks it too).
 
 A CUDA call returns before the card has run it, so a host clock around
 it measures the enqueue.  :func:`sync` waits for the card, and the

@@ -41,6 +41,7 @@ from repro.models import build_model as j_build_model
 from repro.models import moe as j_moe
 from repro.optim import AdamW as JAdamW
 from repro.train.step import _loss_fn as j_loss_fn
+from repro_torch.compat import ieee_float32
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_reference, \
     train_state_from_reference
@@ -412,14 +413,10 @@ def test_moe_layer_on_the_card_equals_the_host():
     cfg = get_config(DS)
     p = moe.moe_init(torch.Generator().manual_seed(0), cfg)
     x = torch.from_numpy(_x((8, 1, cfg.d_model), 3))
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with ieee_float32():
         pc = map_tree(lambda t: t.to(dev), p)
         card = moe.moe_ffn(pc, cfg, x.to(dev))
         r_card = moe.moe_route(pc, cfg, x.to(dev).reshape(8, -1))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
     host = moe.moe_ffn(p, cfg, x)
     r_host = moe.moe_route(p, cfg, x.reshape(8, -1))
     assert torch.equal(r_card.gate_idx.cpu(), r_host.gate_idx)

@@ -37,6 +37,7 @@ from repro.models import mamba2 as j_mamba2
 from repro.optim import AdamW as JAdamW
 from repro.serve import ServeEngine as JServeEngine
 from repro.train.step import _loss_fn as j_loss_fn
+from repro_torch.compat import ieee_float32
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_reference, \
     train_state_from_reference
@@ -416,9 +417,7 @@ def test_decode_on_the_card_equals_the_host(arch):
     card = lm_params_from_reference(stack_params(cfg, host.params()), cfg,
                                     device="cuda")
     toks = torch.from_numpy(_tokens(cfg.vocab, B, DECODE_S, 8))
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with ieee_float32():
         caches = {m: m.init_cache(B, DECODE_S, dtype=torch.float32)
                   for m in (card, host)}
         attn = sum(k == "attn" for k in getattr(card, "kinds", []))
@@ -431,5 +430,3 @@ def test_decode_on_the_card_equals_the_host(arch):
                 assert rope_k.LAUNCHES - before == attn
                 want, _ = host.decode_step(caches[host], toks[:, t:t + 1])
             _close(got.cpu(), want.numpy())
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32

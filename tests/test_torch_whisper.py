@@ -28,6 +28,7 @@ from repro.configs import get_config as j_get_config
 from repro.models import build_model as j_build_model
 from repro.optim import AdamW as JAdamW
 from repro.train.step import _loss_fn as j_loss_fn
+from repro_torch.compat import ieee_float32
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_reference, \
     train_state_from_reference
@@ -227,15 +228,10 @@ def test_decode_on_the_card_equals_the_host():
                                     device="cuda")
     frames = torch.from_numpy(_x((B, FRAMES, cfg.d_model), 9))
     toks = torch.from_numpy(_tokens(cfg.vocab, B, S, 10))
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.no_grad():
-            cc = card.init_cache(frames.cuda(), S, dtype=torch.float32)
-            hc = host.init_cache(frames, S, dtype=torch.float32)
-            for t in range(S):
-                got, cc = card.decode_step(cc, toks[:, t:t + 1].cuda())
-                want, hc = host.decode_step(hc, toks[:, t:t + 1])
-                _close(got.cpu(), want.numpy())
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    with ieee_float32(), torch.no_grad():
+        cc = card.init_cache(frames.cuda(), S, dtype=torch.float32)
+        hc = host.init_cache(frames, S, dtype=torch.float32)
+        for t in range(S):
+            got, cc = card.decode_step(cc, toks[:, t:t + 1].cuda())
+            want, hc = host.decode_step(hc, toks[:, t:t + 1])
+            _close(got.cpu(), want.numpy())
