@@ -133,7 +133,12 @@ full-width SmolLM-135M step under a ``(1, 1)`` ``("data", "model")``
 mesh over a one-rank NCCL group (``DTensor`` parameters, optimizer state
 and batches placed by ``launch.specs.sharding_trees``), held to the step
 without a mesh (losses, the first step's gradients, RoPE launches), ms a
-step both ways.
+step both ways; then, the same way, the other families' steps
+(``mesh_families``), each at full width with its depth cut:
+DeepSeek-V2-Lite to its dense first layer and one MoE layer,
+RecurrentGemma-9B to one (R, R, A) repetition, Mamba2-370M to 4 layers
+and Whisper-large-v3 to 2 encoder and 2 decoder layers, each family's
+RoPE launches counted exactly and by path.
 Then the dry run (``repro_torch.launch.dryrun``): the records of
 SmolLM-135M's train step and decode step, built on the meta device,
 held to the same steps run on the card under the step analysis
@@ -239,8 +244,9 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 1024   # S = 1024: attention's flash path
 # decode (DeepSeek-V2-Lite's 16 query heads' rope tails and the one key
 # head they share; moe_serving_phase holds it to the config), and
 # RecurrentGemma's local attention at decode (16 query heads of 256 and
-# one key head; hybrid_serving_phase holds it to the config):
-# (B, S, Hq, Hk, D)
+# one key head; hybrid_serving_phase holds it to the config), and the
+# same two at the train step's q and k (mesh_families_phase holds them
+# to its configs): (B, S, Hq, Hk, D)
 ROPE_SHAPES = {"decode": (8, 1, 9, 3, 64), "prefill": (8, 2048, 9, 3, 64),
                "ragged": (8, 300, 9, 3, 64),
                "train": (TRAIN_BATCH, TRAIN_SEQ, 9, 3, 64),
@@ -248,7 +254,9 @@ ROPE_SHAPES = {"decode": (8, 1, 9, 3, 64), "prefill": (8, 2048, 9, 3, 64),
                "gemma3": (8, 512, 8, 4, 256), "scalar_d10": (2, 16, 4, 2, 10),
                "misaligned": (8, 1, 9, 3, 64),
                "mla_decode": (LM_BATCH, 1, 16, 1, 64),
-               "griffin_decode": (LM_BATCH, 1, 16, 1, 256)}
+               "griffin_decode": (LM_BATCH, 1, 16, 1, 256),
+               "mla_train": (TRAIN_BATCH, TRAIN_SEQ, 16, 1, 64),
+               "griffin_train": (TRAIN_BATCH, TRAIN_SEQ, 16, 1, 256)}
 ROPE_OFFSET = {"misaligned": 1}   # elements q starts into its buffer
 # the path each shape must take on the card, in both dtypes
 ROPE_PATH = {"scalar_d10": "scalar", "misaligned": "scalar"}
@@ -258,6 +266,13 @@ TRAIN_LR = 3e-3
 TRAIN_PARITY = (1, 128)            # batch, seq of the card/host step
 TRAIN_PARITY_TOL = {"loss": 1e-4, "grad": 1e-3}   # relative
 MESH_STEPS = 3   # mesh_train: steps timed after a warm one, both ways
+# mesh_families: every family at full width, its depth cut: DeepSeek-V2-
+# Lite to its dense first layer and one MoE layer (1.09 B parameters),
+# RecurrentGemma-9B to one (R, R, A) repetition (1.71 B, 1.05 B of them
+# its tied 256000 x 4096 embedding), Mamba2-370M to 4 of its 48 layers,
+# Whisper-large-v3 to 2 of its 32 encoder and 2 of its 32 decoder layers
+MESH_MOE_LAYERS = 2
+MESH_HYBRID_LAYERS, MESH_SSM_LAYERS, MESH_AUDIO_LAYERS = 3, 4, 2
 SOAP_STEPS, SOAP_FREQ = 20, 10     # the launcher's --reduced example
 SOAP_BATCH, SOAP_SEQ = 8, 64
 SOAP_ORTH_TOL = 1e-4
@@ -2610,8 +2625,9 @@ def train_phase(dev, kernels) -> dict:
 
 
 class GradRecorder:
-    """An optimizer that keeps the full gradients of its first update,
-    then updates as ``opt`` does."""
+    """An optimizer that keeps on the host the full gradients of its
+    first update (the card keeps room for the step), then updates as
+    ``opt`` does."""
 
     def __init__(self, opt):
         self.opt, self.first = opt, None
@@ -2623,10 +2639,125 @@ class GradRecorder:
         if self.first is None:
             from torch.distributed.tensor import DTensor
             from repro_torch.tree import flatten_with_paths
-            self.first = [(path, g.full_tensor() if isinstance(g, DTensor)
-                           else g.clone())
+            self.first = [(path, (g.full_tensor() if isinstance(g, DTensor)
+                                  else g).to("cpu", copy=True))
                           for path, g in flatten_with_paths(grads)]
         return self.opt.update(grads, state, params, **kw)
+
+
+def mesh_runs(dev, kernels, cfg, seed: int, batches, store: str,
+              remat: bool = False) -> dict:
+    """``cfg``'s train step under the ``(1, 1)`` mesh of a one-rank group
+    (``dist_mesh``) and then without it, from the same seeded float32
+    master weights, AdamW: ``batches[0]`` warm, the rest timed, the
+    launches of ``kernels`` and RoPE's launches by path counted from the
+    second step on, each run's peak memory.  Under the mesh
+    ``make_rules_for_mesh``'s rules and the placements of
+    ``sharding_trees`` (parameters, optimizer state, batches;
+    ``grad_shardings`` the parameters').  The card holds no weights the
+    steps do not read: the module's own copy is released once the
+    shardings are made (the steps read the stacked tree through
+    ``functional_call``), the mesh run's placed copy once it ends, and
+    the first-step gradients are kept on the host.  Returns the runs by
+    label, the parameter shardings, the backend, the rules and the
+    number of parameters."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels.rope import kernel as rope_k
+    from repro_torch.launch.mesh import make_rules_for_mesh
+    from repro_torch.launch.specs import distribute_tree, sharding_trees
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel.sharding import axis_rules
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves
+    model, params = train_setup(cfg, dev, seed)
+    n_params = sum(x.numel() for x in leaves(params))
+    opt = AdamW(lr=TRAIN_LR)
+    b0 = batches[0]
+    batch, seq = (len(b0["labels"]),
+                  len(b0["frames"][0] if "frames" in b0 else b0["tokens"][0]))
+    backend, mesh = dist_mesh(model.device, store)
+    runs = {}
+    try:
+        rules = make_rules_for_mesh(mesh)
+        trees = sharding_trees(model, cfg, ShapeConfig(
+            store, seq, batch, "train"), opt, rules, mesh)
+        placed = distribute_tree(params, trees["params"])
+        for w in model.parameters():
+            w.data = w.data.new_empty(0)
+        for label in ("mesh", "plain"):
+            rec = GradRecorder(opt)
+            meshed = label == "mesh"
+            step = make_train_step(
+                model, cfg, rec, remat=remat,
+                grad_shardings=trees["params"] if meshed else None)
+            p, placed = (placed if meshed else params), None
+            state = opt.init(p)
+            losses, times = [], []
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            with axis_rules(rules, mesh) if meshed \
+                    else contextlib.nullcontext():
+                for i, b in enumerate(batches):
+                    if i == 1:
+                        for k in kernels.values():
+                            k.LAUNCHES = 0
+                        paths = dict(rope_k.PATH_LAUNCHES)
+                    torch.cuda.synchronize()
+                    t0 = timing.now()
+                    if meshed:
+                        b = distribute_tree(b, trees["batch"])
+                    p, state, m = step(p, state, b)
+                    losses.append(float(m["loss"]))
+                    times.append(timing.now() - t0)
+            torch.cuda.synchronize()
+            runs[label] = dict(losses=losses, ms=[t * 1e3 for t in times],
+                               grads=rec.first,
+                               peak_gib=torch.cuda.max_memory_allocated()
+                               / 2**30, held_gib=held / 2**30,
+                               counts={n: k.LAUNCHES
+                                       for n, k in kernels.items()},
+                               rope_paths={
+                                   path: n - paths[path] for path, n in
+                                   rope_k.PATH_LAUNCHES.items()})
+            del p, state
+    finally:
+        tdist.destroy_process_group()
+    return dict(runs=runs, shardings=trees["params"], backend=backend,
+                rules=rules, n_params=n_params)
+
+
+def mesh_parity(runs: dict, what: str) -> dict:
+    """The mesh run's losses and first-step gradients against the run
+    without a mesh, checked to ``TRAIN_PARITY_TOL``; ms a step both ways
+    (median of the timed steps); each run's peak memory and what was
+    allocated when it started (the master weights, the other run's
+    first-step gradients)."""
+    mesh_r, plain_r = runs["mesh"], runs["plain"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(mesh_r["losses"], plain_r["losses"]))
+    errs = {path: rel_err(a.cuda(), b.cuda()) if b.any() or a.any()
+            else 0.0
+            for (path, a), (_, b) in zip(mesh_r["grads"], plain_r["grads"])}
+    worst = max(errs, key=errs.get)
+    check(all(math.isfinite(x) for x in mesh_r["losses"]),
+          f"{what} losses {mesh_r['losses']}")
+    check(loss_err <= TRAIN_PARITY_TOL["loss"],
+          f"{what} losses {mesh_r['losses']} vs {plain_r['losses']}")
+    check(errs[worst] <= TRAIN_PARITY_TOL["grad"],
+          f"{what} gradient {worst}: rel err {errs[worst]}")
+    ms = {label: statistics.median(r["ms"][1:]) for label, r in runs.items()}
+    return dict(losses_mesh=mesh_r["losses"], losses_plain=plain_r["losses"],
+                loss_rel_err=loss_err, max_grad_rel_err=errs[worst],
+                worst_leaf=worst, tol=TRAIN_PARITY_TOL,
+                ms_per_step_mesh=ms["mesh"], ms_per_step_plain=ms["plain"],
+                mesh_over_plain=ms["mesh"] / ms["plain"],
+                ms_all={label: r["ms"] for label, r in runs.items()},
+                peak_gib={label: r["peak_gib"] for label, r in runs.items()},
+                held_at_start_gib={label: r["held_gib"]
+                                   for label, r in runs.items()},
+                launches={label: r["counts"] for label, r in runs.items()})
 
 
 def mesh_train_phase(dev, kernels) -> dict:
@@ -2643,97 +2774,142 @@ def mesh_train_phase(dev, kernels) -> dict:
     the RoPE launches of the two runs equal (the kernel ran once a shard,
     no plain version in its place); ms a step both ways; the placements
     of the embedding, an attention and an MLP weight."""
-    import torch
-    import torch.distributed as tdist
-    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, make_batch
-    from repro_torch.kernels.rope import kernel as rope_k
-    from repro_torch.launch.mesh import make_rules_for_mesh
-    from repro_torch.launch.specs import distribute_tree, sharding_trees
-    from repro_torch.optim import AdamW
-    from repro_torch.parallel.sharding import axis_rules
-    from repro_torch.train import make_train_step
     t_phase = timing.now()
     cfg = get_config(LM_ARCH)
-    model, params = train_setup(cfg, dev, SEED + 23)
     batches = [make_batch(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH), s)
                for s in range(1 + MESH_STEPS)]
-    opt = AdamW(lr=TRAIN_LR)
-    backend, mesh = dist_mesh(model.device, "mesh_train_store")
-    runs = {}
-    try:
-        rules = make_rules_for_mesh(mesh)
-        trees = sharding_trees(model, cfg, ShapeConfig(
-            "mesh_train", TRAIN_SEQ, TRAIN_BATCH, "train"), opt, rules, mesh)
-        placed = distribute_tree(params, trees["params"])
-        for label in ("mesh", "plain"):
-            rec = GradRecorder(opt)
-            meshed = label == "mesh"
-            step = make_train_step(
-                model, cfg, rec, remat=False,
-                grad_shardings=trees["params"] if meshed else None)
-            p = placed if meshed else params
-            state = opt.init(p)
-            losses, times = [], []
-            with axis_rules(rules, mesh) if meshed \
-                    else contextlib.nullcontext():
-                for i, b in enumerate(batches):
-                    if i == 1:
-                        for k in kernels.values():
-                            k.LAUNCHES = 0
-                    torch.cuda.synchronize()
-                    t0 = timing.now()
-                    if meshed:
-                        b = distribute_tree(b, trees["batch"])
-                    p, state, m = step(p, state, b)
-                    losses.append(float(m["loss"]))
-                    times.append(timing.now() - t0)
-            torch.cuda.synchronize()
-            runs[label] = dict(losses=losses, ms=[t * 1e3 for t in times],
-                               grads=rec.first,
-                               counts={n: k.LAUNCHES
-                                       for n, k in kernels.items()})
-            del p, state
-        layer = trees["params"]["group0"][0]
-        shown = {path: [str(pl) for pl in sh.placements] for path, sh in (
-            ("['embed']['e']", trees["params"]["embed"]["e"]),
-            ("['group0'][0]['attn']['wq']['w']", layer["attn"]["wq"]["w"]),
-            ("['group0'][0]['mlp']['up']['w']", layer["mlp"]["up"]["w"]))}
-    finally:
-        tdist.destroy_process_group()
+    out = mesh_runs(dev, kernels, cfg, SEED + 23, batches,
+                    "mesh_train_store")
+    runs, rules, layer = out["runs"], out["rules"], out["shardings"]
+    shown = {path: [str(pl) for pl in sh.placements] for path, sh in (
+        ("['embed']['e']", layer["embed"]["e"]),
+        ("['group0'][0]['attn']['wq']['w']",
+         layer["group0"][0]["attn"]["wq"]["w"]),
+        ("['group0'][0]['mlp']['up']['w']",
+         layer["group0"][0]["mlp"]["up"]["w"]))}
+    parity = mesh_parity(runs, "mesh_train")
     mesh_r, plain_r = runs["mesh"], runs["plain"]
-    loss_err = max(abs(a - b) / abs(b) for a, b in
-                   zip(mesh_r["losses"], plain_r["losses"]))
-    errs = {path: rel_err(a, b) if b.any() or a.any() else 0.0
-            for (path, a), (_, b) in zip(mesh_r["grads"], plain_r["grads"])}
-    worst = max(errs, key=errs.get)
-    check(all(math.isfinite(x) for x in mesh_r["losses"]),
-          f"mesh_train losses {mesh_r['losses']}")
-    check(loss_err <= TRAIN_PARITY_TOL["loss"],
-          f"mesh_train losses {mesh_r['losses']} vs {plain_r['losses']}")
-    check(errs[worst] <= TRAIN_PARITY_TOL["grad"],
-          f"mesh_train gradient {worst}: rel err {errs[worst]}")
     per_run = 2 * cfg.n_layers * MESH_STEPS
-    check(mesh_r["counts"]["rope"] == plain_r["counts"]["rope"] == per_run,
-          f"mesh_train rope launches: mesh {mesh_r['counts']['rope']}, "
-          f"plain {plain_r['counts']['rope']}, want {per_run}")
-    ms = {label: statistics.median(r["ms"][1:]) for label, r in runs.items()}
-    out = dict(phase="mesh_train", arch=cfg.name, dtype=cfg.dtype,
-               param_dtype="float32", backend=backend,
-               mesh={"shape": [1, 1], "names": ["data", "model"]},
-               rules=rules.rules, fsdp_axes=list(rules.fsdp_axes),
-               batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=MESH_STEPS,
-               placements=shown, losses_mesh=mesh_r["losses"],
-               losses_plain=plain_r["losses"], loss_rel_err=loss_err,
-               max_grad_rel_err=errs[worst], worst_leaf=worst,
-               tol=TRAIN_PARITY_TOL, ms_per_step_mesh=ms["mesh"],
-               ms_per_step_plain=ms["plain"],
-               mesh_over_plain=ms["mesh"] / ms["plain"],
-               ms_all={label: r["ms"] for label, r in runs.items()},
-               launches={label: r["counts"] for label, r in runs.items()},
-               seconds=timing.now() - t_phase)
-    emit(**out)
+    path = ROPE_PATH.get("train", "vector")
+    check(mesh_r["counts"]["rope"] == plain_r["counts"]["rope"] == per_run
+          and mesh_r["rope_paths"][path] == plain_r["rope_paths"][path]
+          == per_run,
+          f"mesh_train rope launches: mesh {mesh_r['counts']['rope']} "
+          f"{mesh_r['rope_paths']}, plain {plain_r['counts']['rope']} "
+          f"{plain_r['rope_paths']}, want {per_run} on the {path} path")
+    emit(phase="mesh_train", arch=cfg.name, dtype=cfg.dtype,
+         param_dtype="float32", backend=out["backend"],
+         mesh={"shape": [1, 1], "names": ["data", "model"]},
+         rules=rules.rules, fsdp_axes=list(rules.fsdp_axes),
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=MESH_STEPS,
+         placements=shown, **parity, seconds=timing.now() - t_phase)
     return dict(counts=mesh_r["counts"])
+
+
+def mesh_families_phase(dev, kernels, smi: str) -> dict:
+    """Every model family's train step under the ``(1, 1)`` mesh (as
+    ``mesh_train``; ``mesh_runs``) against the same steps without it, each
+    family at full width with its depth cut: DeepSeek-V2-Lite to
+    ``MESH_MOE_LAYERS`` layers (the dense first one and one MoE layer:
+    MLA's attention and RoPE once a shard, the experts' dispatch, FFN and
+    combine once a shard), RecurrentGemma-9B to ``MESH_HYBRID_LAYERS``
+    (one R, R, A repetition: the RG-LRU and its causal conv once a shard,
+    the local attention's RoPE), Mamba2-370M to ``MESH_SSM_LAYERS`` (the
+    SSD once a shard) and Whisper-large-v3 to ``MESH_AUDIO_LAYERS``
+    encoder and as many decoder layers (cross attention); bf16 compute
+    over float32 masters, ``TRAIN_BATCH x TRAIN_SEQ`` tokens (Whisper: as
+    many stub frames and ``dec_len`` decoder tokens), one warm step and
+    ``MESH_STEPS`` timed.  Each within ``TRAIN_PARITY_TOL`` (losses,
+    first-step gradients).  RoPE: each run launched the kernel ``2 x
+    rope_layers x MESH_STEPS`` times (forward and backward, once a shard
+    under the mesh, no plain version in its place), all on the path the
+    rope lines held its ``ROPE_SHAPES`` case on; ms a step both ways, the
+    peak memory, the bytes of the parameters, the placements of an MLA
+    weight and an expert stack."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import model_batch
+
+    def cut(arch, **kw):
+        return dataclasses.replace(get_config(arch), **kw)
+
+    t_phase = timing.now()
+    moe = moe_config(MESH_MOE_LAYERS)
+    hybrid = cut(HYBRID_ARCH, n_layers=MESH_HYBRID_LAYERS)
+    n_full = {arch: get_config(arch).n_layers
+              for arch in (MOE_ARCH, HYBRID_ARCH, SSM_ARCH)}
+    audio = get_config(AUDIO_ARCH)
+    # the train step's q and k are the rope lines' cases
+    check(ROPE_SHAPES["mla_train"] == (TRAIN_BATCH, TRAIN_SEQ, moe.n_heads,
+                                       1, moe.qk_rope_dim),
+          f"ROPE_SHAPES['mla_train'] {ROPE_SHAPES['mla_train']} is not "
+          f"the MLA train step's q and k")
+    check(ROPE_SHAPES["griffin_train"] == (
+        TRAIN_BATCH, TRAIN_SEQ, hybrid.n_heads, hybrid.n_kv_heads,
+        hybrid.head_dim), f"ROPE_SHAPES['griffin_train'] "
+        f"{ROPE_SHAPES['griffin_train']} is not the local attention's q, k")
+    check(rope_layers(hybrid) == 1, "the cut hybrid is not one (R, R, A)")
+    cases = (
+        ("moe", moe, f"full width, {MESH_MOE_LAYERS} of "
+         f"{n_full[MOE_ARCH]} layers (dense first, one MoE)", "mla_train"),
+        ("hybrid", hybrid, f"full width, {MESH_HYBRID_LAYERS} of "
+         f"{n_full[HYBRID_ARCH]} layers (R, R, A)", "griffin_train"),
+        ("ssm", cut(SSM_ARCH, n_layers=MESH_SSM_LAYERS), f"full width, "
+         f"{MESH_SSM_LAYERS} of {n_full[SSM_ARCH]} layers", None),
+        ("audio", dataclasses.replace(audio, n_layers=MESH_AUDIO_LAYERS,
+                                      enc_layers=MESH_AUDIO_LAYERS,
+                                      dec_layers=MESH_AUDIO_LAYERS),
+         f"full width, {MESH_AUDIO_LAYERS}+{MESH_AUDIO_LAYERS} of "
+         f"{audio.enc_layers}+{audio.dec_layers} layers", None))
+    rope = 0
+    for i, (family, cfg, depth, rope_case) in enumerate(cases):
+        t0 = timing.now()
+        seed = SEED + 30 + i
+        # mesh_train's data (seed 0); the weights seeded a family apart
+        out = mesh_runs(dev, kernels, cfg, seed,
+                        [model_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, s)
+                         for s in range(1 + MESH_STEPS)],
+                        f"mesh_{family}_store")
+        runs, sh = out["runs"], out["shardings"]
+        parity = mesh_parity(runs, f"mesh_families {family}")
+        want = 2 * rope_layers(cfg) * MESH_STEPS
+        path = ROPE_PATH.get(rope_case, "vector")
+        check(want > 0 or rope_case is None,
+              f"mesh_families {family}: no RoPE layer")
+        for label, r in runs.items():
+            check(r["counts"]["rope"] == want
+                  and r["rope_paths"][path] == want,
+                  f"mesh_families {family} {label}: rope launches "
+                  f"{r['counts']['rope']} by path {r['rope_paths']}, want "
+                  f"{want} on the {path} path")
+        rope += runs["mesh"]["counts"]["rope"]
+        shown = {}
+        if family == "moe":
+            g0, g1 = sh["group0"][0], sh["group1"][0]
+            shown = {path: [str(pl) for pl in s.placements] for path, s in (
+                ("['group0'][0]['attn']['wkv_b']['w']", g0["attn"]["wkv_b"]
+                 ["w"]),
+                ("['group1'][0]['mlp']['w_gate']", g1["mlp"]["w_gate"]))}
+        emit(phase="mesh_families", family=family, arch=cfg.name,
+             cut=depth, n_layers=cfg.n_layers, d_model=cfg.d_model,
+             vocab=cfg.vocab, dtype=cfg.dtype, param_dtype="float32",
+             backend=out["backend"],
+             mesh={"shape": [1, 1], "names": ["data", "model"]},
+             batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=MESH_STEPS,
+             n_params=out["n_params"],
+             master_grad_adam_bytes=16 * out["n_params"],
+             placements=shown, rope_case=rope_case,
+             rope_launches={label: r["counts"]["rope"]
+                            for label, r in runs.items()},
+             rope_paths={label: r["rope_paths"]
+                         for label, r in runs.items()},
+             **parity, nvidia_smi=smi, seconds=timing.now() - t0)
+        del out, runs, sh
+        torch.cuda.empty_cache()
+    emit(phase="mesh_families_total", seconds=timing.now() - t_phase)
+    return dict(rope=rope)
 
 
 DRYRUN_TIMED = 5   # dryrun: steps timed outside the analysis, after a warm one
@@ -2896,7 +3072,7 @@ def dryrun_phase(dev, kernels, smi: str) -> dict:
     """The dry run's predictions against the card on SmolLM-135M's train
     and decode steps at full width (:func:`dryrun_cell`), and the H100
     record's ``hbm_bytes`` against the card's ``total_memory``.  No
-    process group: the ``dist`` and ``mesh_train`` phases own NCCL's."""
+    process group: the ``dist`` and mesh phases own NCCL's."""
     import torch
     from repro_torch.hw import PLATFORMS
     t0 = timing.now()
@@ -3668,6 +3844,10 @@ def run() -> int:
     entries["rope"]["launches_by_path"]["mesh_train"] = \
         meshed["counts"]["rope"]
     entries["rope"]["launches"] += meshed["counts"]["rope"]
+    # -- every other family's train step under the (1, 1) mesh ------------
+    fams = mesh_families_phase(dev, all_k, smi)
+    entries["rope"]["launches_by_path"]["mesh_families"] = fams["rope"]
+    entries["rope"]["launches"] += fams["rope"]
     emit(phase="training", seconds=timing.now() - t_train)
 
     # -- the dry run's records against the card ----------------------------

@@ -11,7 +11,12 @@ directory ``step_N/`` with one ``.npy`` a leaf and ``manifest.json``
   (a copy, never a view: ``Tensor.cpu()`` of a host tensor is the tensor
   itself, which an in-place update would change under the writer), then
   a background thread writes them.  ``wait()`` joins outstanding writes.
-* **Elastic**: ``restore`` puts every leaf on the device it is given.
+* **Elastic**: ``restore`` puts every leaf on the device it is given,
+  or, with ``shardings``, places it on a mesh as the reference's elastic
+  re-shard does.
+* **Meshes**: ``save`` of a tree of ``DTensor``s writes each leaf's full
+  tensor; gathering it is a collective, so every rank of the mesh calls
+  ``save`` (each writes the directory it was given).
 * **Retention**: keeps the newest ``keep`` complete checkpoints.
 
 ``Quantized`` optimizer states round-trip (their ``q`` and ``scale`` are
@@ -35,6 +40,9 @@ __all__ = ["CheckpointManager"]
 
 
 def _host_copy(x) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True).numpy()
     return np.array(x, copy=True)
@@ -113,14 +121,20 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any = None, *, device="cuda"):
+    def restore(self, step: int, like: Any = None, *, shardings: Any = None,
+                device="cuda"):
         """Rebuild checkpoint ``step`` with every leaf on ``device`` (the
         card by default; refused without one).
 
         With ``like`` the result takes its structure (leaves matched in
         order, as the reference does); without it, the structure of the
         manifest's paths, ``Quantized`` where a node has the fields ``q``
-        and ``scale``.
+        and ``scale``.  ``shardings`` (with ``like``): a matching tree of
+        :class:`~repro_torch.parallel.sharding.NamedSharding`, each leaf
+        placed by its own as a ``DTensor`` on its mesh's device (the
+        reference's elastic re-shard; every rank reads the full leaf and
+        takes its shard, so every rank of the mesh calls ``restore``); a
+        ``None`` in it leaves that leaf a tensor on ``device``.
         """
         from repro_torch.optim.adamw import Quantized
 
@@ -140,4 +154,16 @@ class CheckpointManager:
             raise ValueError(f"checkpoint {step} holds {len(arrs)} leaves, "
                              f"the tree to restore {n_like}")
         it = iter(arrs)
-        return map_tree(lambda _: next(it), like)
+        if shardings is None:
+            return map_tree(lambda _: next(it), like)
+        return map_tree(lambda _, sh: _place(next(it), sh), like, shardings)
+
+
+def _place(x, sharding):
+    """``x`` as a ``DTensor`` placed by ``sharding``; ``x`` itself for a
+    ``None`` sharding."""
+    if sharding is None:
+        return x
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(x.to(sharding.mesh.device_type), sharding.mesh,
+                             sharding.placements)

@@ -14,7 +14,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-__all__ = ["DataConfig", "SyntheticLM", "make_batch"]
+__all__ = ["DataConfig", "SyntheticLM", "make_batch", "model_batch"]
 
 
 @dataclass(frozen=True)
@@ -48,6 +48,25 @@ def make_batch(cfg: DataConfig, step: int, *, start: int = 0,
         toks[i] = x
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
+
+
+def model_batch(model_cfg, batch: int, seq: int, step: int,
+                seed: int = 0) -> dict:
+    """Train batch ``step`` of the model config ``model_cfg``:
+    :func:`make_batch`'s ``batch x seq`` tokens and labels; for an
+    encoder-decoder, ``seq`` seeded stub frames ``(batch, seq, d_model)``
+    (float32, the frontend's output, drawn from the stream ``seed +
+    step``) and the first ``min(dec_len, seq)`` tokens and labels for its
+    decoder, as ``launch.specs.input_specs`` shapes them.  The port's
+    own: the reference builds these batches in its tests and launcher."""
+    b = make_batch(DataConfig(model_cfg.vocab, seq, batch, seed=seed), step)
+    if not model_cfg.is_encdec:
+        return b
+    D = min(model_cfg.dec_len, seq)
+    frames = np.random.default_rng(seed + step).standard_normal(
+        (batch, seq, model_cfg.d_model)).astype(np.float32)
+    return {"frames": frames, "dec_tokens": b["tokens"][:, :D],
+            "labels": b["labels"][:, :D]}
 
 class SyntheticLM:
     """Iterator over global batches; slices rows for this host."""

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.models.zoo import build_model, reference_shapes
 from repro_torch.parallel.sharding import (AxisRules, NamedSharding,
-                                           PartitionSpec, _dedup,
+                                           PartitionSpec, _dedup, axis_rules,
                                            logical_to_spec, param_spec)
 from repro_torch.tree import map_tree
 
@@ -94,10 +94,14 @@ def abstract_cache(model, cfg, shape, dtype=torch.bfloat16):
     from its encoder run on meta frames)."""
     B, S = shape.global_batch, shape.seq_len
     meta = _meta(model)
-    if cfg.is_encdec:
-        return meta.init_cache(_sds((B, S, cfg.d_model), torch.bfloat16),
-                               cfg.dec_len, dtype=dtype)
-    return meta.init_cache(B, S, dtype=dtype)
+    # shapes only: the encoder runs without rules even inside a mesh's
+    # (its frames are plain meta tensors, which ``shard`` refuses there)
+    with axis_rules(None, None):
+        if cfg.is_encdec:
+            return meta.init_cache(_sds((B, S, cfg.d_model),
+                                        torch.bfloat16),
+                                   cfg.dec_len, dtype=dtype)
+        return meta.init_cache(B, S, dtype=dtype)
 
 
 def _spec_from_logical_tree(abs_tree, logical_tree, rules, *,

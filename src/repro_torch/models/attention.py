@@ -26,7 +26,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.rope.ops import apply_rope, rope_tables
-from repro_torch.parallel.sharding import gather_last_unless, shard
+from repro_torch.parallel.sharding import (gather_last_unless, per_shard,
+                                           shard, write_slot)
 
 from .layers import (dense, dense_init, dense_spec, rmsnorm, rmsnorm_init,
                      rmsnorm_spec, softcap)
@@ -228,22 +229,19 @@ def _sdpa_per_shard(q, k, v, mask, scale, cap, **route):
     Hk, D)`` on each rank's local tensors: attention is independent
     across batch rows and heads, so a rank's rows and its contiguous
     block of query heads need only its block of key heads.  A mesh
-    dimension on which q, k and v do not share a batch (dim 0) or heads
-    (dim 2) shard is replicated first.  The output ``(B, S, H * D)``
-    keeps those placements (its last dim holds the heads)."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    mesh = q.device_mesh
-    pl = tuple(a if a == b == c and isinstance(a, Shard) and a.dim in (0, 2)
+    dimension on which k and v share a batch shard (dim 0) keeps it, q
+    moved to it (a slice, or a reduce-scatter of a partial q: the cache
+    is the larger); one on which q, k and v share a heads shard (dim 2)
+    keeps that; any other is replicated first.  The output ``(B, S, H *
+    D)`` keeps those placements (its last dim holds the heads)."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = tuple(b if b == c == Shard(0) or a == b == c == Shard(2)
                else Replicate()
                for a, b, c in zip(q.placements, k.placements, v.placements))
-    q, k, v = (x if tuple(x.placements) == pl else x.redistribute(mesh, pl)
-               for x in (q, k, v))
-    o = _sdpa(q.to_local(), k.to_local(), v.to_local(), mask, scale, cap,
-              **route)
     B, S, H, Dh = q.shape
-    return DTensor.from_local(o, mesh, pl, run_check=False,
-                              shape=(B, S, H * Dh),
-                              stride=(S * H * Dh, H * Dh, 1))
+    return per_shard(lambda q, k, v: _sdpa(q, k, v, mask, scale, cap,
+                                           **route),
+                     (q, k, v), (pl, pl, pl), pl, (B, S, H * Dh))
 
 
 def gqa_attention(p, cfg, x, *, window=None, rope_base=None, q_offset=0):
@@ -279,8 +277,8 @@ def gqa_decode(p, cfg, x, k_cache, v_cache, idx: int, *, window=None,
     q, k, v = _proj_qkv(p, cfg, x, idx, rope_base or cfg.rope_base)
     ring = window is not None and T <= window
     slot = idx % T if ring else min(idx, T - 1)
-    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    write_slot(k_cache, slot, k[:, 0])
+    write_slot(v_cache, slot, v[:, 0])
     kpos = torch.arange(T, device=x.device)
     mask = kpos <= idx  # once idx >= T every ring slot is valid
     if window is not None and not ring:
@@ -336,13 +334,16 @@ def _mla_qkv(p, cfg, x, start: int):
         q = dense(p["wq_b"], rmsnorm(p["q_norm"], dense(p["wq_a"], x)))
     else:
         q = dense(p["wq"], x)
-    q = q.reshape(B, S, H, dn + dr)
+    q = _split_heads(q, H, dn + dr)
     kv = dense(p["wkv_a"], x)
     c_kv = rmsnorm(p["kv_norm"], kv[..., :L])
     cos, sin = rope_rows(start, S, dr, cfg.rope_base, q.dtype, x.device)
-    # one launch for the query heads' rope tails and the shared key head
-    q_rope, k_rope = apply_rope(q[..., dn:].contiguous(),
-                                kv[:, :, None, L:].contiguous(), cos, sin)
+    # one launch for the query heads' rope tails and the shared key head;
+    # under a mesh once a shard, the batch and the query heads sharded
+    q_rope, k_rope = apply_rope(
+        shard(q[..., dn:].contiguous(), "batch", None, "heads", None),
+        shard(kv[:, :, None, L:].contiguous(), "batch", None, None, None),
+        cos, sin)
     q_nope = shard(q[..., :dn], "batch", None, "heads", None)
     q_rope = shard(q_rope, "batch", None, "heads", None)
     c_kv = shard(c_kv, "batch", None, None)
@@ -382,19 +383,16 @@ def _mla_flash(q_lat, q_rope, c_kv, k_rope, scale, q_offset):
     return o.permute(0, 2, 1, 3)
 
 
-def _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, mask, *,
-                q_offset=0):
-    """Latent attention: scores from the compressed cache ``(c_kv,
-    k_rope)``; a long query with a long cache takes the chunked route,
-    the rest the dense one with ``mask``."""
-    B, S, H, dn = q_nope.shape
-    T = c_kv.shape[1]
-    dv, L = cfg.v_head_dim, cfg.kv_lora
-    wkv_b = p["wkv_b"]["w"].reshape(L, H, dn + dv)
-    wk_b, wv_b = wkv_b[..., :dn], wkv_b[..., dn:]
+def _mla_core(q_nope, q_rope, c_kv, k_rope, wk_b, wv_b, mask, scale,
+              q_offset):
+    """The absorbed latent attention ``(B, S, H, dv)`` of ``q_nope (B,
+    S, H, dn)``, ``q_rope (B, S, H, dr)`` over the latent cache ``c_kv
+    (B, T, L)``, ``k_rope (B, T, dr)``; ``wk_b``/``wv_b (L, H, dn|dv)``.
+    A long query with a long cache takes the chunked route, the rest the
+    dense one with ``mask``."""
+    S, T = q_nope.shape[1], c_kv.shape[1]
     # fold k's up-projection into q (absorbed form): q~ = q_nope @ wk_b^T
     q_lat = torch.einsum("bshd,lhd->bshl", q_nope, wk_b.to(q_nope.dtype))
-    scale = (dn + cfg.qk_rope_dim) ** -0.5
     if _chunked(S, T):
         o_lat = _mla_flash(q_lat, q_rope, c_kv, k_rope, scale, q_offset)
     else:
@@ -404,7 +402,48 @@ def _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, mask, *,
             logits = torch.where(mask[None, None], logits, _MASKED)
         w = torch.softmax(logits.float(), dim=-1).to(q_nope.dtype)
         o_lat = torch.einsum("bhst,btl->bshl", w, c_kv)
-    o = torch.einsum("bshl,lhd->bshd", o_lat, wv_b.to(o_lat.dtype))
+    return torch.einsum("bshl,lhd->bshd", o_lat, wv_b.to(o_lat.dtype))
+
+
+def _mla_per_shard(q_nope, q_rope, c_kv, k_rope, wk_b, wv_b, *route):
+    """:func:`_mla_core` on each rank's local tensors: latent attention
+    is independent across batch rows and heads, and every head reads the
+    whole latent cache.  A mesh dimension that shards ``q_nope``'s batch
+    (dim 0) keeps it on the queries and the cache; one that shards its
+    heads (dim 2) keeps them on the queries and on ``wk_b``/``wv_b``
+    (their dim 1), the cache replicated there; any other mesh dimension
+    is replicated first.  The output keeps the queries' placements."""
+    from torch.distributed.tensor import Replicate, Shard
+    pq, pc, pw = [], [], []
+    for pl in q_nope.placements:
+        if pl == Shard(0):
+            pq.append(pl), pc.append(pl), pw.append(Replicate())
+        elif pl == Shard(2):
+            pq.append(pl), pc.append(Replicate()), pw.append(Shard(1))
+        else:
+            pq.append(Replicate()), pc.append(Replicate())
+            pw.append(Replicate())
+    B, S, H, _ = q_nope.shape
+    return per_shard(lambda *a: _mla_core(*a, *route),
+                     (q_nope, q_rope, c_kv, k_rope, wk_b, wv_b),
+                     (pq, pq, pc, pc, pw, pw), pq,
+                     (B, S, H, wv_b.shape[-1]))
+
+
+def _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, mask, *,
+                q_offset=0):
+    """Latent attention and its output projection; on ``DTensor``
+    queries (a step under a mesh) once a shard (:func:`_mla_per_shard`),
+    as ``_sdpa_per_shard`` attends for GQA."""
+    from torch.distributed.tensor import DTensor
+    B, S, H, dn = q_nope.shape
+    dv, L = cfg.v_head_dim, cfg.kv_lora
+    wkv_b = gather_last_unless(p["wkv_b"]["w"], H).reshape(L, H, dn + dv)
+    wk_b, wv_b = wkv_b[..., :dn], wkv_b[..., dn:]
+    scale = (dn + cfg.qk_rope_dim) ** -0.5
+    core = _mla_per_shard if isinstance(q_nope, DTensor) else _mla_core
+    o = core(q_nope, q_rope, c_kv, k_rope, wk_b, wv_b, mask, scale,
+             q_offset)
     return dense(p["wo"], o.reshape(B, S, H * dv))
 
 
@@ -436,8 +475,8 @@ def mla_decode(p, cfg, x, ckv_cache, kr_cache, idx: int):
     T = ckv_cache.shape[1]
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, idx)
     slot = min(idx, T - 1)
-    ckv_cache[:, slot] = c_kv[:, 0].to(ckv_cache.dtype)
-    kr_cache[:, slot] = k_rope[:, 0].to(kr_cache.dtype)
+    write_slot(ckv_cache, slot, c_kv[:, 0])
+    write_slot(kr_cache, slot, k_rope[:, 0])
     mask = (torch.arange(T, device=x.device) <= idx)[None, :]
     out = _mla_attend(p, cfg, q_nope, q_rope, ckv_cache.to(x.dtype),
                       kr_cache.to(x.dtype), mask)

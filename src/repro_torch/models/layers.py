@@ -22,7 +22,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 
 from repro_torch.core.sequence import resolve_device
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import gather_dim, per_shard, shard
 
 __all__ = [
     "dense_init", "dense_spec", "dense",
@@ -128,7 +128,18 @@ def mlp_gelu(p, x):
 
 def causal_conv(x, w):
     """Causal depthwise convolution of ``x (B, L, D)`` with ``w (W, D)``
-    along axis 1, summed tap by tap as the reference sums it."""
+    along axis 1, summed tap by tap as the reference sums it.  On a
+    ``DTensor`` ``x`` (a step under a mesh) once a shard: the convolution
+    is independent across batch rows and channels, so a mesh dimension
+    that shards ``x``'s batch (dim 0) or channels (dim 2, with ``w``'s
+    dim 1) keeps that, and any other is replicated first."""
+    if isinstance(x, DTensor):
+        from torch.distributed.tensor import Replicate, Shard
+        px, pw = [], []
+        for pl in x.placements:
+            px.append(pl if pl in (Shard(0), Shard(2)) else Replicate())
+            pw.append(Shard(1) if pl == Shard(2) else Replicate())
+        return per_shard(causal_conv, (x, w), (px, pw), px, x.shape)
     W, L = w.shape[0], x.shape[1]
     pad = F.pad(x, (0, 0, W - 1, 0))
     return sum(w[i] * pad[:, i:i + L] for i in range(W))
@@ -196,10 +207,17 @@ def named_leaves(tree, prefix: str) -> dict:
 def unstack_rows(stacked, prefix_of) -> dict:
     """``{prefix_of(r) + "." + name: row r}`` of a tree whose leaves are
     stacked rows, split by ``torch.unbind`` (views, whose backward stacks
-    the rows' gradients in one copy)."""
+    the rows' gradients in one copy).
+
+    Under a mesh a ``DTensor`` leaf whose stacked (layer) dim is sharded
+    (the FSDP rule shards a leaf's largest free dim, which for a small
+    leaf such as Mamba2's ``(48, 32)`` ``A_log`` is the layers) is first
+    gathered on that dim only: the all-gather GSPMD does of each layer's
+    slice inside the reference's scan, here of the whole stack at once,
+    its gradient reduce-scattered back."""
     out = {}
     for name, leaf in named_leaves(stacked, "").items():
-        for r, row in enumerate(torch.unbind(leaf)):
+        for r, row in enumerate(torch.unbind(gather_dim(leaf, 0))):
             out[f"{prefix_of(r)}{name}"] = row
     return out
 
@@ -256,10 +274,17 @@ class TreeModel(nn.Module):
         table = self.embed["e"]
         if isinstance(table, DTensor):
             # under a mesh: the table gathered whole (FSDP's all-gather,
-            # its gradient reduce-scattered back), the rows taken by
-            # F.embedding, whose backward DTensor can place (indexing's
-            # index_put it cannot, on the card's torch)
-            x = F.embedding(tokens, shard(table, None, None)).to(dt)
+            # its gradient reduce-scattered back), the rows taken once a
+            # shard of the tokens by the indexing the step without a mesh
+            # runs, so a row's gradients sum in the same order (DTensor
+            # has no rule for index_put, its backward, on the card's
+            # torch, and F.embedding's backward sums in another order)
+            from torch.distributed.tensor import Replicate
+            whole = (Replicate(),) * table.device_mesh.ndim
+            tok = tokens.placements if isinstance(tokens, DTensor) else None
+            x = per_shard(lambda t, i: t[i], (table, tokens), (whole, tok),
+                          tok or whole,
+                          (*tokens.shape, table.shape[1])).to(dt)
         else:
             x = table[tokens].to(dt)
         if cfg.emb_scale:

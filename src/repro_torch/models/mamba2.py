@@ -20,13 +20,15 @@ it through the SOAP-Givens optimizer.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import per_shard, shard
 
 from .layers import (TreeModel, causal_conv, dense, dense_init, dense_spec,
                      embed_init, embed_spec, named_leaves, rmsnorm,
@@ -97,6 +99,62 @@ def ssd_chunked(xbar, dtA, Bm, Cm, chunk: int):
     Ch = Cc.repeat_interleave(hg, dim=3)                 # (B,nC,Q,H,N)
     y_inter = torch.einsum("bcqh,bcqhn,bchnp->bcqhp", decay_in, Ch, hprev)
     return (y_intra + y_inter).reshape(B, L, H, P)[:, :L_out]
+
+
+def _ssd_per_shard(xbar, dtA, Bm, Cm, chunk: int):
+    """:func:`ssd_chunked` of ``DTensor`` inputs (a step under a mesh) on
+    each rank's local tensors: the SSD is independent across
+    batch rows and across heads, a group's ``B``/``C`` shared by its
+    ``H // G`` heads.  A mesh dimension that shards ``xbar``'s batch
+    (dim 0) keeps it on every input.  The mesh dimensions that shard its
+    heads (dim 2), ``n`` blocks in all, keep them on ``xbar`` and
+    ``dtA`` where each rank's block holds whole groups' heads in the
+    order ``ssd_chunked`` maps them: one group (``B``/``C`` replicated),
+    or ``G`` groups split as the heads are (``n`` divides ``H`` and
+    ``G``; ``B``/``C`` sharded alike).  Otherwise they, and any other
+    mesh dimension, are replicated first.  The output ``(B, L, H, P)``
+    keeps ``xbar``'s resulting placements."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = xbar.device_mesh
+    H, G = xbar.shape[2], Bm.shape[2]
+    heads = [i for i, pl in enumerate(xbar.placements) if pl == Shard(2)]
+    n = math.prod(mesh.size(i) for i in heads)
+    keep = H % n == 0 and (G == 1 or G % n == 0)
+    px, pa, pb = [], [], []
+    for i, pl in enumerate(xbar.placements):
+        if pl == Shard(0):
+            px.append(pl), pa.append(pl), pb.append(pl)
+        elif i in heads and keep:
+            px.append(pl), pa.append(pl)
+            pb.append(pl if G > 1 else Replicate())
+        else:
+            px.append(Replicate()), pa.append(Replicate())
+            pb.append(Replicate())
+    return per_shard(lambda x, a, b, c: ssd_chunked(x, a, b, c, chunk),
+                     (xbar, dtA, Bm, Cm), (px, pa, pb, pb), px,
+                     xbar.shape)
+
+
+def _ssm_update(dA, Bm, Cm, xbar, ssm):
+    """One step of the SSM recurrence: ``dA (B, H)``, ``Bm``/``Cm (B, G,
+    N)``, ``xbar (B, H, P)``, the state ``ssm (B, H, N, P)``; ``(y (B, H,
+    P), new state)``."""
+    hg = xbar.shape[1] // Bm.shape[1]
+    Bh = Bm.repeat_interleave(hg, dim=1)                 # (B,H,N)
+    Ch = Cm.repeat_interleave(hg, dim=1)
+    ssm = dA[:, :, None, None] * ssm + Bh[..., None] * xbar[:, :, None, :]
+    return torch.einsum("bhn,bhnp->bhp", Ch, ssm), ssm
+
+
+def _ssm_update_per_shard(dA, Bm, Cm, xbar, ssm):
+    """:func:`_ssm_update` of ``DTensor`` inputs (a decode step under a
+    mesh) once a shard of the batch: the state's batch placements on
+    every input (its other mesh dimensions replicated first), the heads
+    whole on each rank."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = tuple(x if x == Shard(0) else Replicate() for x in ssm.placements)
+    return per_shard(_ssm_update, (dA, Bm, Cm, xbar, ssm), (pl,) * 5,
+                     (pl, pl), (xbar.shape, ssm.shape))
 
 
 def _dims(cfg):
@@ -202,7 +260,10 @@ class Mamba2(TreeModel):
 
     def _out(self, p, x, y, z):
         y = rmsnorm(p["out_norm"], y * F.silu(z))
-        return x + dense(p["out_proj"], y)
+        # seq-shard the projection before the residual add, as the
+        # transformer's blocks do (the reference's scan carry is placed
+        # ("batch", "seq", "embed"))
+        return x + shard(dense(p["out_proj"], y), "batch", "seq", "embed")
 
     # -------------------------------------------------------- forward ----
 
@@ -219,7 +280,8 @@ class Mamba2(TreeModel):
         A, dt = self._dt(p, dt)
         dtA = (dt * A[None, None]).to(x.dtype)            # (B,L,H)
         xbar = xs * dt[..., None].to(x.dtype)
-        y = ssd_chunked(xbar, dtA, Bm, Cm, min(self.cfg.ssm_chunk, L))
+        ssd = _ssd_per_shard if isinstance(xbar, DTensor) else ssd_chunked
+        y = ssd(xbar, dtA, Bm, Cm, min(self.cfg.ssm_chunk, L))
         y = y + p["D"].to(x.dtype)[None, None, :, None] * xs
         return self._out(p, x, y.reshape(Bsz, L, self.d_inner), z)
 
@@ -257,12 +319,9 @@ class Mamba2(TreeModel):
         A, dts = self._dt(p, dt[:, 0])
         dA = torch.exp(dts * A[None]).to(x.dtype)           # (B,H)
         xbar = xs * dts[..., None].to(x.dtype)
-        hg = self.H // self.G
-        Bh = Bm.repeat_interleave(hg, dim=1)                 # (B,H,N)
-        Ch = Cm.repeat_interleave(hg, dim=1)
-        ssm = (dA[:, :, None, None] * state["ssm"].to(x.dtype)
-               + Bh[..., None] * xbar[:, :, None, :])
-        y = torch.einsum("bhn,bhnp->bhp", Ch, ssm)
+        step = (_ssm_update_per_shard if isinstance(xbar, DTensor)
+                else _ssm_update)
+        y, ssm = step(dA, Bm, Cm, xbar, state["ssm"].to(x.dtype))
         y = y + p["D"].to(x.dtype)[None, :, None] * xs
         state["conv"].copy_(hist[:, 1:])
         state["ssm"].copy_(ssm)

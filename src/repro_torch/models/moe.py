@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import per_shard, shard
 
 from .layers import dense_init, dense_spec, mlp_init, mlp_spec, mlp_swiglu
 
@@ -84,9 +84,14 @@ def moe_route(p, cfg, xt, n_chunks: int = 1) -> Route:
     """Route the tokens ``xt (N, d)``: exact below ``_EXACT_ROUTED``
     routed pairs, else by capacity in ``n_chunks`` chunk-local groups
     (one group when ``N`` does not split)."""
-    N = xt.shape[0]
-    E, K = cfg.n_experts, cfg.top_k
     gate_vals, gate_idx = _gates(p, cfg, xt)
+    return _slots(cfg, gate_vals, gate_idx, n_chunks)
+
+
+def _slots(cfg, gate_vals, gate_idx, n_chunks: int) -> Route:
+    """The :class:`Route` of the gates ``(N, K)``: each pair's slot."""
+    N = gate_idx.shape[0]
+    E, K = cfg.n_experts, cfg.top_k
     exact = N * K <= _EXACT_ROUTED
     C = n_chunks if (not exact and N % n_chunks == 0) else 1
     Nl = N // C
@@ -97,9 +102,10 @@ def moe_route(p, cfg, xt, n_chunks: int = 1) -> Route:
     ids = gate_idx.reshape(C, Nl * K)
     order = torch.argsort(ids, dim=1, stable=True)
     sorted_ids = ids.gather(1, order)
-    experts = torch.arange(E, device=xt.device).expand(C, E).contiguous()
+    dev = gate_idx.device
+    experts = torch.arange(E, device=dev).expand(C, E).contiguous()
     starts = torch.searchsorted(sorted_ids, experts)
-    pos_sorted = (torch.arange(Nl * K, device=xt.device)[None]
+    pos_sorted = (torch.arange(Nl * K, device=dev)[None]
                   - starts.gather(1, sorted_ids))
     pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
     pos = pos.reshape(C, Nl, K)
@@ -107,22 +113,37 @@ def moe_route(p, cfg, xt, n_chunks: int = 1) -> Route:
 
 
 def moe_ffn(p, cfg, x, *, n_chunks: int = 1):
-    """x (B, S, d) -> (B, S, d); top-k routed + optional shared experts."""
+    """x (B, S, d) -> (B, S, d); top-k routed + optional shared experts.
+    Under a mesh (``DTensor`` tokens) the routed part is
+    :func:`_routed_on_mesh`."""
+    from torch.distributed.tensor import DTensor
     B, S, d = x.shape
-    E, K = cfg.n_experts, cfg.top_k
+    # SP: gather seq before the tokens are flattened
+    x = shard(x, "batch", None, "embed")
     xt = shard(x.reshape(B * S, d), "batch", None)
+    routed = _routed_on_mesh if isinstance(xt, DTensor) else _routed
+    out = routed(p, cfg, xt, n_chunks).reshape(B, S, d)
+    if cfg.n_shared_experts:
+        out = out + mlp_swiglu(p["shared"], x)
+    return out
+
+
+def _routed(p, cfg, xt, n_chunks: int):
+    """The routed experts' mix ``(N, d)`` of the tokens ``xt (N, d)``."""
+    N, d = xt.shape
+    E, K = cfg.n_experts, cfg.top_k
     r = moe_route(p, cfg, xt, n_chunks)
     C, Nl, _ = r.pos.shape
     keepf = r.keep.to(xt.dtype)
     posc = torch.where(r.keep, r.pos, r.cap - 1)
     idx_c = r.gate_idx.reshape(C, Nl, K)
-    chunk = torch.arange(C, device=x.device)[:, None, None].expand_as(idx_c)
+    chunk = torch.arange(C, device=xt.device)[:, None, None].expand_as(idx_c)
 
     # dispatch: a kept pair lands alone in its slot; a dropped one adds
     # zero to its expert's last slot
     xc = shard(xt.reshape(C, Nl, d), "batch", None, None)
     upd = xc[:, :, None, :] * keepf[..., None]           # (C, Nl, K, d)
-    buf = torch.zeros((C, E, r.cap, d), dtype=xt.dtype, device=x.device)
+    buf = torch.zeros((C, E, r.cap, d), dtype=xt.dtype, device=xt.device)
     buf = buf.index_put((chunk, idx_c, posc), upd, accumulate=True)
     buf = shard(buf, "batch", "experts", None, None)
 
@@ -137,10 +158,92 @@ def moe_ffn(p, cfg, x, *, n_chunks: int = 1):
     yk = ye[chunk, idx_c, posc]                          # (C, Nl, K, d)
     ys = (yk * (r.gate_vals.reshape(C, Nl, K).to(xt.dtype)
                 * keepf)[..., None]).sum(dim=2)
-    out = ys.reshape(B, S, d)
-    if cfg.n_shared_experts:
-        out = out + mlp_swiglu(p["shared"], x)
-    return out
+    return ys.reshape(N, d)
+
+
+def _experts(b, w_gate, w_up, w_down):
+    """The experts' SwiGLU of a dispatch buffer ``(C, E, cap, d)``."""
+    h = torch.einsum("cend,edf->cenf", b, w_gate.to(b.dtype))
+    u = torch.einsum("cend,edf->cenf", b, w_up.to(b.dtype))
+    return torch.einsum("cenf,efd->cend", F.silu(h) * u, w_down.to(b.dtype))
+
+
+def _routed_on_mesh(p, cfg, xt, n_chunks: int):
+    """:func:`_routed` of ``DTensor`` tokens ``xt (N, d)`` (rows over the
+    batch axes), expert parallel over the axes that shard the expert
+    stacks' dim 0 (``model``), every local step once a shard:
+
+    1. the router on each rank's tokens (its weight gathered);
+    2. the slots: the pairs' experts all-gathered (``N x K`` integers)
+       and ranked on every rank alike, exactly as without a mesh (the
+       same stable order, so the same pairs are kept), the gather the
+       reference's global dispatch implies;
+    3. dispatch: each rank scatters its tokens' pairs of its block of
+       experts into a ``(C, E / ways, cap, d)`` buffer at their global
+       slots; summed over the batch axes by a reduce-scatter along the
+       slots (a slot holds one pair), so each rank computes
+    4. its experts (their stacks gathered over the FSDP axes) on its
+       block of slots, no expert row twice;
+    5. combine: the rows all-gathered back over the batch axes, each
+       rank mixes its tokens' pairs of its experts, and the partial
+       mixes are summed over the expert axes (an all-reduce).
+    """
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.compat import compute_local_shape_and_global_offset
+    mesh = xt.device_mesh
+    N, d = xt.shape
+    E, K = cfg.n_experts, cfg.top_k
+    rep = (Replicate(),) * mesh.ndim
+    tok = tuple(pl if pl == Shard(0) else Replicate()
+                for pl in xt.placements)
+    exp_ = tuple(Shard(0) if pw == Shard(0) and pt != Shard(0)
+                 else Replicate()
+                 for pw, pt in zip(p["w_gate"].placements, tok))
+    gate_vals, gate_idx = per_shard(
+        lambda x, w: _gates({"router": {"w": w}}, cfg, x),
+        (xt, p["router"]["w"]), (tok, rep), (tok, tok), ((N, K), (N, K)))
+    ids = gate_idx.full_tensor()
+    r = _slots(cfg, None, ids, n_chunks)
+    C, Nl, _ = r.pos.shape
+    (n_loc, _), (t0, _) = compute_local_shape_and_global_offset(
+        (N, d), mesh, tok)
+    (e_loc,), (e0,) = compute_local_shape_and_global_offset(
+        (E,), mesh, exp_)
+    rows = torch.arange(t0, t0 + n_loc, device=xt.device)
+    idx = ids[rows]                                      # (n, K)
+    mine = (r.keep.reshape(N, K)[rows] & (idx >= e0)
+            & (idx < e0 + e_loc))
+    chunk = (rows // Nl)[:, None].expand_as(idx)
+    slot = (torch.where(mine, idx - e0, 0),
+            torch.where(mine, r.pos.reshape(N, K)[rows], r.cap - 1))
+
+    def dispatch(x):
+        upd = x[:, None, :] * mine.to(x.dtype)[..., None]   # (n, K, d)
+        buf = torch.zeros((C, e_loc, r.cap, d), dtype=x.dtype,
+                          device=x.device)
+        return buf.index_put((chunk, *slot), upd, accumulate=True)
+
+    def combine(y, g):
+        yk = y[(chunk, *slot)]                               # (n, K, d)
+        return (yk * (g.to(y.dtype) * mine.to(y.dtype))[..., None]).sum(
+            dim=1)
+
+    shape = (C, E, r.cap, d)
+    gathered = tuple(Shard(1) if pe == Shard(0) else Replicate()
+                     for pe in exp_)
+    buf = per_shard(dispatch, (xt,), (tok,),
+                    tuple(Partial() if pt == Shard(0) else pg
+                          for pt, pg in zip(tok, gathered)), shape)
+    by_slot = tuple(Shard(2) if pt == Shard(0) else pg
+                    for pt, pg in zip(tok, gathered))
+    ye = per_shard(_experts, (buf, p["w_gate"], p["w_up"], p["w_down"]),
+                   (by_slot, exp_, exp_, exp_), by_slot, shape)
+    ys = per_shard(combine, (ye, gate_vals), (gathered, tok),
+                   tuple(pt if pt == Shard(0) else
+                         Partial() if pe == Shard(0) else Replicate()
+                         for pt, pe in zip(tok, exp_)), (N, d))
+    return ys.redistribute(mesh, tok)
 
 
 def moe_ffn_dense_ref(p, cfg, x):

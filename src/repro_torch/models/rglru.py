@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import per_shard, shard
 
 from .attention import gqa_attention, gqa_decode, gqa_init, gqa_spec
 from .layers import (TreeModel, causal_conv, dense, dense_init, dense_spec,
@@ -146,18 +146,50 @@ def linear_scan(a, b):
     return b
 
 
-def _rglru(p, xw, h0=None):
-    """RG-LRU over ``xw (B, L, w)``; ``(h, h_last)``."""
-    r = torch.sigmoid(dense(p["gate_a"], xw))
-    i = torch.sigmoid(dense(p["gate_i"], xw))
-    log_a = 8.0 * r * F.logsigmoid(p["lam"].float())  # c = 8 (Griffin)
+def _lru(r, i, xw, lam, h0=None):
+    """The RG-LRU recurrence over ``xw (B, L, w)`` from its gates ``r``
+    and ``i`` (``(B, L, w)``, after the sigmoid), ``lam (w,)`` and the
+    state ``h0 (B, w)`` (zero when ``None``): ``h (B, L, w)``."""
+    log_a = 8.0 * r * F.logsigmoid(lam.float())  # c = 8 (Griffin)
     a = torch.exp(log_a).to(xw.dtype)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
                                    min=1e-12)).to(xw.dtype) * (i * xw)
     if h0 is not None:
         gated = torch.cat([gated[:, :1] + (a[:, 0] * h0)[:, None],
                            gated[:, 1:]], dim=1)
-    h = linear_scan(a, gated)
+    return linear_scan(a, gated)
+
+
+def _lru_per_shard(r, i, xw, lam, h0=None):
+    """:func:`_lru` on each rank's local tensors: the recurrence is
+    elementwise across batch rows and channels.  A mesh dimension that
+    shards ``xw``'s batch (dim 0) or channels (dim 2) keeps that on
+    every input (``lam``'s and the state's channels alike); any other is
+    replicated first.  ``h`` keeps ``xw``'s resulting placements."""
+    from torch.distributed.tensor import Replicate, Shard
+    px, pl, ph = [], [], []
+    for pl_x in xw.placements:
+        if pl_x == Shard(0):
+            px.append(pl_x), pl.append(Replicate()), ph.append(Shard(0))
+        elif pl_x == Shard(2):
+            px.append(pl_x), pl.append(Shard(0)), ph.append(Shard(1))
+        else:
+            px.append(Replicate()), pl.append(Replicate())
+            ph.append(Replicate())
+    return per_shard(_lru, (r, i, xw, lam, h0),
+                     (px, px, px, pl, None if h0 is None else ph), px,
+                     xw.shape)
+
+
+def _rglru(p, xw, h0=None):
+    """RG-LRU over ``xw (B, L, w)``; ``(h, h_last)``.  The gates' products
+    run as they are; on ``DTensor`` inputs (a step under a mesh) the
+    recurrence runs once a shard (:func:`_lru_per_shard`)."""
+    from torch.distributed.tensor import DTensor
+    r = torch.sigmoid(dense(p["gate_a"], xw))
+    i = torch.sigmoid(dense(p["gate_i"], xw))
+    scan = _lru_per_shard if isinstance(xw, DTensor) else _lru
+    h = scan(r, i, xw, p["lam"], h0)
     return h, h[:, -1]
 
 
@@ -212,8 +244,12 @@ class RecurrentHybrid(TreeModel):
                                  window=self.cfg.window)
         else:
             a = self._recurrent(p["temporal"], h)
-        x = x + a
-        x = x + mlp_gelu(p["mlp"], rmsnorm(p["ln2"], x))
+        # seq-shard each branch before its residual add, as the
+        # transformer's blocks do: the add then needs no gather, and the
+        # branch's backward takes its gradient unflattened
+        x = x + shard(a, "batch", "seq", "embed")
+        x = x + shard(mlp_gelu(p["mlp"], rmsnorm(p["ln2"], x)),
+                      "batch", "seq", "embed")
         return shard(x, "batch", "seq", "embed")
 
     def forward(self, tokens, remat: bool = False):

@@ -23,10 +23,10 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import replicated_like, shard
 
-from .attention import (_proj_qkv, _sdpa, attn_mask, gqa_decode, gqa_init,
-                        gqa_spec)
+from .attention import (_proj_qkv, _sdpa, _split_heads, attn_mask,
+                        gqa_decode, gqa_init, gqa_spec)
 from .layers import (TreeModel, dense, dense_init, dense_spec, embed_init,
                      embed_spec, layernorm, layernorm_init, layernorm_spec,
                      mlp_gelu, mlp_init, mlp_spec, named_leaves,
@@ -43,6 +43,13 @@ def sinusoid(length: int, d: int, dtype, device=None):
     i = torch.arange(d // 2, device=device, dtype=torch.float32)[None, :]
     ang = pos / torch.pow(10000.0, 2 * i / d)
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def _seq(y):
+    """A branch's output seq-sharded before its residual add, as the
+    transformer's blocks place theirs (a placement only: without mesh
+    rules it is ``y`` itself)."""
+    return shard(y, "batch", "seq", "embed")
 
 
 def init_params(cfg, gen):
@@ -126,7 +133,8 @@ class WhisperBackbone(TreeModel):
                                       for _ in range(self.cfg.dec_layers)]}
 
     def _logits(self, x):
-        x = layernorm(self.ln_dec, x)
+        # SP: gather seq for the head, as the transformer's does
+        x = shard(layernorm(self.ln_dec, x), "batch", None, "embed")
         return x @ self.embed["e"].to(x.dtype).T
 
     # -------------------------------------------------------- encoder ----
@@ -138,8 +146,8 @@ class WhisperBackbone(TreeModel):
         # bidirectional: no mask on the dense route, causal=False on the
         # flash one
         a = _sdpa(q, k, v, None, cfg.head_dim ** -0.5, causal=False)
-        x = x + dense(p["attn"]["wo"], a)
-        x = x + mlp_gelu(p["mlp"], layernorm(p["ln2"], x))
+        x = x + _seq(dense(p["attn"]["wo"], a))
+        x = x + _seq(mlp_gelu(p["mlp"], layernorm(p["ln2"], x)))
         return shard(x, "batch", "seq", "embed")
 
     def encode(self, frames, remat: bool = False):
@@ -147,8 +155,9 @@ class WhisperBackbone(TreeModel):
         the encoder's output."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
-        x = frames.to(dt) + sinusoid(frames.shape[1], cfg.d_model, dt,
-                                     frames.device)
+        x = frames.to(dt) + replicated_like(
+            sinusoid(frames.shape[1], cfg.d_model, dt, frames.device),
+            frames)
         x = shard(x, "batch", "seq", "embed")
         for p in self.enc:
             if remat:
@@ -161,19 +170,18 @@ class WhisperBackbone(TreeModel):
     # -------------------------------------------------------- decoder ----
 
     def _cross_kv(self, p, enc_out):
-        B = enc_out.shape[0]
         H, Dh = self.cfg.n_heads, self.cfg.head_dim
-        return (dense(p["xattn"]["wk"], enc_out).reshape(B, -1, H, Dh),
-                dense(p["xattn"]["wv"], enc_out).reshape(B, -1, H, Dh))
+        enc_out = shard(enc_out, "batch", None, "embed")  # SP: gather seq
+        return (_split_heads(dense(p["xattn"]["wk"], enc_out), H, Dh),
+                _split_heads(dense(p["xattn"]["wv"], enc_out), H, Dh))
 
     def _cross(self, p, x, xk, xv):
-        B = x.shape[0]
         H, Dh = self.cfg.n_heads, self.cfg.head_dim
-        q = dense(p["xattn"]["wq"], layernorm(p["lnx"], x)).reshape(
-            B, -1, H, Dh)
+        h = shard(layernorm(p["lnx"], x), "batch", None, "embed")
+        q = _split_heads(dense(p["xattn"]["wq"], h), H, Dh)
         a = _sdpa(q, xk, xv, None, Dh ** -0.5, causal=False)
-        x = x + dense(p["xattn"]["wo"], a)
-        return x + mlp_gelu(p["mlp"], layernorm(p["ln2"], x))
+        x = x + _seq(dense(p["xattn"]["wo"], a))
+        return x + _seq(mlp_gelu(p["mlp"], layernorm(p["ln2"], x)))
 
     def _dec_block(self, p, x, enc_out):
         cfg = self.cfg
@@ -182,7 +190,7 @@ class WhisperBackbone(TreeModel):
                             cfg.rope_base)
         a = _sdpa(q, k, v, attn_mask(S, S, device=x.device),
                   cfg.head_dim ** -0.5)
-        x = x + dense(p["attn"]["wo"], a)
+        x = x + _seq(dense(p["attn"]["wo"], a))
         x = self._cross(p, x, *self._cross_kv(p, enc_out))
         return shard(x, "batch", "seq", "embed")
 

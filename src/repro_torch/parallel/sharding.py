@@ -28,6 +28,7 @@ from typing import Dict, Optional, Tuple
 __all__ = ["AxisRules", "axis_rules", "current_rules", "current_mesh",
            "shard", "logical_to_spec", "param_spec", "PartitionSpec",
            "to_placements", "NamedSharding", "gather_last_unless",
+           "gather_dim", "per_shard", "write_slot", "replicated_like",
            "any_dtensor", "DEFAULT_RULES"]
 
 _state = threading.local()
@@ -262,6 +263,109 @@ def gather_last_unless(x, n: int):
         return x
     return x.redistribute(x.device_mesh, [Replicate() if pl == last else pl
                                           for pl in x.placements])
+
+
+def gather_dim(x, dim: int):
+    """A ``DTensor`` with dimension ``dim`` gathered on every mesh axis
+    that shards it (its other placements kept); ``x`` itself when no axis
+    shards that dim, and for a plain tensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.dim()
+    placements = [Replicate() if pl == Shard(dim) else pl
+                  for pl in x.placements]
+    if placements == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def per_shard(fn, xs, placements, out_placements, out_shapes):
+    """``fn`` once a shard: each ``DTensor`` of ``xs`` redistributed to
+    its entry of ``placements`` (a collective where they differ) and
+    handed to ``fn`` as its local tensor (a ``None`` entry passes the
+    argument as it is); ``fn``'s output (a tensor or a tuple of them) as
+    ``DTensor``s placed by ``out_placements`` with the global shapes
+    ``out_shapes``.  Gradients flow through ``to_local``/``from_local``,
+    so ``fn``'s backward runs once a shard too: an input replicated on a
+    mesh dimension on which an output is sharded or partial (each rank
+    computes its own part there) gets a partial gradient there, summed
+    across that dimension."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = next(x for x in xs if isinstance(x, DTensor)).device_mesh
+    single = isinstance(out_shapes[0], int)   # one output's shape
+    if single:
+        out_placements, out_shapes = (out_placements,), (out_shapes,)
+    split = [any(isinstance(pls[i], (Shard, Partial))
+                 for pls in out_placements)
+             for i in range(mesh.ndim)]
+    local = []
+    for x, pl in zip(xs, placements):
+        if pl is None:
+            local.append(x)
+            continue
+        pl = tuple(pl)
+        if tuple(x.placements) != pl:
+            x = x.redistribute(mesh, pl)
+        grad = tuple(Partial() if s and p == Replicate() else p
+                     for s, p in zip(split, pl))
+        local.append(x.to_local(grad_placements=grad))
+    out = fn(*local)
+    if single:
+        out = (out,)
+    # contiguous, as the strides given to from_local say
+    wrapped = tuple(
+        DTensor.from_local(o.contiguous(), mesh, tuple(pl), run_check=False,
+                           shape=tuple(shape),
+                           stride=_contiguous_strides(tuple(shape)))
+        for o, pl, shape in zip(out, out_placements, out_shapes))
+    return wrapped[0] if single else wrapped
+
+
+def replicated_like(x, like):
+    """``x``, a plain tensor every rank computes alike (a position
+    table), as a replicated ``DTensor`` on ``like``'s mesh when ``like``
+    is a ``DTensor`` (no communication; an op with ``like`` then takes
+    its shard locally); ``x`` itself otherwise."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(like, DTensor):
+        return x
+    mesh = like.device_mesh
+    return DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def write_slot(cache, slot: int, value) -> None:
+    """``cache[:, slot] = value`` in place (``value`` cast to the cache's
+    dtype).  On a ``DTensor`` cache it is written on each rank's local
+    tensor: ``value`` (the cache without its dim 1) is placed as the
+    cache's other dims are, and a rank whose shard of dim 1 (a sequence
+    sharded over ``model``) holds ``slot`` writes its row there, the
+    others nothing."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(cache, DTensor):
+        cache[:, slot] = value.to(cache.dtype)
+        return
+    from repro_torch.compat import compute_local_shape_and_global_offset
+    mesh = cache.device_mesh
+    pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1
+               else p if p == Shard(0) else Replicate()
+               for p in cache.placements)
+    if tuple(value.placements) != pl:
+        value = value.redistribute(mesh, pl)
+    shape, offset = compute_local_shape_and_global_offset(
+        cache.shape, mesh, cache.placements)
+    if offset[1] <= slot < offset[1] + shape[1]:
+        cache.to_local()[:, slot - offset[1]] = \
+            value.to_local().to(cache.dtype)
+
+
+def _contiguous_strides(shape) -> tuple:
+    strides, n = [], 1
+    for d in reversed(shape):
+        strides.append(n)
+        n *= d
+    return tuple(reversed(strides))
 
 
 def any_dtensor(tree) -> bool:
