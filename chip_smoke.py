@@ -30,6 +30,22 @@ and its ptxas report must show no spills; then
 signed and reflector requests), ``apply_batched`` on the ``seq.T``
 staircases, a gradient through ``apply_batched`` and ``StreamEngine``
 run with the launch counts set to 0 just before and read just after.
+Then half precision, the dtypes the reference's Pallas kernels take
+besides float32: the wavefront kernel in bfloat16 and float16, bit for
+bit to its plain version at the paper shape, the ragged signed problem
+and the small one, one launch an application; the fused kernel at the
+serving bucket and its ``seq.T`` staircases in both, out and plane
+counts bit for bit to its plain version and to per-request half
+``cuda_wave``; the accumulated kernel's tensor-core tier at the paper
+shape at 128/128 and 64/64 in both, its factors built by one half
+``rotseq_batched`` launch a band (equal to the eager ones under ``==``),
+its largest error against the float64 application of the same rounded
+inputs within ``HALF_MXU_RATIO`` of its plain version's and within the
+reference's ``7e-2·k``; every half instantiation free of spills; then,
+with the launch counts set to 0 just before and read just after, the
+half main path: ``auto`` at the paper shape (a ``cuda_*`` pick), the
+three kernels on the ragged problem and the bucket through
+``RotationService`` (one ``cuda_batched`` launch) in each dtype.
 Then the eigensolver path (``repro_torch.eig``, paper SS5.1), float32,
 each part with the launch counts set to 0 just before it:
 each solver run once with its stages timed inside that run:
@@ -177,9 +193,11 @@ try:
 except ImportError:
     timing = None
 
-# H100 SXM peaks (NVIDIA data sheet): float32 off the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): float32 off the tensor cores, HBM3,
+# dense bf16/f16 on the tensor cores
 PEAK_F32 = 67e12
 PEAK_BW = 3.35e12
+PEAK_HALF = 989.4e12
 
 M = N = 3840
 K = 180
@@ -196,6 +214,14 @@ BEST_TILES = {"cuda_wave": WAVE_TILES, "cuda_mxu": None, "cuda_batched": {}}
 KERNEL_OF = {"cuda_wave": "rotseq_wave", "cuda_mxu": "rotseq_mxu",
              "cuda_batched": "rotseq_batched"}
 MXU_TOL = 1e-5     # relative Frobenius error, kernel vs plain version
+# half precision: the kernels' tags and dtypes; the accumulated kernel's
+# tensor-core tier is held to the float64 application of its rounded
+# inputs, its largest error at most HALF_MXU_RATIO times its plain
+# version's (float32 products, rounded once a tile) and within the
+# reference's bf16 bar HALF_MXU_TOL * k (tests/test_kernels.py)
+HALF = {"bf16": "bfloat16", "f16": "float16"}
+HALF_MXU_RATIO = 1.25
+HALF_MXU_TOL = 7e-2
 PLANNER_BATCH = 8  # shared-sequence batch of paper-shape targets
 GRAD_TOL = 1e-4    # relative Frobenius error of plan.apply(grad) vs W
 
@@ -339,8 +365,8 @@ def time_ms(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
-    f, b = flops / PEAK_F32 * 1e3, nbytes / PEAK_BW * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32):
+    f, b = flops / peak * 1e3, nbytes / PEAK_BW * 1e3
     return (f, "operations") if f >= b else (b, "bytes")
 
 
@@ -367,14 +393,23 @@ def ptxas_table(log) -> dict:
     return table
 
 
+# the storage types of the kernels' instantiations, as mangled names
+# spell them, and the tags of the half ones
+_MANGLED_TYPE = r"(f|13__nv_bfloat16|6__half)"
+_TYPE_TAG = {"f": "", "13__nv_bfloat16": "/bf16", "6__half": "/f16"}
+
+
 def wave_instances(ptxas: dict) -> dict:
-    """``{"kb16/w4": report}``: the wavefront kernel's instantiations in
-    the ptxas report, by waves a band and warps a block."""
+    """``{"kb16/w12": report, "kb16/w12/bf16": ...}``: the wavefront
+    kernel's instantiations in the ptxas report, by waves a band, warps
+    a block and (for the half ones) the storage type."""
     found = {}
     for name, rep in ptxas.items():
-        m = re.search(r"rotseq_wave_kernelILi(\d+)ELi(\d+)E", name)
+        m = re.search(r"rotseq_wave_kernelILi(\d+)ELi(\d+)E" + _MANGLED_TYPE,
+                      name)
         if m:
-            found[f"kb{m.group(1)}/w{m.group(2)}"] = rep
+            found[f"kb{m.group(1)}/w{m.group(2)}"
+                  f"{_TYPE_TAG[m.group(3)]}"] = rep
     return found
 
 
@@ -695,13 +730,28 @@ def pack_batched(A, sequences):
 
 
 def batched_instances(ptxas: dict) -> dict:
-    """``{"kb16/t64": report}``: the fused kernel's instantiations in the
-    ptxas report, by waves a band and threads a block."""
+    """``{"kb16/t64": report, "kb16/t64/bf16": ...}``: the fused kernel's
+    instantiations in the ptxas report, by waves a band, threads a block
+    and (for the half ones) the storage type."""
     found = {}
     for name, rep in ptxas.items():
-        m = re.search(r"rotseq_batched_kernelILi(\d+)ELi(\d+)E", name)
+        m = re.search(r"rotseq_batched_kernelILi(\d+)ELi(\d+)E"
+                      + _MANGLED_TYPE, name)
         if m:
-            found[f"kb{m.group(1)}/t{m.group(2)}"] = rep
+            found[f"kb{m.group(1)}/t{m.group(2)}"
+                  f"{_TYPE_TAG[m.group(3)]}"] = rep
+    return found
+
+
+def mxu_half_instances(ptxas: dict) -> dict:
+    """``{"bf16/wp256": report}``: the tensor-core tier's instantiations
+    in the ptxas report, by storage type and padded width."""
+    found = {}
+    for name, rep in ptxas.items():
+        m = re.search(r"rotseq_mxu_half_kernelI(13__nv_bfloat16|6__half)"
+                      r"Li(\d+)E", name)
+        if m:
+            found[f"{_TYPE_TAG[m.group(1)][1:]}/wp{m.group(2)}"] = rep
     return found
 
 
@@ -785,6 +835,400 @@ def batched_phase(bctx, ptxas: dict) -> dict:
         replaces="src/repro/kernels/rotseq_batched/kernel.py:83",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms)
+
+
+def half_sequence(seq, dtype):
+    """``seq`` with its waves (and signs) rounded to ``dtype``."""
+    from repro_torch import RotationSequence
+    return RotationSequence(seq.cos.to(dtype), seq.sin.to(dtype),
+                            None if seq.sign is None else seq.sign.to(dtype),
+                            seq.reflect)
+
+
+def half_context(ctx) -> dict:
+    """``{tag: inputs}``: the paper shape, the ragged signed problem and
+    the small one rounded to each half type, and the dense ``Q`` of the
+    paper sequence in it (the yardstick's factor, formed by the kernel,
+    not timed)."""
+    import torch
+    from repro_torch import RotationSequence
+    from repro_torch.kernels.rotseq.ops import rot_sequence_wave
+    out = {}
+    for tag, name in HALF.items():
+        dt = getattr(torch, name)
+        A, C, S = (ctx[x].to(dt) for x in ("A", "C", "S"))
+        (Ar, seq_r), (As, small) = ctx["ragged"], ctx["small"]
+        eye = torch.eye(N, device=A.device, dtype=dt)
+        out[tag] = dict(dtype=dt, A=A, C=C, S=S,
+                        seq=RotationSequence(C, S),
+                        Q=rot_sequence_wave(eye, C, S),
+                        ragged=(Ar.to(dt), half_sequence(seq_r, dt)),
+                        small=(As.to(dt), half_sequence(small, dt)))
+    return out
+
+
+def wave_half_phase(hctx, ptxas: dict) -> dict:
+    """Hold ``rotseq_wave`` in bfloat16 and float16 bit for bit against
+    its plain version at the paper shape, the ragged signed problem and
+    the small one; one launch an application; time it beside its plain
+    version and ``torch.matmul`` in that dtype; fail on a spill of any
+    instantiation.  Returns the kernels line's entries."""
+    import torch
+    from repro_torch.kernels.limits import WAVE_KB, WAVE_WARPS
+    from repro_torch.kernels.rotseq import kernel as wave_k
+    from repro_torch.kernels.rotseq.ops import rot_sequence_wave
+    from repro_torch.kernels.rotseq.ref import rotseq_wave_ref
+    rows, entries = {}, {}
+    for tag, h in hctx.items():
+        A, C, S = h["A"], h["C"], h["S"]
+        args = pack_wave(A, C, S)
+        o_k = wave_k.rotseq_wave(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        o_p = rotseq_wave_ref(*args)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        check(o_k.dtype == h["dtype"] and torch.equal(o_k, o_p),
+              f"rotseq_wave {tag} != plain version at the paper shape")
+        h["blocked"] = o_p.t()
+        for name in ("ragged", "small"):
+            X, seq_x = h[name]
+            a_x = pack_wave(X, seq_x.cos, seq_x.sin, seq_x.sign)
+            check(torch.equal(wave_k.rotseq_wave(*a_x),
+                              rotseq_wave_ref(*a_x)),
+                  f"rotseq_wave {tag} != plain version on the {name} "
+                  f"problem")
+        ms = time_ms(lambda: wave_k.rotseq_wave(*args), 5)
+        before = wave_k.LAUNCHES
+        out_w = rot_sequence_wave(A, C, S)
+        torch.cuda.synchronize()
+        launches = wave_k.LAUNCHES - before
+        check(launches == 1, f"rotseq_wave {tag}: {launches} launches an "
+              f"application")
+        check(bool(torch.isfinite(out_w).all()),
+              f"rotseq_wave {tag}: non-finite")
+        check(torch.equal(out_w, h["blocked"]),
+              f"rotseq_wave {tag} application != plain version")
+        apply_ms = time_ms(lambda: rot_sequence_wave(A, C, S), 5)
+        h["lib_ms"] = time_ms(lambda: torch.matmul(A, h["Q"]), 10)
+        b_ms, b_by = bound(6.0 * M * (N - 1) * K,
+                           2.0 * (2 * M * N + 3 * (N - 1) * K))
+        err = max_abs(o_k.float(), o_p.float())
+        rows[tag] = dict(launches=launches, max_abs_err_vs_plain=err,
+                         ms=ms, plain_ms=plain_ms, apply_ms=apply_ms,
+                         matmul_ms=h["lib_ms"], bound_ms=b_ms,
+                         bound_by=b_by)
+        entries[f"rotseq_wave_{tag}"] = dict(
+            name=f"rotseq_wave_{tag}", route="cuda",
+            source="src/repro_torch/csrc/rotseq_wave.cu",
+            replaces="src/repro/kernels/rotseq/kernel.py:72",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=h["lib_ms"], dtype=HALF[tag])
+    regs = wave_instances(ptxas)
+    no_spills(regs, "rotseq_wave")
+    for tag in HALF:
+        check(f"kb{WAVE_KB}/w{WAVE_WARPS}/{tag}" in regs,
+              f"no {tag} instantiation of rotseq_wave in the ptxas report")
+    emit(phase="rotseq_wave_half", m=M, n=N, k=K, kb=WAVE_KB,
+         warps=WAVE_WARPS, dtypes=rows,
+         bitwise_vs_plain=["paper", "ragged", "small"], ptxas=regs)
+    return entries
+
+
+def batched_half_phase(bctx, hctx, ptxas: dict) -> dict:
+    """Hold ``rotseq_batched`` in bfloat16 and float16 at the serving
+    bucket and on its ``seq.T`` staircases against its plain version
+    (out and plane counts) and against per-request half ``cuda_wave``,
+    bit for bit; time it beside its plain version and ``torch.bmm`` in
+    that dtype; fail on a spill.  Returns the kernels line's entries."""
+    import torch
+    from repro_torch.kernels.limits import BATCHED_KB, BATCHED_M_BLK
+    from repro_torch.kernels.rotseq_batched import kernel as batched_k
+    from repro_torch.kernels.rotseq_batched.ops import rot_sequence_batched
+    from repro_torch.kernels.rotseq_batched.ref import rotseq_batched_ref
+    rows, entries = {}, {}
+    for tag, h in hctx.items():
+        dt = h["dtype"]
+        A = bctx["A"].to(dt)
+        seqs = [half_sequence(s, dt) for s in bctx["seqs"]]
+        padded = [s.pad_to(KB) for s in seqs]
+        C, S, args = pack_batched(A, padded)
+        o_k, p_k = batched_k.rotseq_batched(*args)
+        o_p, p_p = rotseq_batched_ref(*args)
+        torch.cuda.synchronize()
+        check(o_k.dtype == dt and torch.equal(o_k, o_p),
+              f"rotseq_batched {tag} out != plain version")
+        check(torch.equal(p_k, p_p),
+              f"rotseq_batched {tag} planes != plain version")
+        live = [(NB - 1) * s.k for s in seqs]
+        want = torch.tensor(live, dtype=torch.int32, device=A.device)
+        check(bool((p_k == want[:, None]).all()),
+              f"{tag} plane counts {p_k[:, 0].tolist()} != live {live}")
+        out = o_k.transpose(1, 2)
+        per = torch.stack([s.plan(like=A[i], method="cuda_wave").apply(A[i])
+                           for i, s in enumerate(seqs)])
+        check(torch.equal(out, per),
+              f"rotseq_batched {tag} != per-request cuda_wave")
+        check(bool(torch.isfinite(out).all()),
+              f"rotseq_batched {tag}: non-finite")
+        h["bucket"] = dict(A=A, seqs=seqs, out=out)
+        ms = time_ms(lambda: batched_k.rotseq_batched(*args), 10)
+        plain_ms = time_ms(lambda: rotseq_batched_ref(*args), 1)
+        stairs = [s.T for s in padded]
+        _, _, args_t = pack_batched(A, stairs)
+        o_t, p_t = batched_k.rotseq_batched(*args_t)
+        w_t, wp_t = rotseq_batched_ref(*args_t)
+        torch.cuda.synchronize()
+        check(torch.equal(o_t, w_t) and torch.equal(p_t, wp_t),
+              f"rotseq_batched {tag} staircase != plain version")
+        stair_ms = time_ms(lambda: batched_k.rotseq_batched(*args_t), 10)
+        eye = torch.eye(NB, device=A.device, dtype=dt).expand(B, NB, NB)
+        Q = rot_sequence_batched(eye, C, S)
+        lib_ms = time_ms(lambda: torch.bmm(A, Q), 10)
+        del Q
+        b_ms, b_by = bound(6.0 * MB * sum(live),
+                           2.0 * (2 * B * MB * NB + 3 * B * (NB - 1) * KB))
+        err = max_abs(o_k.float(), o_p.float())
+        rows[tag] = dict(max_abs_err_vs_plain=err, planes_equal_live=True,
+                         max_abs_err_vs_cuda_wave=0.0, ms=ms,
+                         plain_ms=plain_ms, bmm_ms=lib_ms,
+                         staircase_ms=stair_ms,
+                         staircase_bitwise_vs_plain=True, bound_ms=b_ms,
+                         bound_by=b_by)
+        entries[f"rotseq_batched_{tag}"] = dict(
+            name=f"rotseq_batched_{tag}", route="cuda",
+            source="src/repro_torch/csrc/rotseq_batched.cu",
+            replaces="src/repro/kernels/rotseq_batched/kernel.py:83",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms, dtype=HALF[tag])
+    regs = batched_instances(ptxas)
+    no_spills(regs, "rotseq_batched")
+    for tag in HALF:
+        check(f"kb{BATCHED_KB}/t{BATCHED_M_BLK}/{tag}" in regs,
+              f"no {tag} instantiation of rotseq_batched in the ptxas "
+              f"report")
+    emit(phase="rotseq_batched_half", b=B, m=MB, n=NB, k_pad=KB,
+         dtypes=rows, ptxas=regs)
+    return entries
+
+
+def mxu_half_plain(A, C, S, n_b: int, k_b: int, G=None):
+    """The accumulated application through the kernel's plain version:
+    the route's factors, then each band by ``rotseq_mxu_ref`` (float32
+    products of each tile, rounded once)."""
+    from repro_torch.core.blocked import num_tiles
+    from repro_torch.kernels.rotseq_mxu.ops import (band_factors,
+                                                    band_inputs_natural)
+    from repro_torch.kernels.rotseq_mxu.ref import rotseq_mxu_ref
+    n = A.shape[1]
+    T = num_tiles(n, n_b, k_b)
+    for p0 in range(0, C.shape[1], k_b):
+        Q = band_factors(C, S, p0, k_b, n_b, T, G=G, dtype=A.dtype)
+        fresh, init = band_inputs_natural(A, k_b, n_b, T)
+        A = rotseq_mxu_ref(fresh, Q, init)[:, k_b - 1:k_b - 1 + n]
+    return A.contiguous()
+
+
+def half_mxu_errors(out, plain, oracle, k: int, what: str) -> dict:
+    """The tensor-core tier's largest error against the float64
+    application and its plain version's; fail past ``HALF_MXU_RATIO``
+    of it or past the reference's ``HALF_MXU_TOL * k``."""
+    import torch
+    check(bool(torch.isfinite(out).all()), f"{what}: non-finite")
+    err = float((out.double() - oracle).abs().max())
+    err_plain = float((plain.double() - oracle).abs().max())
+    check(err <= HALF_MXU_RATIO * err_plain,
+          f"{what}: max error {err} vs float64, plain version's {err_plain}")
+    check(bool(torch.allclose(out.double(), oracle, atol=HALF_MXU_TOL * k,
+                              rtol=HALF_MXU_TOL)),
+          f"{what}: outside {HALF_MXU_TOL} * k of float64")
+    return dict(max_abs_err_vs_f64=err, plain_max_abs_err_vs_f64=err_plain,
+                ratio=err / err_plain if err_plain else None)
+
+
+def mxu_half_phase(hctx, ptxas: dict) -> dict:
+    """The accumulated kernel's tensor-core tier at the paper shape, 128/128
+    and 64/64, in bfloat16 and float16: launches a band (factors and
+    products), the factors equal to the eager ones under ``==``, the
+    error against the float64 application of the rounded inputs against
+    the plain version's, times; fail on a spill.  Returns the kernels
+    line's entries (at 128/128)."""
+    import torch
+    from repro_torch.core.accumulate import accumulate_tile_factors
+    from repro_torch.core.blocked import (num_tiles, pack_sheared,
+                                          rot_sequence_blocked)
+    from repro_torch.kernels.rotseq_batched import kernel as batched_k
+    from repro_torch.kernels.rotseq_mxu import kernel as mxu_k
+    from repro_torch.kernels.rotseq_mxu.ops import (band_factors,
+                                                    band_inputs_natural,
+                                                    rot_sequence_mxu)
+    from repro_torch.kernels.rotseq_mxu.ref import rotseq_mxu_ref
+    rows, entries = {}, {}
+    for tag, h in hctx.items():
+        dt = h["dtype"]
+        A, C, S = h["A"], h["C"], h["S"]
+        t0 = timing.now()
+        h["oracle"] = rot_sequence_blocked(A.double(), C.double(),
+                                           S.double())
+        torch.cuda.synchronize()
+        rows[tag] = {"oracle_seconds": timing.now() - t0}
+        h["mxu"] = {}
+        for tiles in MXU_SWEEP:
+            n_b, k_b = tiles["n_b"], tiles["k_b"]
+            T = num_tiles(N, n_b, k_b)
+            bands = -(-K // k_b)
+            before = (mxu_k.LAUNCHES, batched_k.LAUNCHES)
+            out = rot_sequence_mxu(A, C, S, **tiles)
+            torch.cuda.synchronize()
+            launches = mxu_k.LAUNCHES - before[0]
+            factor_launches = batched_k.LAUNCHES - before[1]
+            check(launches == bands and factor_launches == bands,
+                  f"rotseq_mxu {tag} at {tiles}: {launches} accumulated "
+                  f"and {factor_launches} factor launches for {bands} "
+                  f"bands")
+            check(out.dtype == dt, f"rotseq_mxu {tag}: out {out.dtype}")
+            plain = mxu_half_plain(A, C, S, n_b, k_b)
+            errs = half_mxu_errors(out, plain, h["oracle"], K,
+                                   f"rotseq_mxu {tag} at {tiles}")
+            h["mxu"][(n_b, k_b)] = out
+            for p0 in range(0, K, k_b):
+                Q = band_factors(C, S, p0, k_b, n_b, T, dtype=dt)
+                check(torch.equal(Q, accumulate_tile_factors(
+                    *pack_sheared(C, S, p0, k_b, n_b, T), dtype=dt)),
+                      f"{tag} route factors != eager factors at band "
+                      f"{p0 // k_b}")
+            Q0 = band_factors(C, S, 0, k_b, n_b, T, dtype=dt)
+            fresh, init = band_inputs_natural(A, k_b, n_b, T)
+            o_k = mxu_k.rotseq_mxu(fresh, Q0, init)
+            o_p = rotseq_mxu_ref(fresh, Q0, init)
+            band_err = max_abs(o_k.float(), o_p.float())
+            ms = time_ms(lambda: [mxu_k.rotseq_mxu(fresh, Q0, init)
+                                  for _ in range(bands)], 10)
+            plain_ms = bands * time_ms(lambda: rotseq_mxu_ref(fresh, Q0,
+                                                              init), 3)
+            factors_ms = bands * time_ms(
+                lambda: band_factors(C, S, 0, k_b, n_b, T, dtype=dt), 5)
+            apply_ms = time_ms(lambda: rot_sequence_mxu(A, C, S, **tiles), 5)
+            w = n_b + k_b
+            b_ms, b_by = bound(2.0 * M * w * w * T * bands,
+                               2.0 * (2 * M * N + 2 * (N - 1) * K),
+                               peak=PEAK_HALF)
+            rows[tag][f"{n_b}/{k_b}"] = dict(
+                launches=launches, factor_launches=factor_launches, **errs,
+                band_max_abs_err_vs_plain=band_err, factors_equal_eager=True,
+                ms=ms, plain_ms=plain_ms, factors_ms=factors_ms,
+                apply_ms=apply_ms, bound_ms=b_ms, bound_by=b_by)
+        paper = rows[tag][f"{MXU_TILES['n_b']}/{MXU_TILES['k_b']}"]
+        entries[f"rotseq_mxu_{tag}"] = dict(
+            name=f"rotseq_mxu_{tag}", route="cuda",
+            source="src/repro_torch/csrc/rotseq_mxu_half.cu",
+            replaces="src/repro/kernels/rotseq_mxu/kernel.py:52",
+            max_abs_err=paper["band_max_abs_err_vs_plain"], ms=paper["ms"],
+            plain_ms=paper["plain_ms"], bound_ms=paper["bound_ms"],
+            bound_by=paper["bound_by"], library_ms=h["lib_ms"],
+            dtype=HALF[tag])
+    regs = mxu_half_instances(ptxas)
+    no_spills(regs, "rotseq_mxu_half")
+    for tag in HALF:
+        for wp in (64, 128, 256):
+            check(f"{tag}/wp{wp}" in regs, f"no {tag}/wp{wp} instantiation "
+                  f"of rotseq_mxu_half in the ptxas report")
+    emit(phase="rotseq_mxu_half", m=M, n=N, k=K, ratio_max=HALF_MXU_RATIO,
+         tol=HALF_MXU_TOL, dtypes=rows, ptxas=regs)
+    return entries
+
+
+def half_main_path(hctx) -> dict:
+    """The main path in bfloat16 and float16, with every launch count set
+    to 0 just before and read just after: ``auto`` at the paper shape
+    (it must plan a ``cuda_*`` backend), each rotation kernel's plan on
+    the ragged signed problem, and the serving bucket through
+    ``RotationService`` (one ``cuda_batched`` launch).  Every half
+    instantiation must have launched; the results are held afterwards.
+    Returns ``{"rotseq_wave_bf16": launches, ...}``."""
+    import torch
+    from repro_torch.core.blocked import rot_sequence_blocked
+    from repro_torch.kernels.rotseq import kernel as wave_k
+    from repro_torch.kernels.rotseq_batched import kernel as batched_k
+    from repro_torch.kernels.rotseq_mxu import kernel as mxu_k
+    from repro_torch.serve import RotationService
+    modules = {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
+               "rotseq_batched": batched_k}
+    for mod in modules.values():
+        mod.LAUNCHES = 0
+        for key in mod.DTYPE_LAUNCHES:
+            mod.DTYPE_LAUNCHES[key] = 0
+    t0 = timing.now()
+    runs = {}
+    for tag, h in hctx.items():
+        plan = h["seq"].plan(like=h["A"])
+        out = plan.apply(h["A"])
+        X, seq_x = h["ragged"]
+        ragged = {}
+        for meth in KERNEL_OF:
+            rp = seq_x.plan(like=X, method=meth)
+            ragged[meth] = (rp, rp.apply(X))
+        bucket = h["bucket"]
+        svc = RotationService(slots=B, store=False)
+        before = batched_k.DTYPE_LAUNCHES[HALF[tag]]
+        served = svc.apply_many(list(zip(bucket["seqs"], bucket["A"])))
+        bucket_launches = batched_k.DTYPE_LAUNCHES[HALF[tag]] - before
+        runs[tag] = (plan, out, ragged, served, bucket_launches)
+    torch.cuda.synchronize()
+    seconds = timing.now() - t0
+    counts = {f"{kernel}_{tag}": mod.DTYPE_LAUNCHES[name]
+              for kernel, mod in modules.items()
+              for tag, name in HALF.items()}
+    f32 = {kernel: mod.DTYPE_LAUNCHES["float32"]
+           for kernel, mod in modules.items()}
+    for name, n in counts.items():
+        check(n > 0, f"{name} never launched on the half main path")
+    rows = {}
+    for tag, (plan, out, ragged, served, bucket_launches) in runs.items():
+        h = hctx[tag]
+        check(plan.method in KERNEL_OF,
+              f"auto planned {plan.method} for a {HALF[tag]} target")
+        check(bucket_launches == 1, f"{HALF[tag]} bucket: "
+              f"{bucket_launches} cuda_batched launches")
+        kw = dict(plan.kwargs)
+        if plan.method == "cuda_mxu":
+            tiles = (kw["n_b"], kw["k_b"])
+            done = h["mxu"].get(tiles)
+            if done is not None:
+                check(torch.equal(out, done), f"{tag} auto cuda_mxu at "
+                      f"{tiles} != its rotseq_mxu_half run")
+            else:
+                half_mxu_errors(out, mxu_half_plain(h["A"], h["C"], h["S"],
+                                                    *tiles),
+                                h["oracle"], K, f"{tag} auto cuda_mxu")
+        else:
+            check(torch.equal(out, h["blocked"]),
+                  f"{tag} auto {plan.method} != blocked")
+        X, seq_x = h["ragged"]
+        want = rot_sequence_blocked(X, seq_x.cos, seq_x.sin, G=seq_x.sign)
+        for meth in ("cuda_wave", "cuda_batched"):
+            check(torch.equal(ragged[meth][1], want),
+                  f"{tag} ragged {meth} != blocked")
+        rp, r_out = ragged["cuda_mxu"]
+        kw_m = dict(rp.kwargs)
+        oracle = rot_sequence_blocked(X.double(), seq_x.cos.double(),
+                                      seq_x.sin.double(),
+                                      G=seq_x.sign.double())
+        plain = mxu_half_plain(X, seq_x.cos, seq_x.sin, kw_m["n_b"],
+                               kw_m["k_b"], G=seq_x.sign)
+        errs = half_mxu_errors(r_out, plain, oracle, seq_x.k,
+                               f"{tag} ragged cuda_mxu at {kw_m}")
+        for i, o in enumerate(served):
+            check(torch.equal(o, h["bucket"]["out"][i]),
+                  f"{tag} served request {i} != the bucket's launch")
+        rows[tag] = dict(auto_method=plan.method, auto_kwargs=kw,
+                         bucket_launches=bucket_launches,
+                         ragged_mxu_kwargs=kw_m, ragged_mxu=errs)
+    emit(phase="half_main_path", dtypes=rows, launches=counts,
+         float32_launches=f32, seconds=seconds)
+    return counts
 
 
 def mixed_requests(dev):
@@ -3761,6 +4205,16 @@ def run() -> int:
                                   "rotseq_batched": batched_k})
     entries["rotseq_batched"]["launches"] = served["rotseq_batched"]
 
+    # -- half precision: the three kernels in bfloat16 and float16 ---------
+    hctx = half_context(ctx)
+    half = {**wave_half_phase(hctx, ptxas),
+            **batched_half_phase(bctx, hctx, ptxas),
+            **mxu_half_phase(hctx, ptxas)}
+    for name, n in half_main_path(hctx).items():
+        half[name]["launches"] = n
+    entries.update(half)
+    del hctx
+
     # -- the eigensolver path: recorded rotations flushed in batches ------
     rec = eig_phase(dev, {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
                           "rotseq_batched": batched_k})
@@ -3859,7 +4313,7 @@ def run() -> int:
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]
-    extra = ["launches_by_path"]
+    extra = ["dtype", "launches_by_path"]
     print(json.dumps({"kernels": [
         {**{key: e[key] for key in order},
          **{key: e[key] for key in extra if key in e}}

@@ -961,6 +961,12 @@ class RA301InlinePlaneStencil(Rule):
 
 _INTRINSIC_RE = re.compile(r"\b(__fadd_rn|__fsub_rn|__fmul_rn)\s*\(")
 _FMA_RE = re.compile(r"\b(fmaf|fma|__fmaf_\w+|__fma_rn)\s*\(")
+# the half plane form's roundings to the storage type: ``St::r`` (to the
+# half type and back to float32) around each product and the difference,
+# ``St::h`` (to the half type) around the two results
+# (csrc/rotseq_wave.cu, csrc/rotseq_batched.cu ``Store<T>``)
+_ROUND_RE = re.compile(r"\bSt::([rh])\s*\(")
+_ROUNDED_RESULT_RE = re.compile(r"\bSt::h\s*\(\s*$")
 
 
 def _call_args(code: str, open_idx: int) -> Optional[Tuple[List[str], int]]:
@@ -983,14 +989,17 @@ def _call_args(code: str, open_idx: int) -> Optional[Tuple[List[str], int]]:
 
 
 def _intrinsic_tree(expr: str):
-    """``(name, [args])`` for an expression that is one ``__f*_rn`` call,
+    """``(name, [args])`` for an expression that is one ``__f*_rn`` call
+    (or one rounding ``St::r``/``St::h``, named ``"St::r"``/``"St::h"``),
     else the expression with its whitespace removed (a leaf)."""
     expr = expr.strip()
-    m = _INTRINSIC_RE.match(expr)
-    if m:
-        parsed = _call_args(expr, m.end() - 1)
-        if parsed is not None and parsed[1] == len(expr) - 1:
-            return m.group(1), [_intrinsic_tree(a) for a in parsed[0]]
+    for regex, name in ((_INTRINSIC_RE, None), (_ROUND_RE, "St::")):
+        m = regex.match(expr)
+        if m:
+            parsed = _call_args(expr, m.end() - 1)
+            if parsed is not None and parsed[1] == len(expr) - 1:
+                return ((name or "") + m.group(1),
+                        [_intrinsic_tree(a) for a in parsed[0]])
     return re.sub(r"\s+", "", expr)
 
 
@@ -999,6 +1008,30 @@ def _product(tree) -> Optional[Tuple[str, str]]:
             and len(tree[1]) == 2 and all(isinstance(a, str)
                                           for a in tree[1]):
         return tree[1][0], tree[1][1]
+    return None
+
+
+def _rounded(tree):
+    """The operand of ``St::r(...)``, else ``None``."""
+    if isinstance(tree, tuple) and tree[0] == "St::r" and len(tree[1]) == 1:
+        return tree[1][0]
+    return None
+
+
+def _plane_products(args) -> Optional[Tuple[Tuple[str, ...], bool]]:
+    """The four operands of two products and whether both are rounded
+    (the half form); ``None`` if the two arguments are not both plain or
+    both rounded products.  Raises ``ValueError`` for a pair of products
+    of which only one is rounded."""
+    plain = [_product(a) for a in args]
+    if all(plain):
+        return plain[0] + plain[1], False
+    half = [_product(_rounded(a)) for a in args]
+    if all(half):
+        return half[0] + half[1], True
+    if any(plain) and any(half):
+        raise ValueError("one product rounded to the half type, the "
+                         "other not")
     return None
 
 
@@ -1021,10 +1054,18 @@ class RA303CudaPlaneForm(Rule):
     ``__fmul_rn(g, __fsub_rn(__fmul_rn(s, x), __fmul_rn(c, y)))`` over
     the same four operands and the other way round; each source spells
     at least one such pair.  And ``_build.FLAGS`` holds
-    ``--fmad=false``.  ``rotseq_mxu.cu`` is out of scope: it is the IEEE
-    float32 GEMM tier, held to a stated tolerance and built on ``fmaf``
-    on purpose; so is ``rope.cu``, whose half-split form is RoPE's own
-    (``x1*c - x2*s``, each product rounded to the element type).
+    ``--fmad=false``.  The half plane form (bfloat16 and float16, as
+    eager PyTorch computes it on half tensors) rounds each product and
+    the difference to the half type, ``St::r(...)``, and each result,
+    ``St::h(...)``: ``St::h(__fadd_rn(St::r(__fmul_rn(c, x)),
+    St::r(__fmul_rn(s, y))))`` pairs with ``St::h(__fmul_rn(g,
+    St::r(__fsub_rn(St::r(__fmul_rn(s, x)), St::r(__fmul_rn(c, y))))))``;
+    a product, difference or result of that form left unrounded is
+    reported too.  ``rotseq_mxu.cu`` and ``rotseq_mxu_half.cu`` are out
+    of scope: they are the GEMM tiers, held to a stated tolerance, the
+    first built on ``fmaf`` on purpose; so is ``rope.cu``, whose
+    half-split form is RoPE's own (``x1*c - x2*s``, each product rounded
+    to the element type).
     """
 
     id = "RA303"
@@ -1060,35 +1101,65 @@ class RA303CudaPlaneForm(Rule):
                            f"'{m.group(1)}' fuses a product into a sum; "
                            f"spell the plane with __fmul_rn/__fadd_rn/"
                            f"__fsub_rn")
-        adds: Dict[Tuple[str, ...], List[int]] = {}
-        subs: Dict[Tuple[str, ...], List[int]] = {}
+        adds: Dict[Tuple, List[int]] = {}
+        subs: Dict[Tuple, List[int]] = {}
         inner: Set[int] = set()   # offsets of __fsub_rn inside a g-product
+
+        def result_rounded(start: int) -> bool:
+            return bool(_ROUNDED_RESULT_RE.search(code[:start]))
+
         for m in _INTRINSIC_RE.finditer(code):
             parsed = _call_args(code, m.end() - 1)
             if parsed is None:
                 continue
             args = [_intrinsic_tree(a) for a in parsed[0]]
             line = cu.line_of(m.start())
-            if m.group(1) == "__fadd_rn" and len(args) == 2:
-                p1, p2 = _product(args[0]), _product(args[1])
-                if p1 and p2:
-                    adds.setdefault(p1 + p2, []).append(line)
-            elif m.group(1) == "__fmul_rn" and len(args) == 2 \
-                    and isinstance(args[1], tuple) \
-                    and args[1][0] == "__fsub_rn" and len(args[1][1]) == 2:
-                p1, p2 = _product(args[1][1][0]), _product(args[1][1][1])
-                if p1 and p2:
-                    (s, x), (c, y) = p1, p2
-                    subs.setdefault((c, x, s, y), []).append(line)
+            try:
+                if m.group(1) == "__fadd_rn" and len(args) == 2:
+                    form = _plane_products(args)
+                    if form:
+                        adds.setdefault(form, []).append(line)
+                        if form[1] and not result_rounded(m.start()):
+                            yield self.hit(cu, line, "half plane form: "
+                                           "c*x + s*y not rounded to the "
+                                           "half type (St::h)")
+                elif m.group(1) == "__fmul_rn" and len(args) == 2:
+                    diff = args[1]
+                    half = _rounded(diff) is not None
+                    if half:
+                        diff = _rounded(diff)
+                    if not (isinstance(diff, tuple)
+                            and diff[0] == "__fsub_rn"
+                            and len(diff[1]) == 2):
+                        continue
+                    form = _plane_products(diff[1])
+                    if not form:
+                        continue
                     inner.add(code.index("__fsub_rn", m.end()))
+                    if form[1] != half:
+                        raise ValueError("the difference s*x - c*y and its "
+                                         "products rounded unlike")
+                    (s, x, c, y), rounded = form
+                    subs.setdefault(((c, x, s, y), rounded), []).append(line)
+                    if rounded and not result_rounded(m.start()):
+                        yield self.hit(cu, line, "half plane form: g*(s*x - "
+                                       "c*y) not rounded to the half type "
+                                       "(St::h)")
+            except ValueError as err:
+                yield self.hit(cu, line, f"half plane form: {err}; round "
+                               f"each product and sum (St::r)")
         for m in _INTRINSIC_RE.finditer(code):
             if m.group(1) != "__fsub_rn" or m.start() in inner:
                 continue
             parsed = _call_args(code, m.end() - 1)
             if parsed is None or len(parsed[0]) != 2:
                 continue
-            if _product(_intrinsic_tree(parsed[0][0])) \
-                    and _product(_intrinsic_tree(parsed[0][1])):
+            try:
+                form = _plane_products([_intrinsic_tree(a)
+                                        for a in parsed[0]])
+            except ValueError:
+                form = True
+            if form:
                 yield self.hit(cu, cu.line_of(m.start()),
                                "difference of products outside "
                                "__fmul_rn(g, ...): the plane's second row "
@@ -1340,6 +1411,7 @@ class RA405CudaConstantsMirrorLimits(Rule):
     MIRRORS: Dict[str, Tuple[Tuple[str, str], ...]] = {
         "rotseq_wave": (("kBand", "WAVE_KB"), ("kWarps", "WAVE_WARPS")),
         "rotseq_mxu": (("kRows", "MXU_ROWS"), ("kSlab", "MXU_SLAB")),
+        "rotseq_mxu_half": (("kVec", "MXU_HALF_VEC"),),
         "rotseq_batched": (("kBand", "BATCHED_KB"),
                            ("kThreads", "BATCHED_M_BLK")),
     }

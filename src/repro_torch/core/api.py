@@ -109,10 +109,14 @@ registry.register(BackendSpec(
     doc="rs_gemm analogue: accumulate tile factors, sweep as GEMMs.",
 ))
 
+# the dtypes the CUDA kernels have entries for, as the reference's Pallas
+# kernels take their operand's dtype; float64 has no kernel there either
+KERNEL_DTYPES = ("float32", "bfloat16", "float16")
+
 registry.register(BackendSpec(
     name="cuda_wave",
     fn=_run_cuda_wave,
-    capability=Capability(dtypes=("float32",), platforms=("cuda",),
+    capability=Capability(dtypes=KERNEL_DTYPES, platforms=("cuda",),
                           tile_min=(2, 1), needs_kernel=True,
                           supports_vmap=False, batch_via="flatten"),
     cost=registry.cost_cuda_wave,
@@ -124,13 +128,14 @@ registry.register(BackendSpec(
 registry.register(BackendSpec(
     name="cuda_mxu",
     fn=_run_cuda_mxu,
-    capability=Capability(dtypes=("float32",), platforms=("cuda",),
+    capability=Capability(dtypes=KERNEL_DTYPES, platforms=("cuda",),
                           tile_min=(2, 1), tile_max=(128, 128),
                           needs_kernel=True, supports_vmap=False,
                           batch_via="flatten"),
     cost=registry.cost_cuda_mxu,
     candidates=registry.cuda_mxu_tiles,
-    doc="CUDA accumulated kernel (IEEE float32 tile GEMM chain).",
+    doc="CUDA accumulated kernel (tile GEMM chain: IEEE float32 on the "
+        "CUDA cores, bf16/f16 on the tensor cores).",
 ))
 
 # Of the kernels only the fused one is shard-capable, as only the
@@ -139,7 +144,7 @@ registry.register(BackendSpec(
 registry.register(BackendSpec(
     name="cuda_batched",
     fn=_run_cuda_batched,
-    capability=Capability(dtypes=("float32",), platforms=("cuda",),
+    capability=Capability(dtypes=KERNEL_DTYPES, platforms=("cuda",),
                           supports_signs=True, needs_kernel=True,
                           supports_vmap=False, supports_sharding=True,
                           batch_via="fused"),

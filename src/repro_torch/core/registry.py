@@ -527,10 +527,12 @@ def cost_cuda_mxu(p: Problem, plan: Plan) -> float:
 
     On the card the GEMM sweep is priced by the kernel's measured slab
     time (:data:`_MXU_SLAB_SECONDS`), plus the padded copy of the target
-    that feeds each band.  Each band's tile factors are one
-    ``cuda_batched`` launch over ``T`` identity targets of ``w`` rows
-    with ``n_b * k_b`` live planes each, at that kernel's measured plane
-    rate, plus the packing traffic; they are paid once per sequence.
+    that feeds each band; in bfloat16 and float16 (the tensor-core tier)
+    by its flops at ``hw.tc_bf16_flops`` against its bytes.  Each band's
+    tile factors are one ``cuda_batched`` launch over ``T`` identity
+    targets of ``w`` rows with ``n_b * k_b`` live planes each, at that
+    kernel's measured plane rate, plus the packing traffic; they are
+    paid once per sequence.
     The host's calls for each band (:data:`_MXU_BAND_HOST_SECONDS`) set
     the pace where the card's work is shorter.  Off the card the
     reference's formula holds.  A shard sweeps ``1/D`` of the rows and
@@ -544,8 +546,15 @@ def cost_cuda_mxu(p: Problem, plan: Plan) -> float:
     n_b, k_b = plan.n_b or 128, plan.k_b or 128
     c = _components_accumulated(p, plan)
     bands, tiles, w = _tile_grid(p, n_b, k_b)
-    sweep = (_mxu_sweep_seconds(p, n_b, k_b)
-             + c["stream_bytes"] / D / hw.hbm_bw)
+    if p.itemsize == 2:
+        # the half tier (bfloat16, float16) runs its products on the
+        # tensor cores: priced at their dense rate, not the slab fit of
+        # the float32 tier's FMAs
+        sweep = _roofline_seconds(c["stream_flops"] / D / hw.tc_bf16_flops,
+                                  c["stream_bytes"] / D / hw.hbm_bw)
+    else:
+        sweep = (_mxu_sweep_seconds(p, n_b, k_b)
+                 + c["stream_bytes"] / D / hw.hbm_bw)
     factors = (bands * _row_chain_seconds(n_b * k_b, tiles * w,
                                           _BATCHED_PLANE_SECONDS)
                + c["setup_bytes"] / p.sequences / hw.hbm_bw)

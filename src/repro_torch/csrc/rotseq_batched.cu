@@ -1,4 +1,5 @@
-// Fused multi-request application of rotation sequences (float32, sm_90a).
+// Fused multi-request application of rotation sequences (float32,
+// bfloat16 and float16, sm_90a).
 //
 // Replaces: src/repro/kernels/rotseq_batched/kernel.py::rotseq_batched_pallas
 // (body _batched_kernel), the serving path's one launch per bucket.
@@ -77,11 +78,62 @@
 // Plane form: exactly repro_torch.core.rotations.plane_update, each
 // product and sum rounded on its own (__fmul_rn etc. are never contracted
 // into an FMA), so the kernel equals its plain PyTorch version bit for bit.
+//
+// Half precision (bfloat16, float16), as the reference's body takes them:
+// targets, results, the staged columns and the register window are in the
+// half type T, and c, s, g are rounded to T by the wrapper.  A plane
+// computes each product and sum in float32 and rounds it to T before the
+// next one uses it (Store<T>::r), as eager PyTorch does with half tensors,
+// so the half instantiations equal the plain version bit for bit too.
+// cp.async moves 4 bytes at least: in half precision the panel values are
+// staged by plain loads (widened to float32 in the float4, exactly), and
+// so are the columns when they cannot move in 16-byte pieces (of eight
+// rows; M % 8 == 0 and aligned targets).
 #include <climits>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
+
+// The storage type T of the targets and its conversions: f widens to
+// float32 (exact), h rounds a float32 to T (to nearest even), r is the
+// value rounded to T and widened again.  All three are the identity for
+// float.
+template <typename T>
+struct Store;
+
+template <>
+struct Store<float> {
+  static __device__ __forceinline__ float f(float v) { return v; }
+  static __device__ __forceinline__ float h(float v) { return v; }
+  static __device__ __forceinline__ float r(float v) { return v; }
+};
+
+template <>
+struct Store<__nv_bfloat16> {
+  static __device__ __forceinline__ float f(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 h(float v) {
+    return __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ float r(float v) { return f(h(v)); }
+};
+
+template <>
+struct Store<__half> {
+  static __device__ __forceinline__ float f(__half v) {
+    return __half2float(v);
+  }
+  static __device__ __forceinline__ __half h(float v) {
+    return __float2half_rn(v);
+  }
+  static __device__ __forceinline__ float r(float v) { return f(h(v)); }
+};
 
 // waves a band, and threads (rows) a block: repro_torch.kernels.limits.
 // BATCHED_M_BLK must equal kThreads
@@ -123,9 +175,10 @@ struct Stager {
     }
   }
 
-  __device__ __forceinline__ void stage(float4 (*buf)[CS], const float* c,
-                                        const float* s, const float* g,
-                                        int tc, int tid) const {
+  template <typename T>
+  __device__ __forceinline__ void stage(float4 (*buf)[CS], const T* c,
+                                        const T* s, const T* g, int tc,
+                                        int tid) const {
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const int e = tid + q * NT;
@@ -134,9 +187,15 @@ struct Stager {
         const bool live = tc >= lo[q] && tc < hi[q];
         if (live) {
           const int o = off[q] + tc;
-          __pipeline_memcpy_async(&d->x, c + o, sizeof(float));
-          __pipeline_memcpy_async(&d->y, s + o, sizeof(float));
-          __pipeline_memcpy_async(&d->z, g + o, sizeof(float));
+          if constexpr (std::is_same<T, float>::value) {
+            __pipeline_memcpy_async(&d->x, c + o, sizeof(float));
+            __pipeline_memcpy_async(&d->y, s + o, sizeof(float));
+            __pipeline_memcpy_async(&d->z, g + o, sizeof(float));
+          } else {
+            d->x = Store<T>::f(c[o]);
+            d->y = Store<T>::f(s[o]);
+            d->z = Store<T>::f(g[o]);
+          }
         }
         d->w = live ? 1.f : 0.f;
       }
@@ -146,31 +205,34 @@ struct Stager {
 
 // Grid (b, R): block (ib, rb) owns rows rb*NT .. rb*NT+NT-1 of request ib,
 // one row a thread.  `at`/`out` are (b, n, M), the panels (bs, K, J)
-// wave-major (K*J < 2^31), starts/counts (bs, K).  With vec (M % 4 == 0,
-// both targets 16-byte aligned) the block stages its rows' columns in
-// 16-byte pieces of four rows.  Writes the sum of the request's counts to
-// planes[ib, rb].  One block an SM is enough (the rows, not the blocks,
+// wave-major (K*J < 2^31), starts/counts (bs, K).  With vec (M a multiple
+// of V = 16 / sizeof(T), both targets 16-byte aligned) the block stages
+// its rows' columns in 16-byte pieces of V rows.  Writes the sum of the
+// request's counts to planes[ib, rb].  One block an SM is enough (the rows, not the blocks,
 // fill the card): with that bound ptxas keeps the window and the row
 // pointers in registers instead of recomputing them.
-template <int KB, int NT>
+template <int KB, int NT, typename T>
 __global__ void __launch_bounds__(NT, 1)
-rotseq_batched_kernel(const float* at, const float* __restrict__ cw,
-                      const float* __restrict__ sw,
-                      const float* __restrict__ gw,
+rotseq_batched_kernel(const T* at, const T* __restrict__ cw,
+                      const T* __restrict__ sw,
+                      const T* __restrict__ gw,
                       const int* __restrict__ starts,
-                      const int* __restrict__ counts, float* out,
+                      const int* __restrict__ counts, T* out,
                       int* __restrict__ planes, int n, int M, int K,
                       int per_request, bool vec) {
+  using St = Store<T>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int W = 2 * KB;                     // the register window
   constexpr int CS =                            // steps a chunk
       kChunkPlanes / KB < W ? kChunkPlanes / KB : W;
-  constexpr int P = CS * NT / 4;                // 16-byte pieces of a tile
+  constexpr int V = 16 / (int)sizeof(T);        // rows a 16-byte piece
+  constexpr int P = CS * NT / V;                // 16-byte pieces of a tile
   static_assert(W % CS == 0 && P % NT == 0, "chunk shape");
   // Three chunks in flight: chunk kc is read from slot kc % 3 while chunk
   // kc + 1 lands in the next; slot kc % 3 is written again only after the
   // barrier that opens chunk kc + 2, so one barrier a chunk suffices.
   __shared__ float4 panel[3][KB][CS];              // {c, s, g, live}
-  __shared__ __align__(16) float rows[3][CS][NT];  // columns tc+1 .. tc+CS
+  __shared__ __align__(16) T rows[3][CS][NT];  // columns tc+1 .. tc+CS
   const int tid = threadIdx.x;
   const int ib = blockIdx.x;
   const int rb = blockIdx.y;
@@ -178,19 +240,20 @@ rotseq_batched_kernel(const float* at, const float* __restrict__ cw,
   const bool active = tid < nrows;
   const int J = n - 1;
   const size_t is = per_request ? (size_t)ib : 0;
-  const float* c = cw + is * K * J;
-  const float* s = sw + is * K * J;
-  const float* g = gw + is * K * J;
+  const T* c = cw + is * K * J;
+  const T* s = sw + is * K * J;
+  const T* g = gw + is * K * J;
   const int* st = starts + is * K;
   const int* ct = counts + is * K;
   const size_t ld = (size_t)M;                  // column stride of a row
   const size_t base = (size_t)ib * n * M + (size_t)rb * NT + tid;
-  float* dst = out + base;                      // this thread's row
-  const float* src = at + base;
+  T* dst = out + base;                          // this thread's row
+  const T* src = at + base;
+  const T zero = St::h(0.f);
   bool first = true;                            // AT until a band has run
   int total = 0;
   int kc = 0;                                   // chunks staged so far
-  float win[W];
+  T win[W];
   Stager<KB, NT, CS> stager;
 
   for (int b0 = 0; b0 < K; b0 += KB) {
@@ -211,12 +274,12 @@ rotseq_batched_kernel(const float* at, const float* __restrict__ cw,
       // the first band reads AT and writes out: carry over the columns it
       // does not touch, sixteen loads in flight at a time
       for (int c0 = 0; c0 < n; c0 += 16) {
-        float v[16];
+        T v[16];
 #pragma unroll
         for (int q = 0; q < 16; ++q) {
           const int col = c0 + q;
           const bool copy = col < n && (col < clo || col > chi);
-          v[q] = copy ? src[col * ld] : 0.f;
+          v[q] = copy ? src[col * ld] : zero;
         }
 #pragma unroll
         for (int q = 0; q < 16; ++q) {
@@ -228,8 +291,8 @@ rotseq_batched_kernel(const float* at, const float* __restrict__ cw,
     // the band's input: AT for the first band, then out, where the
     // previous band's stores (by every thread of the block) must land
     // before this band's loads, which the block shares
-    const float* from = first ? src : dst;
-    const float* from_blk = from - tid;         // the block's first row
+    const T* from = first ? src : dst;
+    const T* from_blk = from - tid;             // the block's first row
     first = false;
     __syncthreads();
     const int t0 = (tlo / CS) * CS;
@@ -245,8 +308,8 @@ rotseq_batched_kernel(const float* at, const float* __restrict__ cw,
 #pragma unroll
         for (int q = 0; q < P / NT; ++q) {
           const int e = tid + q * NT;
-          const int u = e / (NT / 4);
-          const int r = e % (NT / 4) * 4;
+          const int u = e / (NT / V);
+          const int r = e % (NT / V) * V;
           const int col = tc + 1 + u;
           if (r < nrows && col >= clo && col <= chi) {
             __pipeline_memcpy_async(&rows[slot][u][r],
@@ -258,8 +321,13 @@ rotseq_batched_kernel(const float* at, const float* __restrict__ cw,
         for (int u = 0; u < CS; ++u) {
           const int col = tc + 1 + u;
           if (active && col >= clo && col <= chi) {
-            __pipeline_memcpy_async(&rows[slot][u][tid],
-                                    from + (long long)col * M, sizeof(float));
+            if constexpr (kF32) {
+              __pipeline_memcpy_async(&rows[slot][u][tid],
+                                      from + (long long)col * M,
+                                      sizeof(float));
+            } else {
+              rows[slot][u][tid] = from[(long long)col * M];
+            }
           }
         }
       }
@@ -274,7 +342,7 @@ rotseq_batched_kernel(const float* at, const float* __restrict__ cw,
     for (int q = 0; q < W - 1; ++q) {
       const int col = t0 - W + 2 + q;
       const bool in = active && col >= clo && col <= chi;
-      win[(q + 2) % W] = in ? from[col * ld] : 0.f;
+      win[(q + 2) % W] = in ? from[col * ld] : zero;
     }
     for (int tc = t0; tc < t1; tc += CS) {
       const int slot = (kc - 1) % 3;            // this chunk's
@@ -286,8 +354,8 @@ rotseq_batched_kernel(const float* at, const float* __restrict__ cw,
       }
       __syncthreads();
       const float4(*pb)[CS] = panel[slot];
-      const float(*rw)[NT] = rows[slot];
-      float* sp = dst + (long long)(tc - W + 2) * M;  // column t-W+2 out
+      const T(*rw)[NT] = rows[slot];
+      T* sp = dst + (long long)(tc - W + 2) * M;  // column t-W+2 out
 #pragma unroll
       for (int u = 0; u < CS; ++u, sp += ld) {
         const int t = tc + u;
@@ -295,21 +363,32 @@ rotseq_batched_kernel(const float* at, const float* __restrict__ cw,
 #pragma unroll
         for (int i = 0; i < KB; ++i) {
           const float4 q = pb[i][u];            // plane (t - 2i, b0 + i)
-          float& x = win[(u - 2 * i + 2 * W) % W];
-          float& y = win[(u - 2 * i + 1 + 2 * W) % W];
-          const float xn = __fadd_rn(__fmul_rn(q.x, x), __fmul_rn(q.y, y));
-          const float yn =
-              __fmul_rn(q.z, __fsub_rn(__fmul_rn(q.y, x), __fmul_rn(q.x, y)));
+          T& x = win[(u - 2 * i + 2 * W) % W];
+          T& y = win[(u - 2 * i + 1 + 2 * W) % W];
           const bool live = q.w != 0.f;
-          x = live ? xn : x;
-          y = live ? yn : y;
+          if constexpr (kF32) {
+            const float xn = __fadd_rn(__fmul_rn(q.x, x), __fmul_rn(q.y, y));
+            const float yn =
+                __fmul_rn(q.z, __fsub_rn(__fmul_rn(q.y, x), __fmul_rn(q.x, y)));
+            x = live ? xn : x;
+            y = live ? yn : y;
+          } else {  // each product and sum rounded to T
+            const float xf = St::f(x);
+            const float yf = St::f(y);
+            const T xn = St::h(__fadd_rn(St::r(__fmul_rn(q.x, xf)),
+                                         St::r(__fmul_rn(q.y, yf))));
+            const T yn = St::h(__fmul_rn(q.z, St::r(__fsub_rn(
+                St::r(__fmul_rn(q.y, xf)), St::r(__fmul_rn(q.x, yf))))));
+            x = live ? xn : x;
+            y = live ? yn : y;
+          }
         }
         if (active && t - W + 2 >= clo && t - W + 2 <= chi) {
           *sp = win[(u + 2) % W];               // finished at this step
         }
       }
       if (CS < W) {                             // slots relative to tc + CS
-        float next[W];
+        T next[W];
 #pragma unroll
         for (int q = 0; q < W; ++q) next[q] = win[(q + CS) % W];
 #pragma unroll
@@ -334,21 +413,54 @@ rotseq_batched_kernel(const float* at, const float* __restrict__ cw,
 // C interface, loaded with ctypes.  Launches on `stream`, does not
 // synchronise and allocates nothing; returns cudaGetLastError(), or
 // cudaErrorInvalidValue when `threads` is not the block size the kernel
-// is compiled for (the caller sizes `planes` by it).
+// is compiled for (the caller sizes `planes` by it).  One entry a storage
+// type: targets and panels in that type.
+template <typename T>
+int launch_batched(const T* at, const T* cw, const T* sw, const T* gw,
+                   const int* starts, const int* counts, T* out, int* planes,
+                   int b, int n, int M, int K, int per_request, int threads,
+                   void* stream) {
+  if (threads != kThreads) return (int)cudaErrorInvalidValue;
+  // rows move in 16-byte pieces when every column of the targets starts
+  // 16-byte aligned
+  constexpr int V = 16 / (int)sizeof(T);
+  const bool vec = M % V == 0 && (size_t)at % 16 == 0 && (size_t)out % 16 == 0;
+  const dim3 grid(b, (M + kThreads - 1) / kThreads);
+  rotseq_batched_kernel<kBand, kThreads, T>
+      <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+          at, cw, sw, gw, starts, counts, out, planes, n, M, K, per_request,
+          vec);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int rotseq_batched_f32(const float* at, const float* cw,
                                   const float* sw, const float* gw,
                                   const int* starts, const int* counts,
                                   float* out, int* planes, int b, int n, int M,
                                   int K, int per_request, int threads,
                                   void* stream) {
-  if (threads != kThreads) return (int)cudaErrorInvalidValue;
-  // rows move in 16-byte pieces when every column of the targets starts
-  // 16-byte aligned
-  const bool vec = M % 4 == 0 && (size_t)at % 16 == 0 && (size_t)out % 16 == 0;
-  const dim3 grid(b, (M + kThreads - 1) / kThreads);
-  rotseq_batched_kernel<kBand, kThreads>
-      <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-          at, cw, sw, gw, starts, counts, out, planes, n, M, K, per_request,
-          vec);
-  return (int)cudaGetLastError();
+  return launch_batched(at, cw, sw, gw, starts, counts, out, planes, b, n, M,
+                        K, per_request, threads, stream);
+}
+
+extern "C" int rotseq_batched_bf16(const __nv_bfloat16* at,
+                                   const __nv_bfloat16* cw,
+                                   const __nv_bfloat16* sw,
+                                   const __nv_bfloat16* gw, const int* starts,
+                                   const int* counts, __nv_bfloat16* out,
+                                   int* planes, int b, int n, int M, int K,
+                                   int per_request, int threads,
+                                   void* stream) {
+  return launch_batched(at, cw, sw, gw, starts, counts, out, planes, b, n, M,
+                        K, per_request, threads, stream);
+}
+
+extern "C" int rotseq_batched_f16(const __half* at, const __half* cw,
+                                  const __half* sw, const __half* gw,
+                                  const int* starts, const int* counts,
+                                  __half* out, int* planes, int b, int n,
+                                  int M, int K, int per_request, int threads,
+                                  void* stream) {
+  return launch_batched(at, cw, sw, gw, starts, counts, out, planes, b, n, M,
+                        K, per_request, threads, stream);
 }

@@ -1,5 +1,5 @@
 // Wavefront application of a rotation sequence as a band pipeline across
-// warps (float32, sm_90a).
+// warps (float32, bfloat16 and float16, sm_90a).
 //
 // Replaces: src/repro/kernels/rotseq/kernel.py::rotseq_wave_pallas (body
 // _wave_kernel), the paper's SS3 register-reuse kernel with SS4 packing and
@@ -72,10 +72,60 @@
 // Plane form: exactly repro_torch.core.rotations.plane_update, each
 // product and sum rounded on its own (__fmul_rn etc. are never contracted
 // into an FMA).
+//
+// Half precision (bfloat16, float16), as the reference's body takes them:
+// the operand, its result, the ring and the register window are in the
+// half type T, and c, s, g are rounded to T by the wrapper.  A plane
+// computes each product and sum in float32 and rounds it to T before the
+// next one uses it (Store<T>::r), which is what eager PyTorch does with
+// half tensors, so the half instantiations equal the plain version bit for
+// bit too.  cp.async moves 4 bytes at least, so in half precision the
+// panel values and warp 0's columns are staged by plain loads (the panel
+// values widened to float32 in the float4, exactly).
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
+
+// The storage type T of the operand and its conversions: f widens to
+// float32 (exact), h rounds a float32 to T (to nearest even), r is the
+// value rounded to T and widened again.  All three are the identity for
+// float.
+template <typename T>
+struct Store;
+
+template <>
+struct Store<float> {
+  static __device__ __forceinline__ float f(float v) { return v; }
+  static __device__ __forceinline__ float h(float v) { return v; }
+  static __device__ __forceinline__ float r(float v) { return v; }
+};
+
+template <>
+struct Store<__nv_bfloat16> {
+  static __device__ __forceinline__ float f(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 h(float v) {
+    return __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ float r(float v) { return f(h(v)); }
+};
+
+template <>
+struct Store<__half> {
+  static __device__ __forceinline__ float f(__half v) {
+    return __half2float(v);
+  }
+  static __device__ __forceinline__ __half h(float v) {
+    return __float2half_rn(v);
+  }
+  static __device__ __forceinline__ float r(float v) { return f(h(v)); }
+};
 
 // waves a band and warps a block: repro_torch.kernels.limits WAVE_KB and
 // WAVE_WARPS must equal kBand and kWarps.  A warp alone applies a plane
@@ -96,12 +146,14 @@ constexpr int kRing = 32;
 // enough (the row groups fill the card: 120 of 132 SMs at M = 3840), and
 // with that bound ptxas keeps the window and the row pointers in
 // registers.
-template <int KB, int NW>
+template <int KB, int NW, typename T>
 __global__ void __launch_bounds__(NW * 32, 1)
-rotseq_wave_kernel(const float* at, const float* __restrict__ cw,
-                   const float* __restrict__ sw,
-                   const float* __restrict__ gw, float* out, int n, int M,
+rotseq_wave_kernel(const T* at, const T* __restrict__ cw,
+                   const T* __restrict__ sw,
+                   const T* __restrict__ gw, T* out, int n, int M,
                    int K) {
+  using St = Store<T>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int W = 2 * KB;                     // the register window
   constexpr int CS =                            // steps a chunk
       kChunkPlanes / KB < W ? kChunkPlanes / KB : W;
@@ -121,8 +173,8 @@ rotseq_wave_kernel(const float* at, const float* __restrict__ cw,
   extern __shared__ float4 smem[];
   float4(*panel)[3][KB][CS] =                   // {c, s, g, -}
       reinterpret_cast<float4(*)[3][KB][CS]>(smem);
-  float(*ring)[R][32] =
-      reinterpret_cast<float(*)[R][32]>(smem + NW * 3 * KB * CS);
+  T(*ring)[R][32] =
+      reinterpret_cast<T(*)[R][32]>(smem + NW * 3 * KB * CS);
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int row = blockIdx.x * 32 + lane;
@@ -131,16 +183,17 @@ rotseq_wave_kernel(const float* at, const float* __restrict__ cw,
   const int bands = (K + KB - 1) / KB;
   const int NC = (n + W - 2 + CS - 1) / CS;     // chunks a band
   const size_t ld = (size_t)M;                  // column stride of a row
-  float(*rin)[32] = ring[w];
-  float(*rout)[32] = ring[w + 1 < NW ? w + 1 : 0];
-  float win[W];
+  T(*rin)[32] = ring[w];
+  T(*rout)[32] = ring[w + 1 < NW ? w + 1 : 0];
+  const T zero = St::h(0.f);
+  T win[W];
 
   for (int q0 = 0; q0 < bands; q0 += NW) {      // passes
     const int last = min(NW, bands - q0) - 1;   // the pass's last warp
     const bool busy = w <= last;
     const bool to_out = w == last;
-    const float* from = (q0 == 0 ? at : out) + row;
-    float* dst = out + row;
+    const T* from = (q0 == 0 ? at : out) + row;
+    T* dst = out + row;
     // what a lane's panel elements need besides the chunk start tc: plane
     // (j = tc + d, p), panel offset off + tc, identity from wave i on
     int d[Q], off[Q], wave[Q];
@@ -169,9 +222,18 @@ rotseq_wave_kernel(const float* at, const float* __restrict__ cw,
           float4* dp = &pb[e / CS][e % CS];
           const int j = tc + d[e4];
           if (pv[e4] && j >= 0 && j < J) {
-            __pipeline_memcpy_async(&dp->x, cw + off[e4] + tc, sizeof(float));
-            __pipeline_memcpy_async(&dp->y, sw + off[e4] + tc, sizeof(float));
-            __pipeline_memcpy_async(&dp->z, gw + off[e4] + tc, sizeof(float));
+            if constexpr (kF32) {
+              __pipeline_memcpy_async(&dp->x, cw + off[e4] + tc,
+                                      sizeof(float));
+              __pipeline_memcpy_async(&dp->y, sw + off[e4] + tc,
+                                      sizeof(float));
+              __pipeline_memcpy_async(&dp->z, gw + off[e4] + tc,
+                                      sizeof(float));
+            } else {
+              const int o = off[e4] + tc;
+              *dp = make_float4(St::f(cw[o]), St::f(sw[o]), St::f(gw[o]),
+                                0.f);
+            }
           } else {
             *dp = make_float4(1.f, 0.f, j < -wave[e4] ? 1.f : -1.f, 0.f);
           }
@@ -180,8 +242,12 @@ rotseq_wave_kernel(const float* at, const float* __restrict__ cw,
           // columns tc+1 .. tc+CS (and column 0 ahead of the first chunk)
           for (int col = kn == 0 ? 0 : tc + 1; col <= tc + CS && col < n;
                ++col) {
-            __pipeline_memcpy_async(&rin[col & (R - 1)][lane],
-                                    from + col * ld, sizeof(float));
+            if constexpr (kF32) {
+              __pipeline_memcpy_async(&rin[col & (R - 1)][lane],
+                                      from + col * ld, sizeof(float));
+            } else {
+              rin[col & (R - 1)][lane] = from[col * ld];
+            }
           }
         }
         __pipeline_commit();
@@ -197,28 +263,37 @@ rotseq_wave_kernel(const float* at, const float* __restrict__ cw,
       if (kw == 0) {
         // before step 0 the window holds columns -W+2 .. 0
 #pragma unroll
-        for (int q = 0; q < W - 1; ++q) win[(q + 2) % W] = 0.f;
+        for (int q = 0; q < W - 1; ++q) win[(q + 2) % W] = zero;
         win[0] = rin[0][lane];
       }
-      float* sp = dst + (long long)(tc - W + 2) * M;  // column t-W+2 out
+      T* sp = dst + (long long)(tc - W + 2) * M;  // column t-W+2 out
 #pragma unroll
       for (int u = 0; u < CS; ++u, sp += ld) {
         const int t = tc + u;
-        const float v = rin[(t + 1) & (R - 1)][lane];
-        win[(u + 1) % W] = t + 1 < n ? v : 0.f;  // column t+1
+        const T v = rin[(t + 1) & (R - 1)][lane];
+        win[(u + 1) % W] = t + 1 < n ? v : zero;  // column t+1
 #pragma unroll
         for (int i = 0; i < KB; ++i) {
           const float4 c = pb[i][u];            // plane (t - 2i, band wave i)
-          float& x = win[(u - 2 * i + 2 * W) % W];
-          float& y = win[(u - 2 * i + 1 + 2 * W) % W];
-          const float xn = __fadd_rn(__fmul_rn(c.x, x), __fmul_rn(c.y, y));
-          const float yn =
-              __fmul_rn(c.z, __fsub_rn(__fmul_rn(c.y, x), __fmul_rn(c.x, y)));
-          x = xn;
-          y = yn;
+          T& x = win[(u - 2 * i + 2 * W) % W];
+          T& y = win[(u - 2 * i + 1 + 2 * W) % W];
+          if constexpr (kF32) {
+            const float xn = __fadd_rn(__fmul_rn(c.x, x), __fmul_rn(c.y, y));
+            const float yn =
+                __fmul_rn(c.z, __fsub_rn(__fmul_rn(c.y, x), __fmul_rn(c.x, y)));
+            x = xn;
+            y = yn;
+          } else {  // each product and sum rounded to T
+            const float xf = St::f(x);
+            const float yf = St::f(y);
+            x = St::h(__fadd_rn(St::r(__fmul_rn(c.x, xf)),
+                                St::r(__fmul_rn(c.y, yf))));
+            y = St::h(__fmul_rn(c.z, St::r(__fsub_rn(
+                St::r(__fmul_rn(c.y, xf)), St::r(__fmul_rn(c.x, yf))))));
+          }
         }
         const int co = t - W + 2;               // finished at this step
-        const float f = win[(u + 2) % W];
+        const T f = win[(u + 2) % W];
         if (to_out) {
           if (live_row && co >= 0 && co < n) *sp = f;
         } else if (co >= 0) {
@@ -226,7 +301,7 @@ rotseq_wave_kernel(const float* at, const float* __restrict__ cw,
         }
       }
       if (CS < W) {                             // slots relative to tc + CS
-        float next[W];
+        T next[W];
 #pragma unroll
         for (int q = 0; q < W; ++q) next[q] = win[(q + CS) % W];
 #pragma unroll
@@ -243,15 +318,16 @@ rotseq_wave_kernel(const float* at, const float* __restrict__ cw,
 // the packed operand `at` (n, M) into `out` (n, M) in one launch on
 // `stream`; does not synchronise and allocates nothing; returns
 // cudaGetLastError().  The caller handles K == 0 and n < 2 (no planes).
-extern "C" int rotseq_wave_f32(const float* at, const float* cw,
-                               const float* sw, const float* gw, float* out,
-                               int n, int M, int K, void* stream) {
+// One entry a storage type: every operand in that type.
+template <typename T>
+int launch_wave(const T* at, const T* cw, const T* sw, const T* gw, T* out,
+                int n, int M, int K, void* stream) {
   constexpr int CS = kChunkPlanes / kBand < 2 * kBand ? kChunkPlanes / kBand
                                                       : 2 * kBand;
   constexpr int smem =
       kWarps * (3 * kBand * CS * (int)sizeof(float4) +
-                kRing * 32 * (int)sizeof(float));
-  auto kernel = rotseq_wave_kernel<kBand, kWarps>;
+                kRing * 32 * (int)sizeof(T));
+  auto kernel = rotseq_wave_kernel<kBand, kWarps, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -259,4 +335,25 @@ extern "C" int rotseq_wave_f32(const float* at, const float* cw,
   kernel<<<blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(
       at, cw, sw, gw, out, n, M, K);
   return (int)cudaGetLastError();
+}
+
+extern "C" int rotseq_wave_f32(const float* at, const float* cw,
+                               const float* sw, const float* gw, float* out,
+                               int n, int M, int K, void* stream) {
+  return launch_wave(at, cw, sw, gw, out, n, M, K, stream);
+}
+
+extern "C" int rotseq_wave_bf16(const __nv_bfloat16* at,
+                                const __nv_bfloat16* cw,
+                                const __nv_bfloat16* sw,
+                                const __nv_bfloat16* gw, __nv_bfloat16* out,
+                                int n, int M, int K, void* stream) {
+  return launch_wave(at, cw, sw, gw, out, n, M, K, stream);
+}
+
+extern "C" int rotseq_wave_f16(const __half* at, const __half* cw,
+                               const __half* sw, const __half* gw,
+                               __half* out, int n, int M, int K,
+                               void* stream) {
+  return launch_wave(at, cw, sw, gw, out, n, M, K, stream);
 }

@@ -13,8 +13,8 @@ from __future__ import annotations
 __all__ = [
     "WARP", "SMEM_PER_BLOCK", "SMEM_STATIC", "REGS_PER_THREAD",
     "WAVE_KB", "WAVE_WARPS", "WAVE_ROWS", "MXU_ROWS", "MXU_SLAB",
-    "MXU_MAX_W", "BATCHED_M_BLK", "BATCHED_KB", "round_up", "row_blocks",
-    "wave_smem_bytes", "mxu_width",
+    "MXU_MAX_W", "MXU_HALF_VEC", "BATCHED_M_BLK", "BATCHED_KB", "round_up",
+    "row_blocks", "wave_smem_bytes", "mxu_width",
 ]
 
 WARP = 32
@@ -36,6 +36,12 @@ WAVE_ROWS = 32
 MXU_ROWS = 32
 MXU_SLAB = 32
 MXU_MAX_W = 256
+# the accumulated kernel's half tier (bfloat16, float16 on the tensor
+# cores) reads the factors transposed in 16-byte pieces of MXU_HALF_VEC
+# elements, so their padded row stride is a multiple of it (the constant
+# its source is compiled for, kVec); widths as above, padded to 64, 128
+# or MXU_MAX_W
+MXU_HALF_VEC = 8
 # rows of A per block of the fused batched kernel, one thread a row (the
 # block size its source is compiled for, kThreads): small blocks spread
 # one request over many SMs (a 1024-row request over 16).  The row's
@@ -61,7 +67,8 @@ def row_blocks(m: int) -> int:
 
 
 def wave_smem_bytes(warps: int = WAVE_WARPS) -> int:
-    """Dynamic shared memory of one wavefront block of ``warps`` warps.
+    """Dynamic shared memory of one float32 wavefront block of ``warps``
+    warps (a half-precision block's rings take half as much).
 
     Each warp's plane values for three chunks of ``min(2 WAVE_KB, 128 //
     WAVE_KB)`` steps, one ``float4`` a plane, and its ring of 32 columns

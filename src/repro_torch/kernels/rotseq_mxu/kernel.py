@@ -1,9 +1,15 @@
-"""Wrapper of the CUDA accumulated kernel (``csrc/rotseq_mxu.cu``).
+"""Wrapper of the CUDA accumulated kernels (``csrc/rotseq_mxu.cu``,
+``csrc/rotseq_mxu_half.cu``).
 
 Counterpart of ``repro.kernels.rotseq_mxu.kernel.rotseq_mxu_pallas``.
 On a CPU tensor it runs the plain version; on a CUDA tensor it launches
-the kernel or raises, and never falls back.  ``LAUNCHES`` counts
-launches, and with :mod:`repro_torch.obs` on each launch also bumps
+the kernel or raises, and never falls back.  float32 operands go to the
+IEEE float32 tier on the CUDA cores (``rotseq_mxu_f32``), bfloat16 and
+float16 ones to the half tier on the tensor cores (``rotseq_mxu_bf16``,
+``rotseq_mxu_f16``: float32 sums, each result rounded to the operands'
+dtype, as the reference's body computes them); float64 has no entry.
+``LAUNCHES`` counts launches, ``DTYPE_LAUNCHES`` the same launches by
+dtype, and with :mod:`repro_torch.obs` on each launch also bumps
 ``kernels.rotseq_mxu.launches`` at the same line.
 """
 from __future__ import annotations
@@ -15,16 +21,22 @@ import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.kernels import _build
-from repro_torch.kernels.limits import MXU_MAX_W
+from repro_torch.kernels.limits import MXU_HALF_VEC, MXU_MAX_W, round_up
 
 from .ref import rotseq_mxu_ref
 
-__all__ = ["rotseq_mxu", "traffic_bytes", "LAUNCHES"]
+__all__ = ["rotseq_mxu", "traffic_bytes", "LAUNCHES", "DTYPE_LAUNCHES",
+           "ENTRY"]
 
 LAUNCHES = 0
+DTYPE_LAUNCHES = {"float32": 0, "bfloat16": 0, "float16": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# the library's entry of each operand dtype
+ENTRY = {torch.float32: "rotseq_mxu_f32", torch.bfloat16: "rotseq_mxu_bf16",
+         torch.float16: "rotseq_mxu_f16"}
+_FN = {}
 
 
 def traffic_bytes(M: int, T: int, n_b: int, k_b: int,
@@ -37,10 +49,18 @@ def traffic_bytes(M: int, T: int, n_b: int, k_b: int,
     return (2 * M * T * n_b + M * k_b + T * w * w) * itemsize
 
 
-def _lib():
-    fn = _build.load().rotseq_mxu_f32
-    fn.argtypes = [_P] * 4 + [_I] * 5 + [_P]
-    fn.restype = _I
+def _entry(dtype):
+    """The library's entry for operands of ``dtype``; raises ``TypeError``
+    for a dtype the kernel has no entry for."""
+    if dtype not in ENTRY:
+        raise TypeError(f"the accumulated kernel takes "
+                        f"{', '.join(map(str, ENTRY))}, not {dtype}")
+    fn = _FN.get(dtype)
+    if fn is None:
+        fn = getattr(_build.load(), ENTRY[dtype])
+        fn.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+        fn.restype = _I
+        _FN[dtype] = fn
     return fn
 
 
@@ -48,9 +68,11 @@ def rotseq_mxu(fresh, Q, init):
     """Sweep one band using tile factors ``Q`` (T, w, w).
 
     Args:
-      fresh: ``(m, T * n_b)`` fresh column stream, natural layout.
+      fresh: ``(m, T * n_b)`` fresh column stream, natural layout;
+        float32, bfloat16 or float16 on the card.
       Q: ``(T, w, w)`` accumulated tile factors, ``w = k_b + n_b``.
-      init: ``(m, k_b)`` initial carry.
+      init: ``(m, k_b)`` initial carry.  ``Q`` and ``init`` in
+        ``fresh``'s dtype.
 
     Returns ``(m, T * n_b)`` with ``O[:, i] = A_final[:, i - k_b + 1]``.
     """
@@ -65,21 +87,26 @@ def rotseq_mxu(fresh, Q, init):
     n_b = w - k_b
     for name, x, shape in (("fresh", fresh, (M, T * n_b)),
                            ("Q", Q, (T, w, w)), ("init", init, (M, k_b))):
-        if x.device != dev or x.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32 on {dev}, got "
-                            f"{x.dtype} on {x.device}")
+        if x.device != dev or x.dtype != fresh.dtype:
+            raise TypeError(f"{name}: the kernel takes {fresh.dtype} on "
+                            f"{dev}, got {x.dtype} on {x.device}")
         if tuple(x.shape) != shape or not x.is_contiguous():
             raise ValueError(f"{name}: expected contiguous {shape}, got "
                              f"{tuple(x.shape)}")
     if n_b < 1 or w > MXU_MAX_W:
         raise ValueError(f"n_b + k_b = {w}: the kernel takes tiles of "
                          f"width at most {MXU_MAX_W}")
-    # the kernel reads Q through a TMA descriptor, whose row stride must
-    # be a multiple of 16 bytes: pad a narrow factor with zeros
-    ldq = -(-w // 4) * 4
-    if ldq != w:
-        Q = F.pad(Q, (0, ldq - w, 0, ldq - w))
-    fn = _lib()
+    fn = _entry(fresh.dtype)
+    if fresh.dtype == torch.float32:
+        # the kernel reads Q through a TMA descriptor, whose row stride
+        # must be a multiple of 16 bytes: pad a narrow factor with zeros
+        ldq = -(-w // 4) * 4
+        if ldq != w:
+            Q = F.pad(Q, (0, ldq - w, 0, ldq - w))
+    else:
+        # the half tier reads Q transposed, rows in 16-byte pieces
+        ldq = round_up(w, MXU_HALF_VEC)
+        Q = F.pad(Q.transpose(1, 2), (0, ldq - w)).contiguous()
     out = torch.empty_like(fresh)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -88,5 +115,6 @@ def rotseq_mxu(fresh, Q, init):
     if rc != 0:
         raise RuntimeError(f"rotseq_mxu launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    DTYPE_LAUNCHES[str(fresh.dtype).replace("torch.", "")] += 1
     obs.inc("kernels.rotseq_mxu.launches")
     return out

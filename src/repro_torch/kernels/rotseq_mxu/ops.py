@@ -105,15 +105,18 @@ def batched_band_factors(C, S, p0: int, k_b: int, n_b: int, T: int, *,
 
 def band_factors(C, S, p0: int, k_b: int, n_b: int, T: int, *,
                  reflect: bool = False, G=None, dtype=torch.float32):
-    """Tile factors ``(T, w, w)`` of band ``[p0, p0 + k_b)``.
+    """Tile factors ``(T, w, w)`` of band ``[p0, p0 + k_b)``, accumulated
+    in ``dtype`` (the target's, as the reference accumulates them).
 
-    On a CUDA tensor one launch of the fused batched kernel
-    (:func:`batched_band_factors`); on a CPU tensor the eager plain
-    version, :func:`accumulate_tile_factors` of the sheared tiles.
+    On a CUDA tensor one launch of the fused batched kernel in ``dtype``
+    (:func:`batched_band_factors` on the waves rounded to ``dtype``); on a
+    CPU tensor the eager plain version, :func:`accumulate_tile_factors`
+    of the sheared tiles.
     """
     if C.device.type == "cuda":
-        return batched_band_factors(C, S, p0, k_b, n_b, T, reflect=reflect,
-                                    G=G)
+        return batched_band_factors(
+            C.to(dtype), S.to(dtype), p0, k_b, n_b, T, reflect=reflect,
+            G=None if G is None else G.to(dtype))
     tiles = pack_sheared(C, S, p0, k_b, n_b, T, reflect=reflect, G=G)
     return accumulate_tile_factors(*tiles, dtype=dtype)
 
@@ -123,8 +126,9 @@ def rot_sequence_mxu(A, C, S, *, n_b: int = 128, k_b: int = 128,
     """Apply ``(C, S)`` to ``A`` from the right via accumulated tiles.
 
     On a CUDA tensor every band is one launch of the fused batched
-    kernel (its factors) and one of the accumulated kernel; on a CPU
-    tensor the same bands run through their plain versions.
+    kernel (its factors) and one of the accumulated kernel, both in the
+    target's dtype (float32, bfloat16 or float16); on a CPU tensor the
+    same bands run through their plain versions.
 
     With :mod:`repro_torch.obs` on, a call counts its planes and the
     bytes its accumulated launches move (:func:`~.kernel.traffic_bytes`

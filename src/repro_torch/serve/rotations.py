@@ -16,7 +16,9 @@ batched pass over memory:
   :class:`~repro_torch.core.sequence.SequencePlan` through
   :meth:`~repro_torch.core.sequence.SequencePlan.apply_batched`.  On
   the card ``auto`` plans ``cuda_batched``: one launch per drain, the
-  ``pad_to`` identity waves skipped, not multiplied through.
+  ``pad_to`` identity waves skipped, not multiplied through, in the
+  bucket's dtype (float32, bfloat16 or float16; float64 runs a plain
+  backend, as the kernel has no float64 entry).
 * **slot padding**: a partial drain is padded to ``slots`` with identity
   requests (zero targets, identity waves); results are row views of the
   batch, one per ticket.

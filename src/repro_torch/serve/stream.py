@@ -8,7 +8,8 @@ oldest request has waited ``age_factor`` times the bucket plan's modeled
 batch time (clamped to ``[min_age_s, max_age_s]``); closed batches run
 through the service's own synchronous batch path, so streamed results
 equal synchronous drains bit for bit while the next batch is assembled
-during the card's work on this one.  Backpressure (``block``/``fail``/
+during the card's work on this one; a half-precision bucket is one
+half-precision ``cuda_batched`` launch, as in the service.  Backpressure (``block``/``fail``/
 ``shed``), deadlines and weighted round robin over buckets are as in the
 reference.
 

@@ -340,7 +340,8 @@ def _cu_hits(tmp_path, src_name, text, rules=("RA303", "RA405")):
 
 
 @pytest.mark.parametrize("src_name", ["rotseq_wave.cu", "rotseq_batched.cu",
-                                      "rotseq_mxu.cu", "rope.cu"])
+                                      "rotseq_mxu.cu", "rotseq_mxu_half.cu",
+                                      "rope.cu"])
 def test_real_cuda_sources_are_clean(src_name):
     assert analyze_file(os.path.join(CSRC, src_name), all_rules()) == []
 
@@ -373,11 +374,12 @@ def test_plane_form_breaks_are_caught_in_the_real_sources(
 @pytest.mark.parametrize("src_name,const,value", [
     ("rotseq_wave.cu", "kBand", 16), ("rotseq_wave.cu", "kWarps", 12),
     ("rotseq_mxu.cu", "kRows", 32), ("rotseq_mxu.cu", "kSlab", 32),
+    ("rotseq_mxu_half.cu", "kVec", 8),
     ("rotseq_batched.cu", "kBand", 16),
     ("rotseq_batched.cu", "kThreads", 64)])
 def test_constant_mirror_breaks_are_caught(tmp_path, src_name, const, value):
-    """Each of the six mirrored constants, changed in the source alone,
-    is reported on its line."""
+    """Each mirrored constant, changed in the source alone, is reported
+    on its line."""
     with open(os.path.join(CSRC, src_name)) as f:
         text = f.read()
     decl = f"constexpr int {const} = {value};"
@@ -397,6 +399,7 @@ def test_mirror_table_is_the_six_pairs_the_tests_assert():
         ("rotseq_wave", "kWarps", "WAVE_WARPS"),
         ("rotseq_mxu", "kRows", "MXU_ROWS"),
         ("rotseq_mxu", "kSlab", "MXU_SLAB"),
+        ("rotseq_mxu_half", "kVec", "MXU_HALF_VEC"),
         ("rotseq_batched", "kBand", "BATCHED_KB"),
         ("rotseq_batched", "kThreads", "BATCHED_M_BLK")}
     for src, const, name in pairs:

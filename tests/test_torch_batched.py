@@ -624,7 +624,8 @@ def test_capability_record():
     cap = spec.capability
     assert cap.batch_via == "fused" and cap.supports_signs
     assert cap.needs_kernel and not cap.supports_vmap
-    assert cap.dtypes == ("float32",) and cap.platforms == ("cuda",)
+    assert cap.dtypes == ("float32", "bfloat16", "float16")
+    assert cap.platforms == ("cuda",)
     assert spec.candidates(registry.Problem(m=4, n=8, k=2))[0].kwargs() == {}
     for name in ("cuda_wave", "cuda_mxu", "blocked"):
         assert registry.get_backend(name).capability.batch_via == "flatten"

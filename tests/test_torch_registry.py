@@ -233,10 +233,15 @@ def test_limits():
 def test_float16_eligible_for_auto():
     """As the reference's ``tests/test_api_dispatch.py``: the default
     capability takes the four dtypes the reference's does; the CUDA
-    kernels stay float32-only."""
+    kernels take float32, bfloat16 and float16, as the reference's Pallas
+    kernels take their operand's dtype, and not float64."""
     p = treg.Problem(m=8, n=16, k=4, dtype="float16", platform="cpu")
     assert treg.eligible_backends(p), "float16 must have eligible backends"
+    kernels = {"cuda_wave", "cuda_mxu", "cuda_batched"}
     for dtype in ("bfloat16", "float16"):
         names = {s.name for s in treg.eligible_backends(treg.Problem(
             m=8, n=16, k=4, dtype=dtype, platform="cuda"))}
-        assert names and not any(x.startswith("cuda_") for x in names)
+        assert kernels <= names
+    names = {s.name for s in treg.eligible_backends(treg.Problem(
+        m=8, n=16, k=4, dtype="float64", platform="cuda"))}
+    assert names and not any(x.startswith("cuda_") for x in names)
