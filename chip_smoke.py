@@ -34,17 +34,23 @@ Then half precision, the dtypes the reference's Pallas kernels take
 besides float32: the wavefront kernel in bfloat16 and float16, bit for
 bit to its plain version at the paper shape, the ragged signed problem
 and the small one, one launch an application; the fused kernel at the
-serving bucket and its ``seq.T`` staircases in both, out and plane
-counts bit for bit to its plain version and to per-request half
-``cuda_wave``; the accumulated kernel's tensor-core tier at the paper
+serving bucket and its ``seq.T`` staircases in both, out (as bit views)
+and plane counts to its plain version and by value to per-request half
+``cuda_wave``, the bucket with NaN (with payloads), ±inf, -0.0,
+overflowing and subnormal-making values in and outside the hulls as bit
+views, its conversions a plane counted in its SASS (at most 4, none on
+bfloat16's ``F2F``) and ``cuda_batched``'s ``plan.apply`` at the paper
+shape timed (the cost model's half plane rates); the accumulated
+kernel's tensor-core tier at the paper
 shape at 128/128 and 64/64 in both, its factors built by one half
 ``rotseq_batched`` launch a band (equal to the eager ones under ``==``),
 its largest error against the float64 application of the same rounded
 inputs within ``HALF_MXU_RATIO`` of its plain version's and within the
 reference's ``7e-2·k``; every half instantiation free of spills; then,
 with the launch counts set to 0 just before and read just after, the
-half main path: ``auto`` at the paper shape (a ``cuda_*`` pick), the
-three kernels on the ragged problem and the bucket through
+half main path: ``auto`` at the paper shape (a ``cuda_*`` pick, and
+whether its tiles are the faster of the tensor-core tier's two on the
+card), the three kernels on the ragged problem and the bucket through
 ``RotationService`` (one ``cuda_batched`` launch) in each dtype.
 Then the eigensolver path (``repro_torch.eig``, paper SS5.1), float32,
 each part with the launch counts set to 0 just before it:
@@ -937,12 +943,127 @@ def wave_half_phase(hctx, ptxas: dict) -> dict:
     return entries
 
 
+def same_bits(a, b) -> bool:
+    """``a`` and ``b`` hold the same bits (a NaN's too)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
+# per half type: a NaN payload no arithmetic makes, a value whose plane
+# results overflow the type, one whose products land in its subnormals
+HALF_SPECIAL = {"bf16": (0x7FC1, 3.0e38, 3.0e-39),
+                "f16": (0x7E01, 6.0e4, 3.0e-5)}
+# planes j < SPECIAL_EDGE and j >= n - 1 - SPECIAL_EDGE are the identity
+# in every wave of the special-value case: those columns lie outside
+# every hull
+SPECIAL_EDGE = 8
+
+
+def special_targets(A, tag: str, seed: int):
+    """``A`` with special rows (a NaN or an inf spreads along its row):
+    of every 8 rows one with a NaN (with a payload) at a few columns, one
+    with +inf and one with -inf there, one all -0.0, one of -0.0 and
+    +0.0, one of overflowing values and one of tiny ones."""
+    import torch
+    nan, big, tiny = HALF_SPECIAL[tag]
+    gen = torch.Generator().manual_seed(seed)
+    X = A.float().cpu()
+    cols = torch.randperm(X.shape[2], generator=gen)[:4]
+    X[:, 1::8, cols] = float("inf")
+    X[:, 2::8, cols] = float("-inf")
+    X[:, 3::8, :] = -0.0
+    X[:, 4::8, :] = torch.where(torch.rand(X[:, 4::8, :].shape,
+                                           generator=gen) < 0.5, 0.0, -0.0)
+    X[:, 5::8, :] = big * torch.sign(X[:, 5::8, :])
+    X[:, 6::8, :] = tiny * torch.sign(X[:, 6::8, :])
+    X = X.to(A.device, A.dtype)
+    bits = X.view(torch.int16)
+    bits[:, 0::8, cols.to(A.device)] = nan - 0x10000 * (nan > 0x7FFF)
+    return X
+
+
+def batched_special_case(A, seqs, tag: str) -> dict:
+    """The bucket with NaN (with a payload), +-inf, -0.0, overflowing and
+    subnormal-making values in its targets, and its edge planes the
+    identity: kernel and plain version equal as bit views, every input
+    bit outside the hulls kept."""
+    import torch
+    from repro_torch import RotationSequence
+    from repro_torch.kernels.rotseq_batched import kernel as batched_k
+    from repro_torch.kernels.rotseq_batched.ref import rotseq_batched_ref
+    edged = []
+    for s in seqs:
+        C, S = s.cos.clone(), s.sin.clone()
+        for lo, hi in ((0, SPECIAL_EDGE), (NB - 1 - SPECIAL_EDGE, NB - 1)):
+            C[lo:hi], S[lo:hi] = 1.0, 0.0
+        edged.append(RotationSequence(C, S))
+    X = special_targets(A, tag, SEED + 31)
+    _, _, args = pack_batched(X, edged)
+    o_k, p_k = batched_k.rotseq_batched(*args)
+    o_p, p_p = rotseq_batched_ref(*args)
+    torch.cuda.synchronize()
+    check(same_bits(o_k, o_p) and torch.equal(p_k, p_p),
+          f"rotseq_batched {tag} special values: bits != plain version")
+    outside = list(range(SPECIAL_EDGE)) + list(range(NB - SPECIAL_EDGE, NB))
+    check(same_bits(o_k[:, outside], args[0][:, outside]),
+          f"rotseq_batched {tag}: bits outside the hulls changed")
+    inner = o_k[:, SPECIAL_EDGE:NB - SPECIAL_EDGE].float()
+    found = dict(nan=int(torch.isnan(inner).sum()),
+                 inf=int(torch.isinf(inner).sum()),
+                 subnormal=int(((inner != 0) & (inner.abs() < torch.finfo(
+                     o_k.dtype).tiny)).sum()),
+                 negative_zero=int(((inner == 0)
+                                    & torch.signbit(inner)).sum()))
+    check(found["nan"] and found["subnormal"] and found["negative_zero"],
+          f"rotseq_batched {tag} special case lacks a kind of value: "
+          f"{found}")
+    return dict(bitwise_vs_plain=True, outside_hulls_kept=True, **found)
+
+
+def sass_half_batched() -> dict:
+    """Opcode counts of the fused kernel's instantiations
+    (``tools/sass_ops.py``): conversions, paired half ops and widenings
+    in all and a plane (the unrolled chunk holds ``kChunkPlanes`` = 128;
+    the whole function's count over 128 bounds what a plane issues from
+    above); fail past 4 conversions a plane or on bfloat16's ``F2F``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "sass_ops", ROOT / "tools" / "sass_ops.py")
+    sass = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sass)
+    out = {}
+    for name, ops in sass.functions(r"rotseq_batched_kernel").items():
+        m = re.search(r"rotseq_batched_kernelILi\d+ELi\d+E" + _MANGLED_TYPE,
+                      name)
+        tag = _TYPE_TAG[m.group(1)][1:] or "f32"
+        conv = sass.conversions(ops)
+        out[tag] = dict(instructions=sum(ops.values()), **conv,
+                        conversions_a_plane=conv["conversion_total"] / 128,
+                        paired_a_plane=conv["paired_total"] / 128,
+                        widenings_a_plane=conv["widening_total"] / 128,
+                        fmul=ops.get("FMUL", 0), fadd=ops.get("FADD", 0))
+    for tag in HALF:
+        check(out[tag]["conversions_a_plane"] <= 4.0,
+              f"rotseq_batched {tag}: {out[tag]['conversions_a_plane']} "
+              f"conversions a plane")
+    check(not any(op.startswith("F2F.BF16")
+                  for op in out["bf16"]["conversions"]),
+          f"rotseq_batched bf16 rounds on F2F: {out['bf16']['conversions']}")
+    return out
+
+
 def batched_half_phase(bctx, hctx, ptxas: dict) -> dict:
     """Hold ``rotseq_batched`` in bfloat16 and float16 at the serving
     bucket and on its ``seq.T`` staircases against its plain version
     (out and plane counts) and against per-request half ``cuda_wave``,
-    bit for bit; time it beside its plain version and ``torch.bmm`` in
-    that dtype; fail on a spill.  Returns the kernels line's entries."""
+    bit for bit, and on the bucket with special values as bit views;
+    time it beside its plain version and ``torch.bmm`` in that dtype,
+    and ``cuda_batched``'s ``plan.apply`` at the paper shape (the plane
+    rate of ``core/registry.py``); count its conversions; fail on a
+    spill.  Returns the kernels line's entries."""
     import torch
     from repro_torch.kernels.limits import BATCHED_KB, BATCHED_M_BLK
     from repro_torch.kernels.rotseq_batched import kernel as batched_k
@@ -958,7 +1079,7 @@ def batched_half_phase(bctx, hctx, ptxas: dict) -> dict:
         o_k, p_k = batched_k.rotseq_batched(*args)
         o_p, p_p = rotseq_batched_ref(*args)
         torch.cuda.synchronize()
-        check(o_k.dtype == dt and torch.equal(o_k, o_p),
+        check(o_k.dtype == dt and same_bits(o_k, o_p),
               f"rotseq_batched {tag} out != plain version")
         check(torch.equal(p_k, p_p),
               f"rotseq_batched {tag} planes != plain version")
@@ -969,6 +1090,8 @@ def batched_half_phase(bctx, hctx, ptxas: dict) -> dict:
         out = o_k.transpose(1, 2)
         per = torch.stack([s.plan(like=A[i], method="cuda_wave").apply(A[i])
                            for i, s in enumerate(seqs)])
+        # value equality across backends: the wave multiplies padded
+        # identity planes through, which may turn a -0.0 into +0.0
         check(torch.equal(out, per),
               f"rotseq_batched {tag} != per-request cuda_wave")
         check(bool(torch.isfinite(out).all()),
@@ -981,22 +1104,32 @@ def batched_half_phase(bctx, hctx, ptxas: dict) -> dict:
         o_t, p_t = batched_k.rotseq_batched(*args_t)
         w_t, wp_t = rotseq_batched_ref(*args_t)
         torch.cuda.synchronize()
-        check(torch.equal(o_t, w_t) and torch.equal(p_t, wp_t),
+        check(same_bits(o_t, w_t) and torch.equal(p_t, wp_t),
               f"rotseq_batched {tag} staircase != plain version")
         stair_ms = time_ms(lambda: batched_k.rotseq_batched(*args_t), 10)
+        special = batched_special_case(A, padded, tag)
         eye = torch.eye(NB, device=A.device, dtype=dt).expand(B, NB, NB)
         Q = rot_sequence_batched(eye, C, S)
         lib_ms = time_ms(lambda: torch.bmm(A, Q), 10)
         del Q
+        # cuda_batched's application at the paper shape: the measured
+        # plane rate of the cost model (a row's 3839 * 180 planes)
+        paper = h["seq"].plan(like=h["A"], method="cuda_batched")
+        check(torch.equal(paper.apply(h["A"]), h["blocked"]),
+              f"{tag} cuda_batched at the paper shape != blocked")
+        paper_ms = time_ms(lambda: paper.apply(h["A"]), 3)
         b_ms, b_by = bound(6.0 * MB * sum(live),
                            2.0 * (2 * B * MB * NB + 3 * B * (NB - 1) * KB))
         err = max_abs(o_k.float(), o_p.float())
-        rows[tag] = dict(max_abs_err_vs_plain=err, planes_equal_live=True,
+        rows[tag] = dict(max_abs_err_vs_plain=err, bitwise_vs_plain=True,
+                         planes_equal_live=True,
                          max_abs_err_vs_cuda_wave=0.0, ms=ms,
                          plain_ms=plain_ms, bmm_ms=lib_ms,
                          staircase_ms=stair_ms,
                          staircase_bitwise_vs_plain=True, bound_ms=b_ms,
-                         bound_by=b_by)
+                         bound_by=b_by, special_values=special,
+                         paper_apply_ms=paper_ms,
+                         paper_plane_seconds=paper_ms * 1e-3 / ((N - 1) * K))
         entries[f"rotseq_batched_{tag}"] = dict(
             name=f"rotseq_batched_{tag}", route="cuda",
             source="src/repro_torch/csrc/rotseq_batched.cu",
@@ -1010,7 +1143,7 @@ def batched_half_phase(bctx, hctx, ptxas: dict) -> dict:
               f"no {tag} instantiation of rotseq_batched in the ptxas "
               f"report")
     emit(phase="rotseq_batched_half", b=B, m=MB, n=NB, k_pad=KB,
-         dtypes=rows, ptxas=regs)
+         dtypes=rows, ptxas=regs, sass=sass_half_batched())
     return entries
 
 
@@ -1074,7 +1207,7 @@ def mxu_half_phase(hctx, ptxas: dict) -> dict:
                                            S.double())
         torch.cuda.synchronize()
         rows[tag] = {"oracle_seconds": timing.now() - t0}
-        h["mxu"] = {}
+        h["mxu"], h["mxu_apply_ms"] = {}, {}
         for tiles in MXU_SWEEP:
             n_b, k_b = tiles["n_b"], tiles["k_b"]
             T = num_tiles(N, n_b, k_b)
@@ -1115,6 +1248,7 @@ def mxu_half_phase(hctx, ptxas: dict) -> dict:
             b_ms, b_by = bound(2.0 * M * w * w * T * bands,
                                2.0 * (2 * M * N + 2 * (N - 1) * K),
                                peak=PEAK_HALF)
+            h["mxu_apply_ms"][(n_b, k_b)] = apply_ms
             rows[tag][f"{n_b}/{k_b}"] = dict(
                 launches=launches, factor_launches=factor_launches, **errs,
                 band_max_abs_err_vs_plain=band_err, factors_equal_eager=True,
@@ -1223,7 +1357,18 @@ def half_main_path(hctx) -> dict:
         for i, o in enumerate(served):
             check(torch.equal(o, h["bucket"]["out"][i]),
                   f"{tag} served request {i} != the bucket's launch")
+        # whether auto's tiles are the fastest of the rotseq_mxu_half
+        # line's sweep at the paper shape (plan.apply, same card)
+        swept = h.get("mxu_apply_ms", {})
+        follows = None
+        if plan.method == "cuda_mxu" and swept:
+            follows = (kw["n_b"], kw["k_b"]) == min(swept, key=swept.get)
         rows[tag] = dict(auto_method=plan.method, auto_kwargs=kw,
+                         auto_apply_ms=time_ms(lambda: plan.apply(h["A"]),
+                                               5),
+                         mxu_sweep_apply_ms={f"{a}/{b}": t for (a, b), t
+                                             in swept.items()},
+                         auto_follows_card=follows,
                          bucket_launches=bucket_launches,
                          ragged_mxu_kwargs=kw_m, ragged_mxu=errs)
     emit(phase="half_main_path", dtypes=rows, launches=counts,

@@ -960,13 +960,27 @@ class RA301InlinePlaneStencil(Rule):
 
 
 _INTRINSIC_RE = re.compile(r"\b(__fadd_rn|__fsub_rn|__fmul_rn)\s*\(")
-_FMA_RE = re.compile(r"\b(fmaf|fma|__fmaf_\w+|__fma_rn)\s*\(")
+_FMA_RE = re.compile(r"\b(fmaf|fma|__fmaf_\w+|__fma_rn|__hfma2?)\s*\(")
 # the half plane form's roundings to the storage type: ``St::r`` (to the
 # half type and back to float32) around each product and the difference,
 # ``St::h`` (to the half type) around the two results
 # (csrc/rotseq_wave.cu, csrc/rotseq_batched.cu ``Store<T>``)
 _ROUND_RE = re.compile(r"\bSt::([rh])\s*\(")
 _ROUNDED_RESULT_RE = re.compile(r"\bSt::h\s*\(\s*$")
+# the paired form (csrc/rotseq_batched.cu): ``const P2 v = St::p2(a, b);``
+# rounds ``a`` and ``b`` (the same product of two planes) to the half
+# type in one packed conversion, ``v.x``/``v.y`` being the two; a native
+# paired op ``const P2 v = __hadd2(a, b);`` (``__hsub2``, ``__hmul2``)
+# computes ``__fadd_rn(a.x, b.x)`` and ``__fadd_rn(a.y, b.y)`` rounded to
+# the half type; ``St::bits(a, b)`` and ``make_float2(a, b)`` pair ``a``
+# and ``b`` unrounded
+_PAIR_RE = re.compile(r"\bSt::p2\s*\(")
+_PAIR_DEF_RE = re.compile(
+    r"\b(\w+)\s*=\s*(St::p2|St::bits|make_float2|__hadd2|__hsub2|__hmul2)"
+    r"\s*\(")
+_NATIVE_PAIR = {"__hadd2": "__fadd_rn", "__hsub2": "__fsub_rn",
+                "__hmul2": "__fmul_rn"}
+_PAIR_LEAF_RE = re.compile(r"^(\w+)\.([xy])$")
 
 
 def _call_args(code: str, open_idx: int) -> Optional[Tuple[List[str], int]]:
@@ -988,10 +1002,73 @@ def _call_args(code: str, open_idx: int) -> Optional[Tuple[List[str], int]]:
     return None
 
 
-def _intrinsic_tree(expr: str):
+def _arg_spans(code: str, open_idx: int) -> Optional[List[Tuple[str, int]]]:
+    """Each top-level argument of the call whose ``(`` is at ``open_idx``,
+    stripped, with the offset of its first character."""
+    parsed = _call_args(code, open_idx)
+    if parsed is None:
+        return None
+    spans, pos = [], open_idx + 1
+    for a in parsed[0]:
+        spans.append((a.strip(), pos + len(a) - len(a.lstrip())))
+        pos += len(a) + 1
+    return spans
+
+
+class _PairedRoundings:
+    """The paired values of one source, by name: for each definition its
+    offset and its two lanes, each ``(expression, key, rounded)``, where
+    ``key`` is where the lane's expression is spelled (an offset, or
+    ``(offset, lane)`` for a native paired op's lanes, spelled by
+    :attr:`virtual`).  :attr:`args` holds the offsets at which an
+    argument of ``St::p2`` starts (a rounded result)."""
+
+    def __init__(self, code: str):
+        self.args: Set[int] = set()
+        self.defs: Dict[str, List[Tuple[int, List[tuple]]]] = {}
+        # a native op's lanes as intrinsic calls: (name, args, key, offset)
+        self.virtual: List[Tuple[str, List[str], tuple, int]] = []
+        for m in _PAIR_RE.finditer(code):
+            self.args.update(off for _, off in
+                             _arg_spans(code, m.end() - 1) or [])
+        for m in _PAIR_DEF_RE.finditer(code):
+            spans = _arg_spans(code, m.end() - 1)
+            if spans is None or len(spans) != 2:
+                continue
+            fn = m.group(2)
+            if fn in _NATIVE_PAIR:
+                lanes = []
+                for lane in "xy":
+                    key = (m.start(), lane)
+                    args = [f"{a}.{lane}" for a, _ in spans]
+                    self.virtual.append((_NATIVE_PAIR[fn], args, key,
+                                         m.start()))
+                    lanes.append((f"{_NATIVE_PAIR[fn]}({', '.join(args)})",
+                                  key, True))
+            else:
+                lanes = [(a, off, fn == "St::p2") for a, off in spans]
+            self.defs.setdefault(m.group(1), []).append((m.start(), lanes))
+
+    def resolve(self, leaf: str, at: int) -> Optional[tuple]:
+        """``(expression, key, rounded)`` of the lane that ``v.x``/``v.y``
+        reads at offset ``at`` (from the nearest definition of ``v``
+        before it); ``None`` for any other leaf."""
+        m = _PAIR_LEAF_RE.match(re.sub(r"\s+", "", leaf))
+        if not m:
+            return None
+        before = [lanes for off, lanes in self.defs.get(m.group(1), [])
+                  if off < at]
+        return before[-1][m.group(2) == "y"] if before else None
+
+
+def _intrinsic_tree(expr: str, pairs: Optional[_PairedRoundings] = None,
+                    at: int = 0):
     """``(name, [args])`` for an expression that is one ``__f*_rn`` call
     (or one rounding ``St::r``/``St::h``, named ``"St::r"``/``"St::h"``),
-    else the expression with its whitespace removed (a leaf)."""
+    else the expression with its whitespace removed (a leaf).  With
+    ``pairs``, a leaf ``v.x`` read at offset ``at`` from a paired
+    rounding is ``("St::r", [tree])`` of the expression it rounded (from
+    ``make_float2``, that expression's tree)."""
     expr = expr.strip()
     for regex, name in ((_INTRINSIC_RE, None), (_ROUND_RE, "St::")):
         m = regex.match(expr)
@@ -999,8 +1076,15 @@ def _intrinsic_tree(expr: str):
             parsed = _call_args(expr, m.end() - 1)
             if parsed is not None and parsed[1] == len(expr) - 1:
                 return ((name or "") + m.group(1),
-                        [_intrinsic_tree(a) for a in parsed[0]])
-    return re.sub(r"\s+", "", expr)
+                        [_intrinsic_tree(a, pairs, at) for a in parsed[0]])
+    leaf = re.sub(r"\s+", "", expr)
+    hit = pairs.resolve(leaf, at) if pairs is not None else None
+    if hit is None:
+        return leaf
+    key = hit[1]
+    tree = _intrinsic_tree(hit[0], pairs,
+                           key[0] if isinstance(key, tuple) else key)
+    return ("St::r", [tree]) if hit[2] else tree
 
 
 def _product(tree) -> Optional[Tuple[str, str]]:
@@ -1061,7 +1145,18 @@ class RA303CudaPlaneForm(Rule):
     St::r(__fmul_rn(s, y))))`` pairs with ``St::h(__fmul_rn(g,
     St::r(__fsub_rn(St::r(__fmul_rn(s, x)), St::r(__fmul_rn(c, y))))))``;
     a product, difference or result of that form left unrounded is
-    reported too.  ``rotseq_mxu.cu`` and ``rotseq_mxu_half.cu`` are out
+    reported too.  The paired spelling of the same form
+    (``rotseq_batched.cu``) rounds the same operation of two planes
+    together: the products in one packed conversion, ``const P2 v =
+    St::p2(a0, a1);``, whose ``v.x``/``v.y`` stand for ``St::r`` of the
+    argument they name (the nearest definition before them), and the
+    sum, the difference and g's product of two half values as one native
+    paired op, ``const P2 v = __hadd2(a, b);`` (``__hsub2``,
+    ``__hmul2``), read as ``__fadd_rn(a.x, b.x)`` and ``__fadd_rn(a.y,
+    b.y)`` each rounded to the half type; ``St::bits`` and
+    ``make_float2`` pair values unrounded.  The same checks hold on those
+    lanes, and ``__hfma2``/``__hfma`` are fused multiply-adds too.
+    ``rotseq_mxu.cu`` and ``rotseq_mxu_half.cu`` are out
     of scope: they are the GEMM tiers, held to a stated tolerance, the
     first built on ``fmaf`` on purpose; so is ``rope.cu``, whose
     half-split form is RoPE's own (``x1*c - x2*s``, each product rounded
@@ -1103,29 +1198,40 @@ class RA303CudaPlaneForm(Rule):
                            f"__fsub_rn")
         adds: Dict[Tuple, List[int]] = {}
         subs: Dict[Tuple, List[int]] = {}
-        inner: Set[int] = set()   # offsets of __fsub_rn inside a g-product
+        inner: Set = set()   # keys of the __fsub_rn inside a g-product
+        pairs = _PairedRoundings(code)
 
         def result_rounded(start: int) -> bool:
-            return bool(_ROUNDED_RESULT_RE.search(code[:start]))
+            return (start in pairs.args
+                    or bool(_ROUNDED_RESULT_RE.search(code[:start])))
 
+        # every __f*_rn call: (name, argument texts, key, offset, rounded),
+        # those spelled in the source and the lanes of native paired ops
+        calls = []
         for m in _INTRINSIC_RE.finditer(code):
             parsed = _call_args(code, m.end() - 1)
-            if parsed is None:
-                continue
-            args = [_intrinsic_tree(a) for a in parsed[0]]
-            line = cu.line_of(m.start())
+            if parsed is not None:
+                calls.append((m.group(1), parsed[0], m.start(), m.start(),
+                              result_rounded(m.start())))
+        calls += [(name, args, key, off, True)
+                  for name, args, key, off in pairs.virtual]
+        for name, texts, key, at, rounded_result in calls:
+            args = [_intrinsic_tree(a, pairs, at) for a in texts]
+            line = cu.line_of(at)
             try:
-                if m.group(1) == "__fadd_rn" and len(args) == 2:
+                if name == "__fadd_rn" and len(args) == 2:
                     form = _plane_products(args)
                     if form:
                         adds.setdefault(form, []).append(line)
-                        if form[1] and not result_rounded(m.start()):
+                        if form[1] and not rounded_result:
                             yield self.hit(cu, line, "half plane form: "
                                            "c*x + s*y not rounded to the "
-                                           "half type (St::h)")
-                elif m.group(1) == "__fmul_rn" and len(args) == 2:
+                                           "half type (St::h, __hadd2)")
+                elif name == "__fmul_rn" and len(args) == 2:
                     diff = args[1]
                     half = _rounded(diff) is not None
+                    # a difference read from a pair: where it is spelled
+                    paired = pairs.resolve(texts[1], at)
                     if half:
                         diff = _rounded(diff)
                     if not (isinstance(diff, tuple)
@@ -1135,32 +1241,30 @@ class RA303CudaPlaneForm(Rule):
                     form = _plane_products(diff[1])
                     if not form:
                         continue
-                    inner.add(code.index("__fsub_rn", m.end()))
+                    inner.add(paired[1] if paired is not None
+                              else code.index("__fsub_rn", at + 1))
                     if form[1] != half:
                         raise ValueError("the difference s*x - c*y and its "
                                          "products rounded unlike")
                     (s, x, c, y), rounded = form
                     subs.setdefault(((c, x, s, y), rounded), []).append(line)
-                    if rounded and not result_rounded(m.start()):
+                    if rounded and not rounded_result:
                         yield self.hit(cu, line, "half plane form: g*(s*x - "
                                        "c*y) not rounded to the half type "
-                                       "(St::h)")
+                                       "(St::h, __hmul2)")
             except ValueError as err:
                 yield self.hit(cu, line, f"half plane form: {err}; round "
-                               f"each product and sum (St::r)")
-        for m in _INTRINSIC_RE.finditer(code):
-            if m.group(1) != "__fsub_rn" or m.start() in inner:
-                continue
-            parsed = _call_args(code, m.end() - 1)
-            if parsed is None or len(parsed[0]) != 2:
+                               f"each product and sum (St::r, St::p2)")
+        for name, texts, key, at, _ in calls:
+            if name != "__fsub_rn" or key in inner or len(texts) != 2:
                 continue
             try:
-                form = _plane_products([_intrinsic_tree(a)
-                                        for a in parsed[0]])
+                form = _plane_products([_intrinsic_tree(a, pairs, at)
+                                        for a in texts])
             except ValueError:
                 form = True
             if form:
-                yield self.hit(cu, cu.line_of(m.start()),
+                yield self.hit(cu, cu.line_of(at),
                                "difference of products outside "
                                "__fmul_rn(g, ...): the plane's second row "
                                "is g*(s*x - c*y)")

@@ -26,7 +26,8 @@ and ``seq.T`` staircases is skipped, not multiplied through.
 On the card the two row-parallel kernels (``cuda_wave``, ``cuda_batched``)
 are far from the flop roofline, so there each is also priced by its
 plane rate measured on an H100 (:data:`_WAVE_PLANE_SECONDS`,
-:data:`_BATCHED_PLANE_SECONDS`): one lane walks a row's planes in order
+:data:`_BATCHED_PLANE_SECONDS`, the latter by dtype, since a half plane
+rounds seven times): one lane walks a row's planes in order
 (``cuda_wave`` splits them over the warps of its band pipeline), so a
 launch takes the planes of one chain times the time of one, for as many
 rows as the card runs at once (:data:`repro_torch.hw.RESIDENT_ROWS`).
@@ -122,9 +123,25 @@ _MXU_BAND_HOST_SECONDS = 0.35e-3
 # one 1024 x 1024 target and at the 16-request serving bucket; the
 # queueing past the card's resident rows and the per-request loop of
 # wavefront launches are extrapolated.
+# In bfloat16 and float16 cuda_batched's plane rounds each product and
+# sum to the half type (csrc/rotseq_batched.cu): its rates are the same
+# plan.apply at the paper shape in each dtype, 9.425 ms in bfloat16 and
+# 14.345 ms in float16, measured by chip_smoke.py's rotseq_batched_half
+# line (paper_apply_ms) on an NVIDIA H100 80GB HBM3 at 700.00 W.  They
+# price cuda_mxu's half factor builds too (one half rotseq_batched launch
+# a band); the wave's rate is float32's in every dtype.
 _WAVE_PLANE_SECONDS = 1.66e-3 / (3839 * 192 / 12
                                  * (3840 * 12 / RESIDENT_ROWS["cuda"]))
-_BATCHED_PLANE_SECONDS = 6.62e-3 / (3839 * 180)
+_BATCHED_PLANE_SECONDS = {"float32": 6.62e-3 / (3839 * 180),
+                          "bfloat16": 9.425e-3 / (3839 * 180),
+                          "float16": 14.345e-3 / (3839 * 180)}
+
+
+def _batched_plane_seconds(dtype: str) -> float:
+    """cuda_batched's measured plane rate for targets of ``dtype`` (the
+    float32 one for a dtype it was not measured in)."""
+    return _BATCHED_PLANE_SECONDS.get(dtype,
+                                      _BATCHED_PLANE_SECONDS["float32"])
 
 
 # --------------------------------------------------------------------------
@@ -556,7 +573,7 @@ def cost_cuda_mxu(p: Problem, plan: Plan) -> float:
         sweep = (_mxu_sweep_seconds(p, n_b, k_b)
                  + c["stream_bytes"] / D / hw.hbm_bw)
     factors = (bands * _row_chain_seconds(n_b * k_b, tiles * w,
-                                          _BATCHED_PLANE_SECONDS)
+                                          _batched_plane_seconds(p.dtype))
                + c["setup_bytes"] / p.sequences / hw.hbm_bw)
     device = sweep + p.sequences * factors + _MXU_BAND_HOST_SECONDS
     host = p.sequences * bands * _MXU_BAND_HOST_SECONDS
@@ -591,7 +608,7 @@ def cost_cuda_batched(p: Problem, plan: Plan) -> float:
     secs *= _off_device_factor(p)
     if p.platform == "cuda":
         secs = max(secs, _row_chain_seconds(p.planes_live, p.m_total / D,
-                                            _BATCHED_PLANE_SECONDS))
+                                            _batched_plane_seconds(p.dtype)))
     return max(secs, _LATENCY_FLOOR) + comm_s
 
 

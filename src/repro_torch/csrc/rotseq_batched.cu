@@ -80,15 +80,49 @@
 // into an FMA), so the kernel equals its plain PyTorch version bit for bit.
 //
 // Half precision (bfloat16, float16), as the reference's body takes them:
-// targets, results, the staged columns and the register window are in the
-// half type T, and c, s, g are rounded to T by the wrapper.  A plane
-// computes each product and sum in float32 and rounds it to T before the
-// next one uses it (Store<T>::r), as eager PyTorch does with half tensors,
-// so the half instantiations equal the plain version bit for bit too.
-// cp.async moves 4 bytes at least: in half precision the panel values are
-// staged by plain loads (widened to float32 in the float4, exactly), and
-// so are the columns when they cannot move in 16-byte pieces (of eight
-// rows; M % 8 == 0 and aligned targets).
+// targets, results and the staged columns are in the half type T, and c,
+// s, g are rounded to T by the wrapper.  A plane computes each product
+// and sum in float32 and rounds it to T before the next one uses it, as
+// eager PyTorch does with half tensors: 7 roundings a plane (4 products,
+// the difference and the two results), so the half instantiations equal
+// the plain version bit for bit too.  What bounds the half path is those
+// roundings: a conversion (F2F or F2FP) issues at 16 lanes a clock an SM,
+// ~8 cycles of the bucket's one warp a scheduler, against ~10 cycles for
+// a whole float32 plane; rounded one at a time, 7 of them took ~56.  This
+// body issues 2 a plane (~16 cycles), none on F2F; float16 pays besides
+// for HADD2.F32 widenings (at the bucket, on an H100: 0.85 ms bfloat16,
+// 1.29 ms float16, 0.63 ms float32).  It:
+//   - keeps the register window in float32, every value in it exactly
+//     representable in T (it was rounded when it was made): a column is
+//     widened once when it enters from the staged tile (Store<T>::w) and
+//     narrowed once, exactly, when it is stored (Store<T>::n); the pair
+//     keeps every bit, a NaN's payload too, so values no live plane
+//     touches leave as they came;
+//   - rounds in pairs: planes i and i+1 of a step are independent, so
+//     each of their 7 roundings is one paired instruction for the two.
+//     The 4 products start in float32 (the window's values times c or
+//     s): one packed conversion each (Store<T>::p2, cvt.rn.bf16x2.f32 /
+//     cvt.rn.f16x2.f32, one F2FP, 2 a plane).  The sum, the difference
+//     and g's product take two values already in T: one native paired
+//     op each (__hadd2, __hsub2, __hmul2), which rounds the exact result
+//     to T once.  That equals eager PyTorch's float32 op then rounding:
+//     a product of two T values is exact in float32 (bfloat16's 16 bits,
+//     float16's 22; a bfloat16 product finer than float32's last place
+//     lies below half bfloat16's least subnormal, where both give 0),
+//     and float32's 24 bits are at least 2p + 2 for T's p (8, 11), so a
+//     sum or difference rounded twice equals it rounded once (Figueroa,
+//     "When is double rounding innocuous?", 1995).  Only the two results
+//     are widened into the window (bfloat16: a shift and a mask;
+//     float16: HADD2.F32), and g is staged as its raw bits and paired
+//     by a byte permute;
+//   - stages the chunk's panel values (and its columns, where they cannot
+//     move in 16-byte pieces of eight rows) into registers one chunk ahead
+//     and writes them to shared memory after the current chunk's planes,
+//     since cp.async moves 4 bytes at least: no load on the plane path
+//     waits on global memory.
+// A half plane is then ~16 issued instructions (4 float32 products, 2
+// packed conversions, 1.5 paired half ops, 2 widenings, 2 selects, the
+// panel load and compare), none on F2F.
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -99,40 +133,85 @@
 
 namespace {
 
-// The storage type T of the targets and its conversions: f widens to
-// float32 (exact), h rounds a float32 to T (to nearest even), r is the
-// value rounded to T and widened again.  All three are the identity for
-// float.
+// The storage type T of the targets and its conversions.  f widens a
+// panel value to float32 (exact, as eager PyTorch widens it); w widens a
+// column into the window and n narrows a window value back (exact for a
+// T-exact value, and the two keep every bit, a NaN's payload too); all
+// three are the identity for float.  In half precision P2 holds the same
+// value of two planes: p2 rounds two float32 values to T to nearest even
+// in one packed conversion (a low, b high), w2 widens a pair back, and
+// bits pairs two values staged as raw T bits (exact).
 template <typename T>
 struct Store;
 
 template <>
 struct Store<float> {
   static __device__ __forceinline__ float f(float v) { return v; }
-  static __device__ __forceinline__ float h(float v) { return v; }
-  static __device__ __forceinline__ float r(float v) { return v; }
+  static __device__ __forceinline__ float w(float v) { return v; }
+  static __device__ __forceinline__ float n(float v) { return v; }
 };
 
 template <>
 struct Store<__nv_bfloat16> {
+  using P2 = __nv_bfloat162;
   static __device__ __forceinline__ float f(__nv_bfloat16 v) {
     return __bfloat162float(v);
   }
-  static __device__ __forceinline__ __nv_bfloat16 h(float v) {
-    return __float2bfloat16_rn(v);
+  static __device__ __forceinline__ float w(__nv_bfloat16 v) {
+    return __bfloat162float(v);                 // the bits, shifted up
   }
-  static __device__ __forceinline__ float r(float v) { return f(h(v)); }
+  static __device__ __forceinline__ __nv_bfloat16 n(float v) {
+    return __ushort_as_bfloat16(
+        static_cast<unsigned short>(__float_as_uint(v) >> 16));
+  }
+  static __device__ __forceinline__ P2 p2(float a, float b) {
+    return __floats2bfloat162_rn(a, b);         // cvt.rn.bf16x2.f32
+  }
+  static __device__ __forceinline__ float2 w2(P2 p) {
+    const unsigned u = *reinterpret_cast<const unsigned*>(&p);
+    return make_float2(__uint_as_float(u << 16),
+                       __uint_as_float(u & 0xFFFF0000u));
+  }
+  static __device__ __forceinline__ P2 bits(float a, float b) {
+    const unsigned u =
+        __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x5410);
+    return *reinterpret_cast<const P2*>(&u);
+  }
 };
 
 template <>
 struct Store<__half> {
+  using P2 = __half2;
   static __device__ __forceinline__ float f(__half v) {
     return __half2float(v);
   }
-  static __device__ __forceinline__ __half h(float v) {
-    return __float2half_rn(v);
+  static __device__ __forceinline__ float w(__half v) {
+    const unsigned h = __half_as_ushort(v);
+    if ((h & 0x7FFFu) > 0x7C00u) {              // NaN: keep sign and payload
+      return __uint_as_float(((h & 0x8000u) << 16) | 0x7F800000u |
+                             ((h & 0x3FFu) << 13));
+    }
+    return __half2float(v);
   }
-  static __device__ __forceinline__ float r(float v) { return f(h(v)); }
+  static __device__ __forceinline__ __half n(float v) {
+    const unsigned u = __float_as_uint(v);
+    if ((u & 0x7FFFFFFFu) > 0x7F800000u) {      // NaN: w's inverse
+      return __ushort_as_half(static_cast<unsigned short>(
+          ((u >> 16) & 0x8000u) | 0x7C00u | ((u >> 13) & 0x3FFu)));
+    }
+    return __float2half_rn(v);                  // exact: v is T-exact
+  }
+  static __device__ __forceinline__ P2 p2(float a, float b) {
+    return __floats2half2_rn(a, b);             // cvt.rn.f16x2.f32
+  }
+  static __device__ __forceinline__ float2 w2(P2 p) {
+    return __half22float2(p);
+  }
+  static __device__ __forceinline__ P2 bits(float a, float b) {
+    const unsigned u =
+        __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x5410);
+    return *reinterpret_cast<const P2*>(&u);
+  }
 };
 
 // waves a band, and threads (rows) a block: repro_torch.kernels.limits.
@@ -175,10 +254,9 @@ struct Stager {
     }
   }
 
-  template <typename T>
-  __device__ __forceinline__ void stage(float4 (*buf)[CS], const T* c,
-                                        const T* s, const T* g, int tc,
-                                        int tid) const {
+  __device__ __forceinline__ void stage(float4 (*buf)[CS], const float* c,
+                                        const float* s, const float* g,
+                                        int tc, int tid) const {
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const int e = tid + q * NT;
@@ -187,17 +265,51 @@ struct Stager {
         const bool live = tc >= lo[q] && tc < hi[q];
         if (live) {
           const int o = off[q] + tc;
-          if constexpr (std::is_same<T, float>::value) {
-            __pipeline_memcpy_async(&d->x, c + o, sizeof(float));
-            __pipeline_memcpy_async(&d->y, s + o, sizeof(float));
-            __pipeline_memcpy_async(&d->z, g + o, sizeof(float));
-          } else {
-            d->x = Store<T>::f(c[o]);
-            d->y = Store<T>::f(s[o]);
-            d->z = Store<T>::f(g[o]);
-          }
+          __pipeline_memcpy_async(&d->x, c + o, sizeof(float));
+          __pipeline_memcpy_async(&d->y, s + o, sizeof(float));
+          __pipeline_memcpy_async(&d->z, g + o, sizeof(float));
         }
         d->w = live ? 1.f : 0.f;
+      }
+    }
+  }
+
+  // Half precision: cp.async moves 4 bytes at least, so fetch reads the
+  // live elements' {c, s, g} of chunk tc into registers, and put writes
+  // them to shared memory once the chunk before has run: c and s widened,
+  // g as its raw bits (a plane uses it only in a paired half product).
+  template <typename T>
+  __device__ __forceinline__ void fetch(T (&v)[Q][3], const T* c,
+                                        const T* s, const T* g, int tc,
+                                        int tid) const {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int e = tid + q * NT;
+      if (e < KB * CS && tc >= lo[q] && tc < hi[q]) {
+        const int o = off[q] + tc;
+        v[q][0] = c[o];
+        v[q][1] = s[o];
+        v[q][2] = g[o];
+      }
+    }
+  }
+
+  template <typename T>
+  __device__ __forceinline__ void put(float4 (*buf)[CS], const T (&v)[Q][3],
+                                      int tc, int tid) const {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int e = tid + q * NT;
+      if (e < KB * CS) {
+        float4* d = &buf[e / CS][e % CS];
+        if (tc >= lo[q] && tc < hi[q]) {        // g as its raw bits
+          const unsigned gb = *reinterpret_cast<const unsigned short*>(
+              &v[q][2]);
+          *d = make_float4(Store<T>::f(v[q][0]), Store<T>::f(v[q][1]),
+                           __uint_as_float(gb), 1.f);
+        } else {
+          d->w = 0.f;
+        }
       }
     }
   }
@@ -249,12 +361,16 @@ rotseq_batched_kernel(const T* at, const T* __restrict__ cw,
   const size_t base = (size_t)ib * n * M + (size_t)rb * NT + tid;
   T* dst = out + base;                          // this thread's row
   const T* src = at + base;
-  const T zero = St::h(0.f);
+  const T zero = St::n(0.f);
   bool first = true;                            // AT until a band has run
   int total = 0;
   int kc = 0;                                   // chunks staged so far
-  T win[W];
+  float win[W];                                 // T-exact values
   Stager<KB, NT, CS> stager;
+  // half precision: the next chunk's panel values, and its columns when
+  // they do not move by cp.async, between fetch and put
+  T pv[Stager<KB, NT, CS>::Q][3];
+  T cv[CS];
 
   for (int b0 = 0; b0 < K; b0 += KB) {
     int tlo = INT_MAX, thi = 0, clo = INT_MAX, chi = -1;
@@ -301,7 +417,8 @@ rotseq_batched_kernel(const T* at, const T* __restrict__ cw,
     // stage the chunk of steps tc .. tc+CS-1: its planes, and the block's
     // columns tc+1 .. tc+CS that its steps take in (columns outside
     // clo .. chi keep stale values: no live plane reads them and none is
-    // stored)
+    // stored); in half precision what cp.async cannot move waits in
+    // registers for put
     auto stage = [&](int tc) {
       const int slot = kc % 3;
       if (vec) {
@@ -326,23 +443,41 @@ rotseq_batched_kernel(const T* at, const T* __restrict__ cw,
                                       from + (long long)col * M,
                                       sizeof(float));
             } else {
-              rows[slot][u][tid] = from[(long long)col * M];
+              cv[u] = from[(long long)col * M];
             }
           }
         }
       }
-      stager.stage(panel[slot], c, s, g, tc, tid);
+      if constexpr (kF32) {
+        stager.stage(panel[slot], c, s, g, tc, tid);
+      } else {
+        stager.fetch(pv, c, s, g, tc, tid);
+      }
       __pipeline_commit();
       ++kc;
     };
+    // half precision: write the registers of the chunk staged last, tc,
+    // to its slot
+    auto put = [&](int tc) {
+      const int slot = (kc - 1) % 3;
+      if (!vec) {
+#pragma unroll
+        for (int u = 0; u < CS; ++u) {
+          const int col = tc + 1 + u;
+          if (active && col >= clo && col <= chi) rows[slot][u][tid] = cv[u];
+        }
+      }
+      stager.put(panel[slot], pv, tc, tid);
+    };
     stager.band(st, ct, b0, K, J, tid);
     stage(t0);
+    if constexpr (!kF32) put(t0);
     // the window before step t0 holds columns t0-W+2 .. t0
 #pragma unroll
     for (int q = 0; q < W - 1; ++q) {
       const int col = t0 - W + 2 + q;
       const bool in = active && col >= clo && col <= chi;
-      win[(q + 2) % W] = in ? from[col * ld] : zero;
+      win[(q + 2) % W] = in ? St::w(from[col * ld]) : 0.f;
     }
     for (int tc = t0; tc < t1; tc += CS) {
       const int slot = (kc - 1) % 3;            // this chunk's
@@ -359,36 +494,60 @@ rotseq_batched_kernel(const T* at, const T* __restrict__ cw,
 #pragma unroll
       for (int u = 0; u < CS; ++u, sp += ld) {
         const int t = tc + u;
-        win[(u + 1) % W] = rw[u][tid];          // column t+1
+        win[(u + 1) % W] = St::w(rw[u][tid]);   // column t+1
+        if constexpr (kF32) {
 #pragma unroll
-        for (int i = 0; i < KB; ++i) {
-          const float4 q = pb[i][u];            // plane (t - 2i, b0 + i)
-          T& x = win[(u - 2 * i + 2 * W) % W];
-          T& y = win[(u - 2 * i + 1 + 2 * W) % W];
-          const bool live = q.w != 0.f;
-          if constexpr (kF32) {
+          for (int i = 0; i < KB; ++i) {
+            const float4 q = pb[i][u];          // plane (t - 2i, b0 + i)
+            float& x = win[(u - 2 * i + 2 * W) % W];
+            float& y = win[(u - 2 * i + 1 + 2 * W) % W];
+            const bool live = q.w != 0.f;
             const float xn = __fadd_rn(__fmul_rn(q.x, x), __fmul_rn(q.y, y));
             const float yn =
                 __fmul_rn(q.z, __fsub_rn(__fmul_rn(q.y, x), __fmul_rn(q.x, y)));
             x = live ? xn : x;
             y = live ? yn : y;
-          } else {  // each product and sum rounded to T
-            const float xf = St::f(x);
-            const float yf = St::f(y);
-            const T xn = St::h(__fadd_rn(St::r(__fmul_rn(q.x, xf)),
-                                         St::r(__fmul_rn(q.y, yf))));
-            const T yn = St::h(__fmul_rn(q.z, St::r(__fsub_rn(
-                St::r(__fmul_rn(q.y, xf)), St::r(__fmul_rn(q.x, yf))))));
-            x = live ? xn : x;
-            y = live ? yn : y;
+          }
+        } else {
+          // planes i and i+1 of the step touch disjoint columns: each
+          // product, the difference and both results of the two are
+          // rounded to T together, in the order of plane_update; the
+          // products in one packed conversion, the sum, the difference
+          // and g's product as one paired half op of two T values
+#pragma unroll
+          for (int i = 0; i < KB; i += 2) {
+            using P2 = typename St::P2;
+            const float4 q0 = pb[i][u];         // plane (t - 2i, b0 + i)
+            const float4 q1 = pb[i + 1][u];     // plane (t - 2i - 2, ...)
+            float& x0 = win[(u - 2 * i + 2 * W) % W];
+            float& y0 = win[(u - 2 * i + 1 + 2 * W) % W];
+            float& x1 = win[(u - 2 * i - 2 + 2 * W) % W];
+            float& y1 = win[(u - 2 * i - 1 + 2 * W) % W];
+            const P2 cx = St::p2(__fmul_rn(q0.x, x0), __fmul_rn(q1.x, x1));
+            const P2 sy = St::p2(__fmul_rn(q0.y, y0), __fmul_rn(q1.y, y1));
+            const P2 sx = St::p2(__fmul_rn(q0.y, x0), __fmul_rn(q1.y, x1));
+            const P2 cy = St::p2(__fmul_rn(q0.x, y0), __fmul_rn(q1.x, y1));
+            const P2 g = St::bits(q0.z, q1.z);
+            const P2 xs = __hadd2(cx, sy);
+            const P2 d = __hsub2(sx, cy);
+            const P2 ys = __hmul2(g, d);
+            const float2 xn = St::w2(xs);
+            const float2 yn = St::w2(ys);
+            x0 = q0.w != 0.f ? xn.x : x0;
+            y0 = q0.w != 0.f ? yn.x : y0;
+            x1 = q1.w != 0.f ? xn.y : x1;
+            y1 = q1.w != 0.f ? yn.y : y1;
           }
         }
         if (active && t - W + 2 >= clo && t - W + 2 <= chi) {
-          *sp = win[(u + 2) % W];               // finished at this step
+          *sp = St::n(win[(u + 2) % W]);        // finished at this step
         }
       }
+      if constexpr (!kF32) {
+        if (tc + CS < t1) put(tc + CS);
+      }
       if (CS < W) {                             // slots relative to tc + CS
-        T next[W];
+        float next[W];
 #pragma unroll
         for (int q = 0; q < W; ++q) next[q] = win[(q + CS) % W];
 #pragma unroll
@@ -399,7 +558,9 @@ rotseq_batched_kernel(const T* at, const T* __restrict__ cw,
 #pragma unroll
     for (int q = 0; q < W - 1; ++q) {
       const int col = t1 - W + 2 + q;
-      if (active && col >= clo && col <= chi) dst[col * ld] = win[(q + 2) % W];
+      if (active && col >= clo && col <= chi) {
+        dst[col * ld] = St::n(win[(q + 2) % W]);
+      }
     }
   }
   if (first && active) {

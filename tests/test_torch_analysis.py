@@ -371,6 +371,45 @@ def test_plane_form_breaks_are_caught_in_the_real_sources(
         ("RA303", line(add)), ("RA303", line(row))]
 
 
+# the seven paired roundings of csrc/rotseq_batched.cu's half planes, and
+# each spelled unrounded: the products' packed conversions (St::p2) and
+# the native paired sum, difference and g-product
+PAIRED = {
+    "cx": ("const P2 cx = St::p2(", "const float2 cx = make_float2("),
+    "sy": ("const P2 sy = St::p2(", "const float2 sy = make_float2("),
+    "sx": ("const P2 sx = St::p2(", "const float2 sx = make_float2("),
+    "cy": ("const P2 cy = St::p2(", "const float2 cy = make_float2("),
+    "xs": ("const P2 xs = __hadd2(cx, sy);",
+           "const float2 xs = make_float2(__fadd_rn(cx.x, sy.x), "
+           "__fadd_rn(cx.y, sy.y));"),
+    "d": ("const P2 d = __hsub2(sx, cy);",
+          "const float2 d = make_float2(__fsub_rn(sx.x, cy.x), "
+          "__fsub_rn(sx.y, cy.y));"),
+    "ys": ("const P2 ys = __hmul2(g, d);",
+           "const float2 ys = make_float2(__fmul_rn(g.x, d.x), "
+           "__fmul_rn(g.y, d.y));"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PAIRED))
+def test_dropped_paired_rounding_is_caught_in_the_real_source(tmp_path,
+                                                              name):
+    """Each of the half plane's paired roundings spelled unrounded (the
+    pair made by ``make_float2``) is reported on the lines of that plane
+    pair."""
+    with open(os.path.join(CSRC, "rotseq_batched.cu")) as f:
+        text = f.read()
+    spelled, unrounded = PAIRED[name]
+    assert text.count(spelled) == 1
+    assert _cu_hits(tmp_path, "rotseq_batched.cu", text) == []
+    hits = _cu_hits(tmp_path, "rotseq_batched.cu",
+                    text.replace(spelled, unrounded))
+    first = text[:text.index("const P2 cx")].count("\n") + 2
+    last = text[:text.index("const P2 ys")].count("\n") + 2
+    assert hits and all(r == "RA303" and first <= ln <= last
+                        for r, ln in hits), hits
+
+
 @pytest.mark.parametrize("src_name,const,value", [
     ("rotseq_wave.cu", "kBand", 16), ("rotseq_wave.cu", "kWarps", 12),
     ("rotseq_mxu.cu", "kRows", 32), ("rotseq_mxu.cu", "kSlab", 32),

@@ -303,6 +303,71 @@ def test_half_mxu_sweep_priced_at_the_tensor_core_rate():
     assert flops / PLATFORMS["cuda"].tc_bf16_flops < bf16 < f32
 
 
+# planner problems on the card: (m, n, k, batch, shared, live planes,
+# devices): the paper shape, the paper sweep's ends, a 1024 x 1024 target,
+# the eig flush, the serving bucket and its seq.T staircases, a SOAP
+# refresh's side, one shard of four
+PRICED = [(3840, 3840, 180, 1, True, None, 1), (240, 240, 180, 1, True,
+                                                 None, 1),
+          (1024, 1024, 64, 1, True, None, 1),
+          (1024, 1024, 32, 1, True, None, 1),
+          (1024, 1024, 64, 16, False, None, 1),
+          (1024, 1024, 1086, 16, False, 1023 * 64, 1),
+          (3840, 3840, 180, 8, True, None, 1), (4, 4, 64, 1, True, None, 1),
+          (3840, 3840, 180, 1, True, None, 4)]
+
+
+def _picks(dtype):
+    registry.clear_plan_cache()
+    return [registry.select_plan(m, n, k, dtype=dtype, platform="cuda",
+                                 batch=b, shared_sequence=sh,
+                                 live_planes=live, sharded=d > 1,
+                                 devices=d)
+            for m, n, k, b, sh, live, d in PRICED]
+
+
+def test_float32_picks_unchanged_by_the_half_plane_rates(monkeypatch):
+    """``cuda_batched``'s half plane rates price only half problems: with
+    them set far off every float32 pick is the same, and the float32
+    rate is still the main path's measurement (6.62 ms at the paper
+    shape)."""
+    before = _picks("float32")
+    for dtype in ("bfloat16", "float16"):
+        monkeypatch.setitem(registry._BATCHED_PLANE_SECONDS, dtype, 1.0)
+    assert _picks("float32") == before
+    assert registry._BATCHED_PLANE_SECONDS["float32"] == \
+        6.62e-3 / (3839 * 180)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_half_factor_build_priced_at_its_dtype_rate(dtype, monkeypatch):
+    """A half problem prices ``cuda_mxu``'s factor build (one half
+    ``rotseq_batched`` launch a band) and ``cuda_batched`` at its own
+    dtype's plane rate, not float32's; the measured half rates are
+    slower than float32's (a half plane rounds seven times)."""
+    from repro_torch.core.registry import (Plan, _row_chain_seconds,
+                                           _tile_grid, cost_cuda_batched,
+                                           cost_cuda_mxu)
+    rates = registry._BATCHED_PLANE_SECONDS
+    assert rates[dtype] > rates["float32"]
+    p = registry.Problem(m=3840, n=3840, k=180, dtype=dtype,
+                         platform="cuda")
+    mxu = Plan("cuda_mxu", n_b=128, k_b=128)
+    bands, tiles, w = _tile_grid(p, 128, 128)
+    costs = {}
+    for rate in (1e-6, 2e-6):
+        monkeypatch.setitem(rates, dtype, rate)
+        costs[rate] = (cost_cuda_mxu(p, mxu),
+                       cost_cuda_batched(p, Plan("cuda_batched")))
+    step = bands * (_row_chain_seconds(128 * 128, tiles * w, 2e-6)
+                    - _row_chain_seconds(128 * 128, tiles * w, 1e-6))
+    assert costs[2e-6][0] - costs[1e-6][0] == pytest.approx(step)
+    assert costs[2e-6][1] == pytest.approx(2 * costs[1e-6][1])
+    monkeypatch.setitem(rates, "float32", 1.0)
+    assert (cost_cuda_mxu(p, mxu),
+            cost_cuda_batched(p, Plan("cuda_batched"))) == costs[2e-6]
+
+
 # --------------------------------------------- the wrappers' dispatch ----
 
 class _OnCuda:

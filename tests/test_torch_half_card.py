@@ -107,6 +107,68 @@ def test_batched_half_bitwise_on_the_card(dtype, staircase):
     assert torch.equal(out.transpose(1, 2), per)
 
 
+# per type: a NaN payload no arithmetic makes, a value whose plane
+# results overflow the type, one whose products land in its subnormals
+SPECIAL = {torch.bfloat16: (0x7FC1, 3.0e38, 3.0e-39),
+           torch.float16: (0x7E01, 6.0e4, 3.0e-5)}
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int16)
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("m", [256, 253])
+@pytest.mark.parametrize("staircase", [False, True])
+def test_batched_half_special_values_bitwise_on_the_card(dtype, m,
+                                                         staircase):
+    """NaN with a payload, +-inf, -0.0, values whose plane results
+    overflow the type and ones whose products are subnormal, a row each,
+    in and outside the hulls (edge planes the identity in every wave):
+    the kernel's bits equal its plain version's, and outside the hulls
+    they are the input's; ``m = 256`` stages columns in 16-byte pieces,
+    ``m = 253`` by plain loads."""
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(13)
+    b, n, k_pad, edge = 4, 300, 48, 6
+    seqs = []
+    for k in (20, 33, 41, 48):
+        s = random_sequence(n, k, generator=gen, device=dev, dtype=dtype)
+        C, S = s.cos.clone(), s.sin.clone()
+        C[:edge], S[:edge] = 1.0, 0.0
+        C[n - 1 - edge:], S[n - 1 - edge:] = 1.0, 0.0
+        s = RotationSequence(C, S).pad_to(k_pad)
+        seqs.append(s.T if staircase else s)
+    nan, big, tiny = SPECIAL[dtype]
+    X = torch.randn((b, m, n), generator=gen)
+    cols = torch.randperm(n, generator=gen)[:5]
+    X[:, 1::8, cols] = float("inf")
+    X[:, 2::8, cols] = float("-inf")
+    X[:, 3::8, :] = -0.0
+    X[:, 4::8, :] = big * torch.sign(X[:, 4::8, :])
+    X[:, 5::8, :] = tiny * torch.sign(X[:, 5::8, :])
+    A = X.to(dev, dtype)
+    _bits(A)[:, 0::8, cols.to(dev)] = nan - 0x10000 * (nan > 0x7FFF)
+    C = torch.stack([s.cos for s in seqs])
+    S = torch.stack([s.sin for s in seqs])
+    G = sign_grid(C, False, None)
+    starts, counts = wave_windows(C, S, G)
+    args = (A.transpose(1, 2).contiguous(),
+            *(x.transpose(1, 2).contiguous() for x in (C, S, G)),
+            starts, counts)
+    before = batched_k.LAUNCHES
+    out, planes = batched_k.rotseq_batched(*args)
+    assert batched_k.LAUNCHES == before + 1
+    want, want_planes = rotseq_batched_ref(*args)
+    assert torch.equal(_bits(out), _bits(want))
+    assert torch.equal(planes, want_planes)
+    outside = list(range(edge)) + list(range(n - edge, n))
+    assert torch.equal(_bits(out[:, outside]), _bits(args[0][:, outside]))
+    inner = out[:, edge:n - edge].float()
+    assert torch.isnan(inner).any()
+    assert ((inner != 0) & (inner.abs() < torch.finfo(dtype).tiny)).any()
+
+
 def _mxu_plain(A, C, S, n_b, k_b):
     """The accumulated application through the kernel's plain version:
     the same factors, each band by ``rotseq_mxu_ref``."""
