@@ -33,7 +33,11 @@ run with the launch counts set to 0 just before and read just after.
 Then half precision, the dtypes the reference's Pallas kernels take
 besides float32: the wavefront kernel in bfloat16 and float16, bit for
 bit to its plain version at the paper shape, the ragged signed problem
-and the small one, one launch an application; the fused kernel at the
+and the small one, and as bit views on NaN (with payloads), ±inf, -0.0,
+overflowing and subnormal-making values (rows no multiple of 8, two
+passes), one launch an application, its conversions a plane counted in
+its SASS (at most 4, none on bfloat16's ``F2F``) and its plane rate as
+the cost model prices it; the fused kernel at the
 serving bucket and its ``seq.T`` staircases in both, out (as bit views)
 and plane counts to its plain version and by value to per-request half
 ``cuda_wave``, the bucket with NaN (with payloads), ±inf, -0.0,
@@ -875,15 +879,25 @@ def half_context(ctx) -> dict:
 
 def wave_half_phase(hctx, ptxas: dict) -> dict:
     """Hold ``rotseq_wave`` in bfloat16 and float16 bit for bit against
-    its plain version at the paper shape, the ragged signed problem and
-    the small one; one launch an application; time it beside its plain
-    version and ``torch.matmul`` in that dtype; fail on a spill of any
-    instantiation.  Returns the kernels line's entries."""
+    its plain version at the paper shape, the ragged signed problem, the
+    small one and, as bit views, the special-value case; one launch an
+    application; time it beside its plain version and ``torch.matmul`` in
+    that dtype, and its plane rate as ``core/registry.py`` prices it;
+    count its conversions; fail on a spill of any instantiation.  Returns
+    the kernels line's entries."""
     import torch
+    from repro_torch.core.registry import _row_chain_seconds
     from repro_torch.kernels.limits import WAVE_KB, WAVE_WARPS
     from repro_torch.kernels.rotseq import kernel as wave_k
     from repro_torch.kernels.rotseq.ops import rot_sequence_wave
     from repro_torch.kernels.rotseq.ref import rotseq_wave_ref
+    # the plane chain the cost model prices at the paper shape (its
+    # cost_cuda_wave): a warp's share of a row's padded bands, the row
+    # groups' warps queueing past the card's resident rows
+    bands = -(-K // WAVE_KB)
+    warps = min(WAVE_WARPS, bands)
+    chain = _row_chain_seconds((N - 1) * bands * WAVE_KB / warps,
+                               M * warps, 1.0)
     rows, entries = {}, {}
     for tag, h in hctx.items():
         A, C, S = h["A"], h["C"], h["S"]
@@ -925,7 +939,10 @@ def wave_half_phase(hctx, ptxas: dict) -> dict:
         rows[tag] = dict(launches=launches, max_abs_err_vs_plain=err,
                          ms=ms, plain_ms=plain_ms, apply_ms=apply_ms,
                          matmul_ms=h["lib_ms"], bound_ms=b_ms,
-                         bound_by=b_by)
+                         bound_by=b_by,
+                         special_values=wave_special_case(tag, h["dtype"],
+                                                          A.device),
+                         paper_plane_seconds=ms * 1e-3 / chain)
         entries[f"rotseq_wave_{tag}"] = dict(
             name=f"rotseq_wave_{tag}", route="cuda",
             source="src/repro_torch/csrc/rotseq_wave.cu",
@@ -939,7 +956,8 @@ def wave_half_phase(hctx, ptxas: dict) -> dict:
               f"no {tag} instantiation of rotseq_wave in the ptxas report")
     emit(phase="rotseq_wave_half", m=M, n=N, k=K, kb=WAVE_KB,
          warps=WAVE_WARPS, dtypes=rows,
-         bitwise_vs_plain=["paper", "ragged", "small"], ptxas=regs)
+         bitwise_vs_plain=["paper", "ragged", "small", "special"],
+         ptxas=regs, sass=sass_half("rotseq_wave"))
     return entries
 
 
@@ -956,6 +974,8 @@ def same_bits(a, b) -> bool:
 # results overflow the type, one whose products land in its subnormals
 HALF_SPECIAL = {"bf16": (0x7FC1, 3.0e38, 3.0e-39),
                 "f16": (0x7E01, 6.0e4, 3.0e-5)}
+# the wave's special-value case: rows no multiple of 8, two passes
+WAVE_SPECIAL = (1021, 1000, 200)
 # planes j < SPECIAL_EDGE and j >= n - 1 - SPECIAL_EDGE are the identity
 # in every wave of the special-value case: those columns lie outside
 # every hull
@@ -1023,20 +1043,56 @@ def batched_special_case(A, seqs, tag: str) -> dict:
     return dict(bitwise_vs_plain=True, outside_hulls_kept=True, **found)
 
 
-def sass_half_batched() -> dict:
-    """Opcode counts of the fused kernel's instantiations
-    (``tools/sass_ops.py``): conversions, paired half ops and widenings
-    in all and a plane (the unrolled chunk holds ``kChunkPlanes`` = 128;
-    the whole function's count over 128 bounds what a plane issues from
-    above); fail past 4 conversions a plane or on bfloat16's ``F2F``."""
+def wave_special_case(tag: str, dtype, dev) -> dict:
+    """``rotseq_wave`` at ``WAVE_SPECIAL`` (rows no multiple of 8: warp
+    0's columns by plain loads; two passes of 12 bands) on targets with
+    NaN (with a payload), +-inf, -0.0, overflowing and subnormal-making
+    values, the edge planes the identity in every wave: kernel and plain
+    version equal as bit views."""
+    import torch
+    from repro_torch import random_sequence
+    from repro_torch.kernels.rotseq import kernel as wave_k
+    from repro_torch.kernels.rotseq.ref import rotseq_wave_ref
+    m, n, k = WAVE_SPECIAL
+    gen = torch.Generator().manual_seed(SEED + 33)
+    seq = random_sequence(n, k, generator=gen, device=dev, dtype=dtype)
+    C, S = seq.cos.clone(), seq.sin.clone()
+    for lo, hi in ((0, SPECIAL_EDGE), (n - 1 - SPECIAL_EDGE, n - 1)):
+        C[lo:hi], S[lo:hi] = 1.0, 0.0
+    X = torch.randn((1, m, n), generator=gen).to(dev, dtype)
+    A = special_targets(X, tag, SEED + 34)[0]
+    args = pack_wave(A, C, S)
+    o_k = wave_k.rotseq_wave(*args)
+    o_p = rotseq_wave_ref(*args)
+    torch.cuda.synchronize()
+    check(same_bits(o_k, o_p),
+          f"rotseq_wave {tag} special values: bits != plain version")
+    out = o_k.float()
+    found = dict(nan=int(torch.isnan(out).sum()),
+                 inf=int(torch.isinf(out).sum()),
+                 subnormal=int(((out != 0) & (out.abs() < torch.finfo(
+                     dtype).tiny)).sum()),
+                 negative_zero=int(((out == 0) & torch.signbit(out)).sum()))
+    check(found["nan"] and found["subnormal"] and found["negative_zero"],
+          f"rotseq_wave {tag} special case lacks a kind of value: {found}")
+    return dict(shape=[m, n, k], bitwise_vs_plain=True, **found)
+
+
+def sass_half(kernel: str) -> dict:
+    """Opcode counts of ``kernel``'s instantiations (``rotseq_wave``,
+    ``rotseq_batched``; ``tools/sass_ops.py``): conversions, paired half
+    ops and widenings in all and a plane (the unrolled chunk holds
+    ``kChunkPlanes`` = 128; the whole function's count over 128 bounds
+    what a plane issues from above); fail past 4 conversions a plane or
+    on bfloat16's ``F2F``."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "sass_ops", ROOT / "tools" / "sass_ops.py")
     sass = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sass)
     out = {}
-    for name, ops in sass.functions(r"rotseq_batched_kernel").items():
-        m = re.search(r"rotseq_batched_kernelILi\d+ELi\d+E" + _MANGLED_TYPE,
+    for name, ops in sass.functions(rf"{kernel}_kernel").items():
+        m = re.search(rf"{kernel}_kernelILi\d+ELi\d+E" + _MANGLED_TYPE,
                       name)
         tag = _TYPE_TAG[m.group(1)][1:] or "f32"
         conv = sass.conversions(ops)
@@ -1047,11 +1103,11 @@ def sass_half_batched() -> dict:
                         fmul=ops.get("FMUL", 0), fadd=ops.get("FADD", 0))
     for tag in HALF:
         check(out[tag]["conversions_a_plane"] <= 4.0,
-              f"rotseq_batched {tag}: {out[tag]['conversions_a_plane']} "
+              f"{kernel} {tag}: {out[tag]['conversions_a_plane']} "
               f"conversions a plane")
     check(not any(op.startswith("F2F.BF16")
                   for op in out["bf16"]["conversions"]),
-          f"rotseq_batched bf16 rounds on F2F: {out['bf16']['conversions']}")
+          f"{kernel} bf16 rounds on F2F: {out['bf16']['conversions']}")
     return out
 
 
@@ -1143,7 +1199,7 @@ def batched_half_phase(bctx, hctx, ptxas: dict) -> dict:
               f"no {tag} instantiation of rotseq_batched in the ptxas "
               f"report")
     emit(phase="rotseq_batched_half", b=B, m=MB, n=NB, k_pad=KB,
-         dtypes=rows, ptxas=regs, sass=sass_half_batched())
+         dtypes=rows, ptxas=regs, sass=sass_half("rotseq_batched"))
     return entries
 
 

@@ -14,9 +14,10 @@ shares:
   ``Name``/``Attribute`` chain resolves through it to a fully qualified
   dotted path before any rule looks at it, so ``import torch._C as C``
   followed by ``C._cuda_getDevice()`` is seen as ``torch._C...``.
-* **CUDA sources** (:class:`CudaSource`): a ``.cu`` file read as text,
-  its comments blanked with every line kept in place, for the rules that
-  check the kernels' sources by a token scan (no C++ parsing).
+* **CUDA sources** (:class:`CudaSource`): a ``.cu`` file or a ``.cuh``
+  header read as text, its comments blanked with every line kept in
+  place, for the rules that check the kernels' sources by a token scan
+  (no C++ parsing).
 * **suppression** (``# repro-torch-lint: disable=RA301`` on the
   offending line, or ``disable-next=`` on the line above; ``//`` in a
   ``.cu`` file) and a checked-in **baseline** file, so a legacy
@@ -58,7 +59,7 @@ _CACHE_ENV = "REPRO_TORCH_LINT_CACHE"
 _CACHE_FORMAT = 1
 
 PYTHON, CUDA = "python", "cuda"
-_SUFFIXES = {".py": PYTHON, ".cu": CUDA}
+_SUFFIXES = {".py": PYTHON, ".cu": CUDA, ".cuh": CUDA}
 
 
 # --------------------------------------------------------------------------
@@ -124,7 +125,8 @@ def _module_name(logical: str) -> str:
     """Dotted module name of a logical repo path.
 
     ``src/repro_torch/core/api.py`` -> ``repro_torch.core.api``;
-    ``src/repro_torch/csrc/rope.cu`` -> ``repro_torch.csrc.rope``;
+    ``src/repro_torch/csrc/rope.cu`` -> ``repro_torch.csrc.rope``
+    (a ``.cuh`` header likewise);
     ``chip_smoke.py`` -> ``chip_smoke``; ``tools/x.py`` -> ``tools.x``;
     ``tests/test_x.py`` -> ``tests.test_x`` (never a ``repro_torch.*``
     name, so library-scoped rules skip them automatically).

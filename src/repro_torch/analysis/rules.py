@@ -964,20 +964,21 @@ _FMA_RE = re.compile(r"\b(fmaf|fma|__fmaf_\w+|__fma_rn|__hfma2?)\s*\(")
 # the half plane form's roundings to the storage type: ``St::r`` (to the
 # half type and back to float32) around each product and the difference,
 # ``St::h`` (to the half type) around the two results
-# (csrc/rotseq_wave.cu, csrc/rotseq_batched.cu ``Store<T>``)
+# (``Store<T>``, csrc/half_store.cuh)
 _ROUND_RE = re.compile(r"\bSt::([rh])\s*\(")
 _ROUNDED_RESULT_RE = re.compile(r"\bSt::h\s*\(\s*$")
-# the paired form (csrc/rotseq_batched.cu): ``const P2 v = St::p2(a, b);``
+# the paired form (csrc/half_store.cuh): ``const P2 v = St::p2(a, b);``
 # rounds ``a`` and ``b`` (the same product of two planes) to the half
 # type in one packed conversion, ``v.x``/``v.y`` being the two; a native
 # paired op ``const P2 v = __hadd2(a, b);`` (``__hsub2``, ``__hmul2``)
 # computes ``__fadd_rn(a.x, b.x)`` and ``__fadd_rn(a.y, b.y)`` rounded to
-# the half type; ``St::bits(a, b)`` and ``make_float2(a, b)`` pair ``a``
-# and ``b`` unrounded
+# the half type; ``St::bits(a, b)``, ``St::pair(a, b)`` and
+# ``make_float2(a, b)`` pair ``a`` and ``b`` unrounded (a product of two
+# such pairs by ``__hmul2`` is then a rounded product)
 _PAIR_RE = re.compile(r"\bSt::p2\s*\(")
 _PAIR_DEF_RE = re.compile(
-    r"\b(\w+)\s*=\s*(St::p2|St::bits|make_float2|__hadd2|__hsub2|__hmul2)"
-    r"\s*\(")
+    r"\b(\w+)\s*=\s*(St::p2|St::bits|St::pair|make_float2|__hadd2|__hsub2"
+    r"|__hmul2)\s*\(")
 _NATIVE_PAIR = {"__hadd2": "__fadd_rn", "__hsub2": "__fsub_rn",
                 "__hmul2": "__fmul_rn"}
 _PAIR_LEAF_RE = re.compile(r"^(\w+)\.([xy])$")
@@ -1123,7 +1124,8 @@ class RA303CudaPlaneForm(Rule):
     """The CUDA kernels' plane update is not the uncontracted form.
 
     Port-only.  ``csrc/rotseq_wave.cu`` and ``csrc/rotseq_batched.cu``
-    are held bit for bit to their plain versions (``chip_smoke.py``),
+    (with the header they share, ``csrc/half_store.cuh``) are held bit
+    for bit to their plain versions (``chip_smoke.py``),
     which apply :func:`repro_torch.core.rotations.plane_update`:
     ``x' = c*x + s*y`` and ``y' = g*(s*x - c*y)``, every product and sum
     rounded on its own.  The kernels spell it in
@@ -1132,12 +1134,12 @@ class RA303CudaPlaneForm(Rule):
     that nothing else is contracted either.  Incident: one fused
     multiply-add in a plane flips the last bit of a rotation, and the
     bit-for-bit checks then fail only on the card, after a build.  The
-    rule holds, by a token scan of the two sources (comments stripped):
+    rule holds, by a token scan of the three files (comments stripped):
     no ``fmaf``, ``fma``, ``__fmaf_*`` or ``__fma_rn``; every
     ``__fadd_rn(__fmul_rn(c, x), __fmul_rn(s, y))`` is paired with a
     ``__fmul_rn(g, __fsub_rn(__fmul_rn(s, x), __fmul_rn(c, y)))`` over
-    the same four operands and the other way round; each source spells
-    at least one such pair.  And ``_build.FLAGS`` holds
+    the same four operands and the other way round; each file spells at
+    least one such pair.  And ``_build.FLAGS`` holds
     ``--fmad=false``.  The half plane form (bfloat16 and float16, as
     eager PyTorch computes it on half tensors) rounds each product and
     the difference to the half type, ``St::r(...)``, and each result,
@@ -1146,16 +1148,19 @@ class RA303CudaPlaneForm(Rule):
     St::r(__fsub_rn(St::r(__fmul_rn(s, x)), St::r(__fmul_rn(c, y))))))``;
     a product, difference or result of that form left unrounded is
     reported too.  The paired spelling of the same form
-    (``rotseq_batched.cu``) rounds the same operation of two planes
+    (``half_store.cuh``'s ``plane_pair`` and ``plane_pair_native``,
+    which the two kernels call in half precision) rounds the same
+    operation of two planes
     together: the products in one packed conversion, ``const P2 v =
     St::p2(a0, a1);``, whose ``v.x``/``v.y`` stand for ``St::r`` of the
     argument they name (the nearest definition before them), and the
     sum, the difference and g's product of two half values as one native
     paired op, ``const P2 v = __hadd2(a, b);`` (``__hsub2``,
     ``__hmul2``), read as ``__fadd_rn(a.x, b.x)`` and ``__fadd_rn(a.y,
-    b.y)`` each rounded to the half type; ``St::bits`` and
-    ``make_float2`` pair values unrounded.  The same checks hold on those
-    lanes, and ``__hfma2``/``__hfma`` are fused multiply-adds too.
+    b.y)`` each rounded to the half type; ``St::bits``, ``St::pair`` and
+    ``make_float2`` pair values unrounded (``plane_pair_native`` takes
+    its products as ``__hmul2`` of such pairs).  The same checks hold on
+    those lanes, and ``__hfma2``/``__hfma`` are fused multiply-adds too.
     ``rotseq_mxu.cu`` and ``rotseq_mxu_half.cu`` are out
     of scope: they are the GEMM tiers, held to a stated tolerance, the
     first built on ``fmaf`` on purpose; so is ``rope.cu``, whose
@@ -1168,7 +1173,8 @@ class RA303CudaPlaneForm(Rule):
     kinds = (PYTHON, CUDA)
 
     SOURCES = {"repro_torch.csrc.rotseq_wave",
-               "repro_torch.csrc.rotseq_batched"}
+               "repro_torch.csrc.rotseq_batched",
+               "repro_torch.csrc.half_store"}
     BUILD = "repro_torch.kernels._build"
     FLAG = "--fmad=false"
 

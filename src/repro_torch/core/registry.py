@@ -25,9 +25,10 @@ and ``seq.T`` staircases is skipped, not multiplied through.
 
 On the card the two row-parallel kernels (``cuda_wave``, ``cuda_batched``)
 are far from the flop roofline, so there each is also priced by its
-plane rate measured on an H100 (:data:`_WAVE_PLANE_SECONDS`,
-:data:`_BATCHED_PLANE_SECONDS`, the latter by dtype, since a half plane
-rounds seven times): one lane walks a row's planes in order
+plane rate measured on an H100, by dtype (:data:`_WAVE_PLANE_SECONDS`,
+:data:`_BATCHED_PLANE_SECONDS`: a half plane rounds seven times, and the
+two kernels' half bodies round them differently fast): one lane walks a
+row's planes in order
 (``cuda_wave`` splits them over the warps of its band pipeline), so a
 launch takes the planes of one chain times the time of one, for as many
 rows as the card runs at once (:data:`repro_torch.hw.RESIDENT_ROWS`).
@@ -123,25 +124,30 @@ _MXU_BAND_HOST_SECONDS = 0.35e-3
 # one 1024 x 1024 target and at the 16-request serving bucket; the
 # queueing past the card's resident rows and the per-request loop of
 # wavefront launches are extrapolated.
-# In bfloat16 and float16 cuda_batched's plane rounds each product and
-# sum to the half type (csrc/rotseq_batched.cu): its rates are the same
+# In bfloat16 and float16 each plane rounds each product and sum to the
+# half type (csrc/half_store.cuh).  cuda_batched's half rates are the same
 # plan.apply at the paper shape in each dtype, 9.425 ms in bfloat16 and
 # 14.345 ms in float16, measured by chip_smoke.py's rotseq_batched_half
-# line (paper_apply_ms) on an NVIDIA H100 80GB HBM3 at 700.00 W.  They
+# line (paper_apply_ms) on an NVIDIA H100 80GB HBM3 at 700.00 W; they
 # price cuda_mxu's half factor builds too (one half rotseq_batched launch
-# a band); the wave's rate is float32's in every dtype.
-_WAVE_PLANE_SECONDS = 1.66e-3 / (3839 * 192 / 12
-                                 * (3840 * 12 / RESIDENT_ROWS["cuda"]))
+# a band).  cuda_wave's are its one launch at that shape, 1.680 ms in
+# bfloat16 and 2.027 ms in float16 (tools/wave_half_ab.py, the same card
+# and limit; chip_smoke.py's rotseq_wave_half line prints the rate its
+# own launch implies, paper_plane_seconds).
+_WAVE_CHAIN = 3839 * 192 / 12 * (3840 * 12 / RESIDENT_ROWS["cuda"])
+_WAVE_PLANE_SECONDS = {"float32": 1.66e-3 / _WAVE_CHAIN,
+                       "bfloat16": 1.680e-3 / _WAVE_CHAIN,
+                       "float16": 2.027e-3 / _WAVE_CHAIN}
 _BATCHED_PLANE_SECONDS = {"float32": 6.62e-3 / (3839 * 180),
                           "bfloat16": 9.425e-3 / (3839 * 180),
                           "float16": 14.345e-3 / (3839 * 180)}
 
 
-def _batched_plane_seconds(dtype: str) -> float:
-    """cuda_batched's measured plane rate for targets of ``dtype`` (the
-    float32 one for a dtype it was not measured in)."""
-    return _BATCHED_PLANE_SECONDS.get(dtype,
-                                      _BATCHED_PLANE_SECONDS["float32"])
+def _plane_seconds(rates: dict, dtype: str) -> float:
+    """A row-parallel kernel's measured plane rate (``rates``, by dtype)
+    for targets of ``dtype``: the float32 one for a dtype it was not
+    measured in."""
+    return rates.get(dtype, rates["float32"])
 
 
 # --------------------------------------------------------------------------
@@ -522,7 +528,8 @@ def cost_cuda_wave(p: Problem, plan: Plan) -> float:
         warps = max(1, min(WAVE_WARPS, bands))
         planes = max(0, p.n - 1) * bands * WAVE_KB
         secs += p.sequences * _row_chain_seconds(
-            planes / warps, rows * warps, _WAVE_PLANE_SECONDS)
+            planes / warps, rows * warps,
+            _plane_seconds(_WAVE_PLANE_SECONDS, p.dtype))
     return max(secs, p.sequences * _LATENCY_FLOOR) + comm_s
 
 
@@ -572,8 +579,8 @@ def cost_cuda_mxu(p: Problem, plan: Plan) -> float:
     else:
         sweep = (_mxu_sweep_seconds(p, n_b, k_b)
                  + c["stream_bytes"] / D / hw.hbm_bw)
-    factors = (bands * _row_chain_seconds(n_b * k_b, tiles * w,
-                                          _batched_plane_seconds(p.dtype))
+    rate = _plane_seconds(_BATCHED_PLANE_SECONDS, p.dtype)
+    factors = (bands * _row_chain_seconds(n_b * k_b, tiles * w, rate)
                + c["setup_bytes"] / p.sequences / hw.hbm_bw)
     device = sweep + p.sequences * factors + _MXU_BAND_HOST_SECONDS
     host = p.sequences * bands * _MXU_BAND_HOST_SECONDS
@@ -607,8 +614,9 @@ def cost_cuda_batched(p: Problem, plan: Plan) -> float:
         (c["setup_bytes"] + c["stream_bytes"] / D) / hw.hbm_bw)
     secs *= _off_device_factor(p)
     if p.platform == "cuda":
+        rate = _plane_seconds(_BATCHED_PLANE_SECONDS, p.dtype)
         secs = max(secs, _row_chain_seconds(p.planes_live, p.m_total / D,
-                                            _batched_plane_seconds(p.dtype)))
+                                            rate))
     return max(secs, _LATENCY_FLOOR) + comm_s
 
 

@@ -83,46 +83,22 @@
 // targets, results and the staged columns are in the half type T, and c,
 // s, g are rounded to T by the wrapper.  A plane computes each product
 // and sum in float32 and rounds it to T before the next one uses it, as
-// eager PyTorch does with half tensors: 7 roundings a plane (4 products,
-// the difference and the two results), so the half instantiations equal
-// the plain version bit for bit too.  What bounds the half path is those
-// roundings: a conversion (F2F or F2FP) issues at 16 lanes a clock an SM,
-// ~8 cycles of the bucket's one warp a scheduler, against ~10 cycles for
-// a whole float32 plane; rounded one at a time, 7 of them took ~56.  This
-// body issues 2 a plane (~16 cycles), none on F2F; float16 pays besides
-// for HADD2.F32 widenings (at the bucket, on an H100: 0.85 ms bfloat16,
-// 1.29 ms float16, 0.63 ms float32).  It:
-//   - keeps the register window in float32, every value in it exactly
-//     representable in T (it was rounded when it was made): a column is
-//     widened once when it enters from the staged tile (Store<T>::w) and
-//     narrowed once, exactly, when it is stored (Store<T>::n); the pair
-//     keeps every bit, a NaN's payload too, so values no live plane
-//     touches leave as they came;
-//   - rounds in pairs: planes i and i+1 of a step are independent, so
-//     each of their 7 roundings is one paired instruction for the two.
-//     The 4 products start in float32 (the window's values times c or
-//     s): one packed conversion each (Store<T>::p2, cvt.rn.bf16x2.f32 /
-//     cvt.rn.f16x2.f32, one F2FP, 2 a plane).  The sum, the difference
-//     and g's product take two values already in T: one native paired
-//     op each (__hadd2, __hsub2, __hmul2), which rounds the exact result
-//     to T once.  That equals eager PyTorch's float32 op then rounding:
-//     a product of two T values is exact in float32 (bfloat16's 16 bits,
-//     float16's 22; a bfloat16 product finer than float32's last place
-//     lies below half bfloat16's least subnormal, where both give 0),
-//     and float32's 24 bits are at least 2p + 2 for T's p (8, 11), so a
-//     sum or difference rounded twice equals it rounded once (Figueroa,
-//     "When is double rounding innocuous?", 1995).  Only the two results
-//     are widened into the window (bfloat16: a shift and a mask;
-//     float16: HADD2.F32), and g is staged as its raw bits and paired
-//     by a byte permute;
-//   - stages the chunk's panel values (and its columns, where they cannot
-//     move in 16-byte pieces of eight rows) into registers one chunk ahead
-//     and writes them to shared memory after the current chunk's planes,
-//     since cp.async moves 4 bytes at least: no load on the plane path
-//     waits on global memory.
-// A half plane is then ~16 issued instructions (4 float32 products, 2
-// packed conversions, 1.5 paired half ops, 2 widenings, 2 selects, the
-// panel load and compare), none on F2F.
+// eager PyTorch does with half tensors, so the half instantiations equal
+// the plain version bit for bit too.  Rounded one at a time, those 7
+// roundings set a half plane's pace (a conversion, F2F or F2FP, issues at
+// 16 lanes a clock an SM: ~56 cycles a plane against ~10 for a whole
+// float32 one).  half_store.cuh, shared with rotseq_wave.cu, sets out the
+// design that takes a plane to 2 (~16 cycles), none on F2F: a float32
+// register window of half-exact values and planes rounded in pairs;
+// float16 pays besides for HADD2.F32 widenings (at the bucket, on an
+// H100: 0.85 ms bfloat16, 1.29 ms float16, 0.63 ms float32).  Here the
+// chunk's panel values (and its columns, where they cannot move in
+// 16-byte pieces of eight rows) are staged into registers one chunk ahead
+// and written to shared memory after the current chunk's planes, since
+// cp.async moves 4 bytes at least: no load on the plane path waits on
+// global memory.  A half plane is then ~16 issued instructions (4 float32
+// products, 2 packed conversions, 1.5 paired half ops, 2 widenings, 2
+// selects, the panel load and compare), none on F2F.
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -131,88 +107,9 @@
 
 #include <type_traits>
 
+#include "half_store.cuh"
+
 namespace {
-
-// The storage type T of the targets and its conversions.  f widens a
-// panel value to float32 (exact, as eager PyTorch widens it); w widens a
-// column into the window and n narrows a window value back (exact for a
-// T-exact value, and the two keep every bit, a NaN's payload too); all
-// three are the identity for float.  In half precision P2 holds the same
-// value of two planes: p2 rounds two float32 values to T to nearest even
-// in one packed conversion (a low, b high), w2 widens a pair back, and
-// bits pairs two values staged as raw T bits (exact).
-template <typename T>
-struct Store;
-
-template <>
-struct Store<float> {
-  static __device__ __forceinline__ float f(float v) { return v; }
-  static __device__ __forceinline__ float w(float v) { return v; }
-  static __device__ __forceinline__ float n(float v) { return v; }
-};
-
-template <>
-struct Store<__nv_bfloat16> {
-  using P2 = __nv_bfloat162;
-  static __device__ __forceinline__ float f(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ float w(__nv_bfloat16 v) {
-    return __bfloat162float(v);                 // the bits, shifted up
-  }
-  static __device__ __forceinline__ __nv_bfloat16 n(float v) {
-    return __ushort_as_bfloat16(
-        static_cast<unsigned short>(__float_as_uint(v) >> 16));
-  }
-  static __device__ __forceinline__ P2 p2(float a, float b) {
-    return __floats2bfloat162_rn(a, b);         // cvt.rn.bf16x2.f32
-  }
-  static __device__ __forceinline__ float2 w2(P2 p) {
-    const unsigned u = *reinterpret_cast<const unsigned*>(&p);
-    return make_float2(__uint_as_float(u << 16),
-                       __uint_as_float(u & 0xFFFF0000u));
-  }
-  static __device__ __forceinline__ P2 bits(float a, float b) {
-    const unsigned u =
-        __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x5410);
-    return *reinterpret_cast<const P2*>(&u);
-  }
-};
-
-template <>
-struct Store<__half> {
-  using P2 = __half2;
-  static __device__ __forceinline__ float f(__half v) {
-    return __half2float(v);
-  }
-  static __device__ __forceinline__ float w(__half v) {
-    const unsigned h = __half_as_ushort(v);
-    if ((h & 0x7FFFu) > 0x7C00u) {              // NaN: keep sign and payload
-      return __uint_as_float(((h & 0x8000u) << 16) | 0x7F800000u |
-                             ((h & 0x3FFu) << 13));
-    }
-    return __half2float(v);
-  }
-  static __device__ __forceinline__ __half n(float v) {
-    const unsigned u = __float_as_uint(v);
-    if ((u & 0x7FFFFFFFu) > 0x7F800000u) {      // NaN: w's inverse
-      return __ushort_as_half(static_cast<unsigned short>(
-          ((u >> 16) & 0x8000u) | 0x7C00u | ((u >> 13) & 0x3FFu)));
-    }
-    return __float2half_rn(v);                  // exact: v is T-exact
-  }
-  static __device__ __forceinline__ P2 p2(float a, float b) {
-    return __floats2half2_rn(a, b);             // cvt.rn.f16x2.f32
-  }
-  static __device__ __forceinline__ float2 w2(P2 p) {
-    return __half22float2(p);
-  }
-  static __device__ __forceinline__ P2 bits(float a, float b) {
-    const unsigned u =
-        __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x5410);
-    return *reinterpret_cast<const P2*>(&u);
-  }
-};
 
 // waves a band, and threads (rows) a block: repro_torch.kernels.limits.
 // BATCHED_M_BLK must equal kThreads
@@ -509,30 +406,18 @@ rotseq_batched_kernel(const T* at, const T* __restrict__ cw,
             y = live ? yn : y;
           }
         } else {
-          // planes i and i+1 of the step touch disjoint columns: each
-          // product, the difference and both results of the two are
-          // rounded to T together, in the order of plane_update; the
-          // products in one packed conversion, the sum, the difference
-          // and g's product as one paired half op of two T values
+          // planes i and i+1 of the step touch disjoint columns: rounded
+          // together (half_store.cuh), a dead one's results dropped
 #pragma unroll
           for (int i = 0; i < KB; i += 2) {
-            using P2 = typename St::P2;
             const float4 q0 = pb[i][u];         // plane (t - 2i, b0 + i)
             const float4 q1 = pb[i + 1][u];     // plane (t - 2i - 2, ...)
             float& x0 = win[(u - 2 * i + 2 * W) % W];
             float& y0 = win[(u - 2 * i + 1 + 2 * W) % W];
             float& x1 = win[(u - 2 * i - 2 + 2 * W) % W];
             float& y1 = win[(u - 2 * i - 1 + 2 * W) % W];
-            const P2 cx = St::p2(__fmul_rn(q0.x, x0), __fmul_rn(q1.x, x1));
-            const P2 sy = St::p2(__fmul_rn(q0.y, y0), __fmul_rn(q1.y, y1));
-            const P2 sx = St::p2(__fmul_rn(q0.y, x0), __fmul_rn(q1.y, x1));
-            const P2 cy = St::p2(__fmul_rn(q0.x, y0), __fmul_rn(q1.x, y1));
-            const P2 g = St::bits(q0.z, q1.z);
-            const P2 xs = __hadd2(cx, sy);
-            const P2 d = __hsub2(sx, cy);
-            const P2 ys = __hmul2(g, d);
-            const float2 xn = St::w2(xs);
-            const float2 yn = St::w2(ys);
+            float2 xn, yn;
+            plane_pair<T>(q0, q1, x0, y0, x1, y1, xn, yn);
             x0 = q0.w != 0.f ? xn.x : x0;
             y0 = q0.w != 0.f ? yn.x : y0;
             x1 = q1.w != 0.f ? xn.y : x1;

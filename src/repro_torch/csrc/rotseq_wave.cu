@@ -74,14 +74,27 @@
 // into an FMA).
 //
 // Half precision (bfloat16, float16), as the reference's body takes them:
-// the operand, its result, the ring and the register window are in the
-// half type T, and c, s, g are rounded to T by the wrapper.  A plane
-// computes each product and sum in float32 and rounds it to T before the
-// next one uses it (Store<T>::r), which is what eager PyTorch does with
-// half tensors, so the half instantiations equal the plain version bit for
-// bit too.  cp.async moves 4 bytes at least, so in half precision the
-// panel values and warp 0's columns are staged by plain loads (the panel
-// values widened to float32 in the float4, exactly).
+// the operand, its result and the rings are in the half type T, and c, s,
+// g are rounded to T by the wrapper.  A plane computes each product and
+// sum in float32 and rounds it to T before the next one uses it, which is
+// what eager PyTorch does with half tensors, so the half instantiations
+// equal the plain version bit for bit too.  Rounded one at a time, those
+// 7 roundings set the pace (bfloat16's on F2F: 6.35 ms at the paper shape
+// on an H100, against 1.65 in float32).  The half body takes the design
+// half_store.cuh sets out for both band kernels: the register window is
+// float32, every value in it T-exact (a column widened once as it comes
+// in from its ring, narrowed once, exactly, as it is handed on or
+// stored), and planes i and i+1 of a step are rounded together, every
+// product, the sum, the difference and g's product as one native paired
+// half op for the two (plane_pair_native: no conversion a plane in
+// bfloat16, one in float16; 1.68 and 2.03 ms at the paper shape).  Its
+// staging is off the plane path: cp.async moves 4 bytes at least, so a
+// warp reads its next chunk's panel values into registers before the
+// barrier and writes them to shared memory, as raw T bits, after its
+// chunk's planes, and warp 0 stages its columns with cp.async in 16-byte
+// pieces of eight rows when every column of the operand starts 16-byte
+// aligned (by plain loads otherwise).  The rings stay in T: the shared
+// memory is the same as before (kernels/limits.py::wave_smem_bytes).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_pipeline_primitives.h>
@@ -89,43 +102,9 @@
 
 #include <type_traits>
 
+#include "half_store.cuh"
+
 namespace {
-
-// The storage type T of the operand and its conversions: f widens to
-// float32 (exact), h rounds a float32 to T (to nearest even), r is the
-// value rounded to T and widened again.  All three are the identity for
-// float.
-template <typename T>
-struct Store;
-
-template <>
-struct Store<float> {
-  static __device__ __forceinline__ float f(float v) { return v; }
-  static __device__ __forceinline__ float h(float v) { return v; }
-  static __device__ __forceinline__ float r(float v) { return v; }
-};
-
-template <>
-struct Store<__nv_bfloat16> {
-  static __device__ __forceinline__ float f(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 h(float v) {
-    return __float2bfloat16_rn(v);
-  }
-  static __device__ __forceinline__ float r(float v) { return f(h(v)); }
-};
-
-template <>
-struct Store<__half> {
-  static __device__ __forceinline__ float f(__half v) {
-    return __half2float(v);
-  }
-  static __device__ __forceinline__ __half h(float v) {
-    return __float2half_rn(v);
-  }
-  static __device__ __forceinline__ float r(float v) { return f(h(v)); }
-};
 
 // waves a band and warps a block: repro_torch.kernels.limits WAVE_KB and
 // WAVE_WARPS must equal kBand and kWarps.  A warp alone applies a plane
@@ -160,8 +139,10 @@ rotseq_wave_kernel(const T* at, const T* __restrict__ cw,
   constexpr int L = (W - 1 + CS - 1) / CS + 1;  // lag between warps, chunks
   constexpr int R = kRing;
   constexpr int Q = KB * CS / 32;               // panel elements a lane
+  constexpr int V = 16 / (int)sizeof(T);        // rows a 16-byte piece
   static_assert(W % CS == 0 && KB * CS % 32 == 0, "chunk shape");
   static_assert((R & (R - 1)) == 0, "ring size a power of two");
+  static_assert(kF32 || KB % 2 == 0, "half planes rounded in pairs");
   // a hand-off slot is written again only after its take-in, and warp 0's
   // staged columns outlive their chunk
   static_assert((R + W - 1) / CS >= L + 1 && R >= 3 * CS, "ring size");
@@ -185,8 +166,13 @@ rotseq_wave_kernel(const T* at, const T* __restrict__ cw,
   const size_t ld = (size_t)M;                  // column stride of a row
   T(*rin)[32] = ring[w];
   T(*rout)[32] = ring[w + 1 < NW ? w + 1 : 0];
-  const T zero = St::h(0.f);
-  T win[W];
+  // half precision: warp 0's columns move by cp.async in 16-byte pieces
+  // of V rows when every column of the operand starts 16-byte aligned
+  const bool vec = !kF32 && M % V == 0 &&
+                   ((size_t)at | (size_t)out) % 16 == 0;
+  float win[W];                                 // T-exact values
+  // half precision: the next chunk's panel values, between fetch and put
+  T hv[Q][3];
 
   for (int q0 = 0; q0 < bands; q0 += NW) {      // passes
     const int last = min(NW, bands - q0) - 1;   // the pass's last warp
@@ -208,12 +194,10 @@ rotseq_wave_kernel(const T* at, const T* __restrict__ cw,
       pv[e4] = p < K;
       off[e4] = pv[e4] ? p * J + d[e4] : 0;
     }
-    const int S = NC + L * last;                // iterations of the pass
-    for (int s = -1; s < S; ++s) {
-      const int kw = s - L * w;                 // this warp's chunk
-      const bool stage = busy && kw + 1 >= 0 && kw + 1 < NC;
-      if (stage) {
-        const int kn = kw + 1;
+    // half precision: write the panel values fetched for chunk kn to its
+    // slot, as raw T bits (the identity outside the grid)
+    auto put = [&](int kn) {
+      if constexpr (!kF32) {
         const int tc = kn * CS;
         float4(*pb)[CS] = panel[w][kn % 3];
 #pragma unroll
@@ -222,7 +206,37 @@ rotseq_wave_kernel(const T* at, const T* __restrict__ cw,
           float4* dp = &pb[e / CS][e % CS];
           const int j = tc + d[e4];
           if (pv[e4] && j >= 0 && j < J) {
-            if constexpr (kF32) {
+            const unsigned gb =
+                *reinterpret_cast<const unsigned short*>(&hv[e4][2]);
+            const unsigned cb =
+                *reinterpret_cast<const unsigned short*>(&hv[e4][0]);
+            const unsigned sb =
+                *reinterpret_cast<const unsigned short*>(&hv[e4][1]);
+            *dp = make_float4(__uint_as_float(cb), __uint_as_float(sb),
+                              __uint_as_float(gb), 0.f);
+          } else {
+            const unsigned gb = (j < -wave[e4] ? 0u : 0x8000u) | St::kOne;
+            *dp = make_float4(__uint_as_float(St::kOne), 0.f,
+                              __uint_as_float(gb), 0.f);
+          }
+        }
+      }
+    };
+    const int S = NC + L * last;                // iterations of the pass
+    for (int s = -1; s < S; ++s) {
+      const int kw = s - L * w;                 // this warp's chunk
+      const bool stage = busy && kw + 1 >= 0 && kw + 1 < NC;
+      if (stage) {
+        const int kn = kw + 1;
+        const int tc = kn * CS;
+        if constexpr (kF32) {
+          float4(*pb)[CS] = panel[w][kn % 3];
+#pragma unroll
+          for (int e4 = 0; e4 < Q; ++e4) {
+            const int e = lane + 32 * e4;
+            float4* dp = &pb[e / CS][e % CS];
+            const int j = tc + d[e4];
+            if (pv[e4] && j >= 0 && j < J) {
               __pipeline_memcpy_async(&dp->x, cw + off[e4] + tc,
                                       sizeof(float));
               __pipeline_memcpy_async(&dp->y, sw + off[e4] + tc,
@@ -230,15 +244,37 @@ rotseq_wave_kernel(const T* at, const T* __restrict__ cw,
               __pipeline_memcpy_async(&dp->z, gw + off[e4] + tc,
                                       sizeof(float));
             } else {
-              const int o = off[e4] + tc;
-              *dp = make_float4(St::f(cw[o]), St::f(sw[o]), St::f(gw[o]),
-                                0.f);
+              *dp = make_float4(1.f, 0.f, j < -wave[e4] ? 1.f : -1.f, 0.f);
             }
-          } else {
-            *dp = make_float4(1.f, 0.f, j < -wave[e4] ? 1.f : -1.f, 0.f);
+          }
+        } else {                                // put writes them
+#pragma unroll
+          for (int e4 = 0; e4 < Q; ++e4) {
+            const int j = tc + d[e4];
+            if (pv[e4] && j >= 0 && j < J) {
+              const int o = off[e4] + tc;
+              hv[e4][0] = cw[o];
+              hv[e4][1] = sw[o];
+              hv[e4][2] = gw[o];
+            }
+          }
+          if (w == 0 && vec) {
+            // columns c0 .. c1 (c0 = 0 ahead of the first chunk), 32 / V
+            // pieces each
+            const int c0 = kn == 0 ? 0 : tc + 1;
+            const int c1 = min(tc + CS, n - 1);
+            const T* blk = from - lane;         // the block's first row
+            for (int e = lane; e < (c1 - c0 + 1) * (32 / V); e += 32) {
+              const int col = c0 + e / (32 / V);
+              const int r = e % (32 / V) * V;
+              if (row - lane + r < M) {
+                __pipeline_memcpy_async(&rin[col & (R - 1)][r],
+                                        blk + col * ld + r, 16);
+              }
+            }
           }
         }
-        if (w == 0 && live_row) {
+        if (w == 0 && live_row && !vec) {
           // columns tc+1 .. tc+CS (and column 0 ahead of the first chunk)
           for (int col = kn == 0 ? 0 : tc + 1; col <= tc + CS && col < n;
                ++col) {
@@ -256,52 +292,75 @@ rotseq_wave_kernel(const T* at, const T* __restrict__ cw,
         __pipeline_wait_prior(0);
       }
       __syncthreads();
-      if (!busy || kw < 0 || kw >= NC) continue;
+      if (!busy || kw < 0 || kw >= NC) {
+        if constexpr (!kF32) {
+          if (stage) put(kw + 1);
+        }
+        continue;
+      }
 
       const int tc = kw * CS;
       const float4(*pb)[CS] = panel[w][kw % 3];
       if (kw == 0) {
         // before step 0 the window holds columns -W+2 .. 0
 #pragma unroll
-        for (int q = 0; q < W - 1; ++q) win[(q + 2) % W] = zero;
-        win[0] = rin[0][lane];
+        for (int q = 0; q < W - 1; ++q) win[(q + 2) % W] = 0.f;
+        win[0] = St::w(rin[0][lane]);
       }
       T* sp = dst + (long long)(tc - W + 2) * M;  // column t-W+2 out
 #pragma unroll
       for (int u = 0; u < CS; ++u, sp += ld) {
         const int t = tc + u;
         const T v = rin[(t + 1) & (R - 1)][lane];
-        win[(u + 1) % W] = t + 1 < n ? v : zero;  // column t+1
+        // take column t+1 in (float32 spells it without St::w: that
+        // identity call alone changes the float32 instantiation's SASS)
+        if constexpr (kF32) {
+          win[(u + 1) % W] = t + 1 < n ? v : 0.f;
 #pragma unroll
-        for (int i = 0; i < KB; ++i) {
-          const float4 c = pb[i][u];            // plane (t - 2i, band wave i)
-          T& x = win[(u - 2 * i + 2 * W) % W];
-          T& y = win[(u - 2 * i + 1 + 2 * W) % W];
-          if constexpr (kF32) {
+          for (int i = 0; i < KB; ++i) {
+            const float4 c = pb[i][u];          // plane (t - 2i, band wave i)
+            float& x = win[(u - 2 * i + 2 * W) % W];
+            float& y = win[(u - 2 * i + 1 + 2 * W) % W];
             const float xn = __fadd_rn(__fmul_rn(c.x, x), __fmul_rn(c.y, y));
             const float yn =
                 __fmul_rn(c.z, __fsub_rn(__fmul_rn(c.y, x), __fmul_rn(c.x, y)));
             x = xn;
             y = yn;
-          } else {  // each product and sum rounded to T
-            const float xf = St::f(x);
-            const float yf = St::f(y);
-            x = St::h(__fadd_rn(St::r(__fmul_rn(c.x, xf)),
-                                St::r(__fmul_rn(c.y, yf))));
-            y = St::h(__fmul_rn(c.z, St::r(__fsub_rn(
-                St::r(__fmul_rn(c.y, xf)), St::r(__fmul_rn(c.x, yf))))));
+          }
+        } else {
+          win[(u + 1) % W] = t + 1 < n ? St::w(v) : 0.f;
+          // planes i and i+1 of the step touch disjoint columns: rounded
+          // together, the products too as native paired ops
+          // (half_store.cuh)
+#pragma unroll
+          for (int i = 0; i < KB; i += 2) {
+            const float4 q0 = pb[i][u];         // plane (t - 2i, band wave i)
+            const float4 q1 = pb[i + 1][u];     // plane (t - 2i - 2, ...)
+            float& x0 = win[(u - 2 * i + 2 * W) % W];
+            float& y0 = win[(u - 2 * i + 1 + 2 * W) % W];
+            float& x1 = win[(u - 2 * i - 2 + 2 * W) % W];
+            float& y1 = win[(u - 2 * i - 1 + 2 * W) % W];
+            float2 xn, yn;
+            plane_pair_native<T>(q0, q1, x0, y0, x1, y1, xn, yn);
+            x0 = xn.x;
+            y0 = yn.x;
+            x1 = xn.y;
+            y1 = yn.y;
           }
         }
         const int co = t - W + 2;               // finished at this step
-        const T f = win[(u + 2) % W];
+        const float f = win[(u + 2) % W];
         if (to_out) {
-          if (live_row && co >= 0 && co < n) *sp = f;
+          if (live_row && co >= 0 && co < n) *sp = St::n(f);
         } else if (co >= 0) {
-          rout[co & (R - 1)][lane] = f;
+          rout[co & (R - 1)][lane] = St::n(f);
         }
       }
+      if constexpr (!kF32) {
+        if (stage) put(kw + 1);
+      }
       if (CS < W) {                             // slots relative to tc + CS
-        T next[W];
+        float next[W];
 #pragma unroll
         for (int q = 0; q < W; ++q) next[q] = win[(q + CS) % W];
 #pragma unroll

@@ -3,8 +3,9 @@
 Every source under ``repro_torch/csrc/`` goes into one shared library
 with a plain C interface, compiled for ``sm_90a`` by one ``nvcc`` call at
 first use into ``build/kernels/`` at the repository root.  The library
-is named by a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged tree reuses what it built.  ``nvcc``'s output
+is named by a hash of the sources, the headers beside them and the flags,
+so an edited source or header is rebuilt and an unchanged tree reuses
+what it built.  ``nvcc``'s output
 (the ptxas register and spill report) is kept beside the library.
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -44,12 +45,15 @@ def _nvcc() -> str:
 
 
 def _sources():
+    """What ``nvcc`` compiles: every ``*.cu`` under ``csrc/``."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def _target() -> pathlib.Path:
+    """The library, named by a hash of the flags, the sources and the
+    headers they include (``*.cuh``)."""
     digest = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"librotseq_{digest.hexdigest()[:16]}.so"
 

@@ -340,10 +340,27 @@ def _cu_hits(tmp_path, src_name, text, rules=("RA303", "RA405")):
 
 
 @pytest.mark.parametrize("src_name", ["rotseq_wave.cu", "rotseq_batched.cu",
-                                      "rotseq_mxu.cu", "rotseq_mxu_half.cu",
-                                      "rope.cu"])
+                                      "half_store.cuh", "rotseq_mxu.cu",
+                                      "rotseq_mxu_half.cu", "rope.cu"])
 def test_real_cuda_sources_are_clean(src_name):
     assert analyze_file(os.path.join(CSRC, src_name), all_rules()) == []
+
+
+def test_the_shared_header_is_read_and_checked(tmp_path):
+    """``csrc/half_store.cuh`` is among the files the gate reads, and a
+    fused multiply-add in a plane pair is reported there."""
+    header = os.path.join(CSRC, "half_store.cuh")
+    assert header in engine.iter_source_files(engine.default_roots())
+    with open(header) as f:
+        text = f.read()
+    ys = "const P2 ys = __hmul2(g, d);"
+    assert text.count(ys) == 2                 # in each plane pair
+    at = text.index(ys)
+    hits = _cu_hits(tmp_path, "half_store.cuh",
+                    text[:at] + "const P2 ys = __hfma2(g, d, cx);"
+                    + text[at + len(ys):])
+    line = text[:at].count("\n") + 2
+    assert ("RA303", line) in hits
 
 
 @pytest.mark.parametrize("src_name,operand", [("rotseq_wave.cu", "c"),
@@ -371,9 +388,11 @@ def test_plane_form_breaks_are_caught_in_the_real_sources(
         ("RA303", line(add)), ("RA303", line(row))]
 
 
-# the seven paired roundings of csrc/rotseq_batched.cu's half planes, and
-# each spelled unrounded: the products' packed conversions (St::p2) and
-# the native paired sum, difference and g-product
+# the seven paired roundings of the band kernels' half planes
+# (csrc/half_store.cuh: plane_pair, the fused kernel's, and
+# plane_pair_native, the wavefront kernel's), and each spelled unrounded:
+# the products' packed conversions (St::p2) or native paired products, the
+# native paired sum, difference and g-product
 PAIRED = {
     "cx": ("const P2 cx = St::p2(", "const float2 cx = make_float2("),
     "sy": ("const P2 sy = St::p2(", "const float2 sy = make_float2("),
@@ -389,23 +408,35 @@ PAIRED = {
            "const float2 ys = make_float2(__fmul_rn(g.x, d.x), "
            "__fmul_rn(g.y, d.y));"),
 }
+NATIVE = {**PAIRED, **{
+    name: (f"const P2 {name} = __hmul2({a}, {b});",
+           f"const float2 {name} = make_float2(__fmul_rn({a}.x, {b}.x), "
+           f"__fmul_rn({a}.y, {b}.y));")
+    for name, a, b in (("cx", "c", "x"), ("sy", "s", "y"),
+                       ("sx", "s", "x"), ("cy", "c", "y"))}}
 
 
+@pytest.mark.parametrize("fn,forms", [("plane_pair", PAIRED),
+                                      ("plane_pair_native", NATIVE)])
 @pytest.mark.parametrize("name", sorted(PAIRED))
 def test_dropped_paired_rounding_is_caught_in_the_real_source(tmp_path,
-                                                              name):
+                                                              name, fn,
+                                                              forms):
     """Each of the half plane's paired roundings spelled unrounded (the
-    pair made by ``make_float2``) is reported on the lines of that plane
-    pair."""
-    with open(os.path.join(CSRC, "rotseq_batched.cu")) as f:
+    pair made by ``make_float2``) in either plane pair of the header both
+    band kernels include is reported on the lines of that plane pair."""
+    with open(os.path.join(CSRC, "half_store.cuh")) as f:
         text = f.read()
-    spelled, unrounded = PAIRED[name]
-    assert text.count(spelled) == 1
-    assert _cu_hits(tmp_path, "rotseq_batched.cu", text) == []
-    hits = _cu_hits(tmp_path, "rotseq_batched.cu",
-                    text.replace(spelled, unrounded))
-    first = text[:text.index("const P2 cx")].count("\n") + 2
-    last = text[:text.index("const P2 ys")].count("\n") + 2
+    start = text.index(f"void {fn}(")
+    end = text.index("\n}\n", start)
+    spelled, unrounded = forms[name]
+    assert text[start:end].count(spelled) == 1
+    assert _cu_hits(tmp_path, "half_store.cuh", text) == []
+    at = text.index(spelled, start)
+    broken = text[:at] + unrounded + text[at + len(spelled):]
+    hits = _cu_hits(tmp_path, "half_store.cuh", broken)
+    first = text[:text.index("const P2 cx", start)].count("\n") + 2
+    last = text[:text.index("const P2 ys", start)].count("\n") + 2
     assert hits and all(r == "RA303" and first <= ln <= last
                         for r, ln in hits), hits
 

@@ -5,18 +5,20 @@ window in float32, every value in it exactly representable in the half
 type: a column is widened once when it enters from the staged tile
 (``Store<T>::w``) and narrowed once, exactly and keeping every bit, when
 it is stored (``Store<T>::n``).  Planes ``i`` and ``i + 1`` of a step
-touch disjoint columns, so each of their seven roundings is one paired
-instruction: the four products (float32) by one packed conversion each
-(``Store<T>::p2``), the sum, the difference and g's product of two half
-values by one native paired op each (``__hadd2``, ``__hsub2``,
-``__hmul2``), which rounds the exact result once.  :func:`_emulate`
-walks that body step for step in numpy, the conversions as their bit
-arithmetic (to nearest even; a NaN to ``0x7FFF``) and the native ops as
-float64's exact result rounded once, and is held bit for bit to the
-plain version ``rotseq_batched_ref``, which rounds every float32 op.
-The conversions' bit arithmetic is held to ``torch.Tensor.to`` and the
-native ops to eager PyTorch's ops over every pair of a structured set
-of half values.
+touch disjoint columns (``plane_pair``; both in ``csrc/half_store.cuh``,
+which the wavefront kernel shares), so each of their seven roundings is
+one paired instruction: the four products (float32) by one packed
+conversion each (``Store<T>::p2``), the sum, the difference and g's
+product of two half values by one native paired op each (``__hadd2``,
+``__hsub2``, ``__hmul2``), which rounds the exact result once.
+:func:`_emulate` walks that body step for step in numpy, the
+conversions as their bit arithmetic (to nearest even; a NaN to
+``0x7FFF``) and the native ops as float64's exact result rounded once,
+and is held bit for bit to the plain version ``rotseq_batched_ref``,
+which rounds every float32 op.  The conversions' bit arithmetic
+(``tests/_torch_half_bits.py``) is held to ``torch.Tensor.to`` and the
+native ops to eager PyTorch's ops over every pair of a structured set of
+half values.
 
 NaN bits: a NaN that an operation makes has its platform's bits.  On the
 card the conversions give ``0x7FFF`` in both half types
@@ -39,172 +41,8 @@ from repro_torch.core.ref import sign_grid
 from repro_torch.kernels.rotseq_batched.ops import wave_windows
 from repro_torch.kernels.rotseq_batched.ref import rotseq_batched_ref
 
-CARD_NAN = 0x7FFF
-U32 = np.uint32
-
-
-def _bits(x: torch.Tensor) -> np.ndarray:
-    """A half tensor's bits as ``uint16``."""
-    return x.contiguous().view(torch.int16).numpy().view(np.uint16)
-
-
-def _f32_bits(v) -> np.ndarray:
-    return np.ascontiguousarray(v, np.float32).view(U32).astype(np.int64)
-
-
-def round_bf16(v) -> np.ndarray:
-    """float32 -> bfloat16 bits, to nearest even, a NaN to ``0x7FFF``."""
-    u = _f32_bits(v)
-    r = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) & 0xFFFF
-    nan = (u & 0x7FFFFFFF) > 0x7F800000
-    return np.where(nan, CARD_NAN, r).astype(np.uint16)
-
-
-def round_f16(v) -> np.ndarray:
-    """float32 -> float16 bits, to nearest even, a NaN to ``0x7FFF``."""
-    u = _f32_bits(v)
-    sign = (u >> 16) & 0x8000
-    a = u & 0x7FFFFFFF
-    # a normal result: the exponent rebiased, 13 bits rounded off; past
-    # the largest finite value (and for inf) it is inf
-    h = (a - 0x38000000) >> 13
-    rem = a & 0x1FFF
-    h = h + ((rem > 0x1000) | ((rem == 0x1000) & (h & 1)))
-    h = np.minimum(h, 0x7C00)
-    # below 2^-14 a subnormal: the significand shifted down and rounded
-    e = a >> 23
-    sig = (a & 0x7FFFFF) | 0x800000
-    sh = np.clip(126 - e, 1, 40)
-    q = sig >> sh
-    low = sig & ((np.int64(1) << sh) - 1)
-    mid = np.int64(1) << (sh - 1)
-    q = q + ((low > mid) | ((low == mid) & (q & 1)))
-    h = np.where(a < 0x38800000, np.where(e == 0, 0, q), h)
-    nan = a > 0x7F800000
-    return np.where(nan, CARD_NAN, sign | h).astype(np.uint16)
-
-
-def _round_once(v, p, emin, top):
-    """Exact float64 values rounded once to a binary format of ``p``
-    significant bits, least normal exponent ``emin`` and largest finite
-    value ``top``: to nearest even, past ``top`` to inf (float64 ops only,
-    independent of the bit arithmetic above)."""
-    v = np.asarray(v, np.float64)
-    out = v.copy()
-    fin = np.isfinite(v) & (v != 0)
-    _, e = np.frexp(v[fin])
-    q = np.maximum(e - 1, emin) - (p - 1)            # the last place
-    r = np.ldexp(np.rint(np.ldexp(v[fin], -q)), q)
-    out[fin] = np.where(np.abs(r) > top, np.copysign(np.inf, r), r)
-    return out
-
-
-def _pack(lo, hi):
-    return lo.astype(U32) | (hi.astype(U32) << U32(16))
-
-
-def _lanes(u):
-    return ((u & U32(0xFFFF)).astype(np.uint16),
-            (u >> U32(16)).astype(np.uint16))
-
-
-class BF16:
-    """``Store<__nv_bfloat16>``: widenings and narrowing are shifts."""
-    dtype = torch.bfloat16
-    P, EMIN, TOP = 8, -126, 3.3895313892515355e38
-
-    @staticmethod
-    def f(bits):
-        return (bits.astype(U32) << U32(16)).view(np.float32)
-
-    w = f
-
-    @staticmethod
-    def n(v):
-        return (np.asarray(v, np.float32).view(U32) >> U32(16)).astype(
-            np.uint16)
-
-    @staticmethod
-    def nan(bits):
-        return (bits & 0x7FFF) > 0x7F80
-
-    @staticmethod
-    def p2(a, b):
-        """``cvt.rn.bf16x2.f32``: ``a`` to the low half, ``b`` high."""
-        return _pack(round_bf16(a), round_bf16(b))
-
-    @staticmethod
-    def w2(u):
-        """The low half shifted up, the high half masked."""
-        return ((u << U32(16)).view(np.float32),
-                (u & U32(0xFFFF0000)).view(np.float32))
-
-    @staticmethod
-    def encode(v):
-        return (np.asarray(v, np.float32).view(U32) >> U32(16)).astype(
-            np.uint16)
-
-
-class F16:
-    """``Store<__half>``: ``w``/``n`` keep a NaN's sign and payload."""
-    dtype = torch.float16
-    P, EMIN, TOP = 11, -14, 65504.0
-
-    @staticmethod
-    def f(bits):
-        return bits.view(np.float16).astype(np.float32)
-
-    @staticmethod
-    def w(bits):
-        h = bits.astype(U32)
-        nan = ((h & U32(0x7FFF)) > U32(0x7C00))
-        kept = (((h & U32(0x8000)) << U32(16)) | U32(0x7F800000)
-                | ((h & U32(0x3FF)) << U32(13)))
-        return np.where(nan, kept, F16.f(bits).view(U32)).astype(
-            U32).view(np.float32)
-
-    @staticmethod
-    def n(v):
-        u = np.asarray(v, np.float32).view(U32)
-        nan = (u & U32(0x7FFFFFFF)) > U32(0x7F800000)
-        kept = (((u >> U32(16)) & U32(0x8000)) | U32(0x7C00)
-                | ((u >> U32(13)) & U32(0x3FF)))
-        return np.where(nan, kept, round_f16(v)).astype(np.uint16)
-
-    @staticmethod
-    def nan(bits):
-        return (bits & 0x7FFF) > 0x7C00
-
-    @staticmethod
-    def p2(a, b):
-        """``cvt.rn.f16x2.f32``: ``a`` to the low half, ``b`` high."""
-        return _pack(round_f16(a), round_f16(b))
-
-    @staticmethod
-    def w2(u):
-        """``__half22float2``: both halves widened."""
-        lo, hi = _lanes(u)
-        return F16.f(lo), F16.f(hi)
-
-    @staticmethod
-    def encode(v):
-        return np.asarray(v, np.float64).astype(np.float16).view(np.uint16)
-
-
-def native(op, a, b, half):
-    """A native paired op on two packed pairs (``__hadd2``: ``np.add``,
-    ``__hsub2``, ``__hmul2``): each lane's exact result (float64 holds a
-    sum, difference or product of two half values exactly) rounded to
-    the half type once, a NaN to ``0x7FFF``."""
-    out = []
-    for la, lb in zip(_lanes(a), _lanes(b)):
-        v = op(half.f(la).astype(np.float64), half.f(lb).astype(np.float64))
-        bits = half.encode(_round_once(v, half.P, half.EMIN, half.TOP))
-        out.append(np.where(np.isnan(v), CARD_NAN, bits).astype(np.uint16))
-    return _pack(*out)
-
-
-HALF = {"bfloat16": BF16, "float16": F16}
+from _torch_half_bits import (BF16, CARD_NAN, F16, HALF, SPECIAL, U32, bits,
+                              lanes, native, pack, plane_pair)
 
 
 def _emulate(AT, C, S, G, starts, counts, kb, half):
@@ -215,15 +53,13 @@ def _emulate(AT, C, S, G, starts, counts, kb, half):
     (``tests/test_torch_batched.py::_emulate_band_schedule``), with the
     window in float32: a column widened by ``w`` as it enters, narrowed
     by ``n`` as it is stored; the planes of a step taken in pairs
-    ``(i, i+1)``: the four products in float32, each pair rounded by one
-    packed conversion ``p2``, the sum, the difference and g's product by
-    one :func:`native` paired op each, the two results widened by ``w2``;
-    ``c``/``s`` widened by ``f`` when they are staged and ``g`` staged as
+    ``(i, i+1)`` by ``plane_pair`` (``csrc/half_store.cuh``); ``c``/``s``
+    widened by ``f`` when they are staged and ``g`` staged as
     its raw bits, a dead plane's values stale (NaN here) and its results
     dropped by the select.  The first band to run copies the columns it
     does not touch as bits."""
-    at = _bits(AT)
-    c, s, g = (_bits(x) for x in (C, S, G))
+    at = bits(AT)
+    c, s, g = (bits(x) for x in (C, S, G))
     b, n, m = at.shape
     bs, K, J = c.shape
     W = 2 * kb
@@ -289,16 +125,9 @@ def _emulate(AT, C, S, G, starts, counts, kb, half):
                             panel[i][u], panel[i + 1][u])
                         ix0, iy0 = (u - 2 * i) % W, (u - 2 * i + 1) % W
                         ix1, iy1 = (u - 2 * i - 2) % W, (u - 2 * i - 1) % W
-                        x0, y0, x1, y1 = win[ix0], win[iy0], win[ix1], win[iy1]
-                        cx = half.p2(c0 * x0, c1 * x1)
-                        sy = half.p2(s0 * y0, s1 * y1)
-                        sx = half.p2(s0 * x0, s1 * x1)
-                        cy = half.p2(c0 * y0, c1 * y1)
-                        gg = _pack(np.full(m, g0, np.uint16),
-                                   np.full(m, g1, np.uint16))
-                        xn = half.w2(native(np.add, cx, sy, half))
-                        d = native(np.subtract, sx, cy, half)
-                        yn = half.w2(native(np.multiply, gg, d, half))
+                        xn, yn = plane_pair(
+                            (c0, s0, g0), (c1, s1, g1), win[ix0], win[iy0],
+                            win[ix1], win[iy1], half)
                         if l0:
                             win[ix0], win[iy0] = xn[0], yn[0]
                         if l1:
@@ -320,7 +149,7 @@ def _assert_bits(got, want, args, half):
     bits): there the emulation gives the card's ``0x7FFF``.  Returns
     where that was."""
     AT, starts, counts = args[0], args[4], args[5]
-    g, w = _bits(got), _bits(want)
+    g, w = bits(got), bits(want)
     col = torch.arange(AT.shape[1])
     hit = ((col >= starts[..., None]) & (col <= (starts + counts)[..., None])
            & (counts[..., None] > 0)).any(dim=1)         # (bs, n)
@@ -415,12 +244,6 @@ def test_half_body_emulation_equals_plain_version(case, kb, name):
 # span of columns (loaded and stored) but in no hull, and 0, 1 and 21..23
 # outside every span
 LEFT, RIGHT, GAP, OUTSIDE = (2, 8), (14, 20), range(9, 14), (0, 1, 21, 22, 23)
-# per type: NaN payloads no platform's arithmetic makes, a value whose
-# plane results overflow the type, one whose products are subnormal
-SPECIAL = {
-    "bfloat16": dict(nans=(0x7FC1, 0xFFA5), big=3.0e38, tiny=3.0e-39),
-    "float16": dict(nans=(0x7E01, 0xFD55), big=6.0e4, tiny=3.0e-5),
-}
 
 
 def _special_case(name, dtype, b=2, m=8, n=24, k=6):
@@ -469,11 +292,11 @@ def test_half_body_special_values(kb, name):
         got = _emulate(*args, kb, half)
     want, _ = rotseq_batched_ref(*args)
     made = _assert_bits(got, want, args, half)
-    g, a = _bits(got), _bits(args[0])
+    g, a = bits(got), bits(args[0])
     for col in (*GAP, *OUTSIDE):
         assert np.array_equal(g[:, col], a[:, col]), col
     hull = np.r_[LEFT[0]:LEFT[1] + 1, RIGHT[0]:RIGHT[1] + 1]
-    inner = _bits(want)[:, hull]
+    inner = bits(want)[:, hull]
     exp = inner & (0x7F80 if name == "bfloat16" else 0x7C00)
     mant = inner & (0x7F if name == "bfloat16" else 0x3FF)
     assert made[:, hull].any()                       # NaN from arithmetic
@@ -483,7 +306,7 @@ def test_half_body_special_values(kb, name):
 
 
 def _torch_round(v, dtype):
-    return _bits(torch.from_numpy(np.ascontiguousarray(v, np.float32))
+    return bits(torch.from_numpy(np.ascontiguousarray(v, np.float32))
                  .to(dtype))
 
 
@@ -493,7 +316,7 @@ def _hold_pairs(v, half):
     ``w2`` widening the pair to the same values."""
     want = _torch_round(v, half.dtype)
     u = half.p2(v[0::2], v[1::2])
-    lo, hi = _lanes(u)
+    lo, hi = lanes(u)
     got = np.empty_like(want)
     got[0::2], got[1::2] = lo, hi
     nan = np.isnan(v)
@@ -585,13 +408,13 @@ def test_native_paired_ops_equal_eager_rounding(op, name):
     v = _values(half)
     a, b = np.repeat(v, v.size), np.tile(v, v.size)
     with np.errstate(all="ignore"):
-        u = native(fn, _pack(a[0::2], a[1::2]), _pack(b[0::2], b[1::2]),
+        u = native(fn, pack(a[0::2], a[1::2]), pack(b[0::2], b[1::2]),
                    half)
     got = np.empty_like(a)
-    got[0::2], got[1::2] = _lanes(u)
+    got[0::2], got[1::2] = lanes(u)
     ta, tb = (torch.from_numpy(x.view(np.int16)).view(half.dtype)
               for x in (a, b))
-    want = _bits({"add": torch.add, "sub": torch.sub,
+    want = bits({"add": torch.add, "sub": torch.sub,
                   "mul": torch.mul}[op](ta, tb))
     nan = half.nan(want)
     assert np.array_equal(got[~nan], want[~nan])

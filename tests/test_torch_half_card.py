@@ -3,7 +3,8 @@
 Every test here is marked ``gpu`` and decides inside the test whether a
 card is present, so on a host without one they skip.  The wavefront and
 fused kernels are held to their plain versions bit for bit in each half
-type (and the fused kernel to per-request ``cuda_wave``); the tensor-core
+type, special values included as bit views (and the fused kernel to
+per-request ``cuda_wave``); the tensor-core
 tier of the accumulated kernel is held to the float64 application of the
 same rounded inputs: its largest error at most 1.25 times that of its
 plain version (float32 products of each tile, rounded once) and within
@@ -167,6 +168,43 @@ def test_batched_half_special_values_bitwise_on_the_card(dtype, m,
     inner = out[:, edge:n - edge].float()
     assert torch.isnan(inner).any()
     assert ((inner != 0) & (inner.abs() < torch.finfo(dtype).tiny)).any()
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("m", [1024, 1021])
+def test_wave_half_special_values_bitwise_on_the_card(dtype, m):
+    """NaN with a payload, +-inf, -0.0, values whose plane results
+    overflow the type and ones whose products are subnormal, a row each,
+    edge planes the identity in every wave, 200 waves (two passes of 12
+    bands): the wavefront kernel's bits equal its plain version's;
+    ``m = 1024`` stages warp 0's columns in 16-byte pieces, ``m = 1021``
+    by plain loads."""
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(17)
+    n, k, edge = 600, 200, 6
+    s = random_sequence(n, k, generator=gen, device=dev, dtype=dtype)
+    C, S = s.cos.clone(), s.sin.clone()
+    C[:edge], S[:edge] = 1.0, 0.0
+    C[n - 1 - edge:], S[n - 1 - edge:] = 1.0, 0.0
+    nan, big, tiny = SPECIAL[dtype]
+    X = torch.randn((m, n), generator=gen)
+    cols = torch.randperm(n, generator=gen)[:5]
+    X[1::8, cols] = float("inf")
+    X[2::8, cols] = float("-inf")
+    X[3::8, :] = -0.0
+    X[4::8, :] = big * torch.sign(X[4::8, :])
+    X[5::8, :] = tiny * torch.sign(X[5::8, :])
+    A = X.to(dev, dtype)
+    _bits(A)[0::8, cols.to(dev)] = nan - 0x10000 * (nan > 0x7FFF)
+    args = _packed(A, C, S, None)
+    before = wave_k.LAUNCHES
+    out = wave_k.rotseq_wave(*args)
+    assert wave_k.LAUNCHES == before + 1
+    assert torch.equal(_bits(out), _bits(rotseq_wave_ref(*args)))
+    got = out.float()
+    assert torch.isnan(got).any()
+    assert ((got != 0) & (got.abs() < torch.finfo(dtype).tiny)).any()
+    assert ((got == 0) & torch.signbit(got)).any()
 
 
 def _mxu_plain(A, C, S, n_b, k_b):

@@ -245,3 +245,28 @@ def test_float16_eligible_for_auto():
     names = {s.name for s in treg.eligible_backends(treg.Problem(
         m=8, n=16, k=4, dtype="float64", platform="cuda"))}
     assert names and not any(x.startswith("cuda_") for x in names)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_half_wave_priced_at_its_dtype_rate(dtype, monkeypatch):
+    """A half target's ``cuda_wave`` price reads its own dtype's plane
+    rate, not float32's, and a float32 target's does not: the measured
+    half rates (the paper shape's launch of the paired half body) are
+    slower than float32's, and float32's is still the main path's
+    1.66 ms."""
+    rates = treg._WAVE_PLANE_SECONDS
+    assert rates[dtype] > rates["float32"] == 1.66e-3 / treg._WAVE_CHAIN
+    half = treg.Problem(m=3840, n=3840, k=180, dtype=dtype, platform="cuda")
+    f32 = dataclasses.replace(half, dtype="float32")
+    plan = treg.Plan("cuda_wave", k_b=16)
+    costs = {}
+    for rate in (1e-6, 2e-6):
+        monkeypatch.setitem(rates, dtype, rate)
+        costs[rate] = (treg.cost_cuda_wave(half, plan),
+                       treg.cost_cuda_wave(f32, plan))
+    assert costs[2e-6][0] > costs[1e-6][0]
+    assert costs[2e-6][1] == costs[1e-6][1]
+    # the row chain the model prices at the paper shape: 12 bands on 12
+    # warps a row group, the rate times one warp's share of a row's planes
+    chain = treg._row_chain_seconds(3839 * 192 / 12, 3840 * 12, 1.0)
+    assert chain == pytest.approx(treg._WAVE_CHAIN)

@@ -94,41 +94,51 @@ print(json.dumps(row))
 '''
 
 
-def _build(tag: str, src: str):
+# a band kernel's instantiation in a mangled name: (kernel, storage type)
+_INSTANCE = re.compile(r"(rotseq_(?:wave|batched))_kernelILi\d+ELi\d+E"
+                       r"(f|13__nv_bfloat16|6__half)")
+
+
+def build(tag: str, sources, lib: Path):
+    """``nvcc`` the ``sources`` into ``lib`` with the flags of
+    ``kernels/_build.py``: ``(tag, lib, returncode, output, registers)``,
+    ``registers`` the ptxas registers and spill bytes of every band
+    kernel instantiation, by ``(kernel, mangled type)``."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build as kb
-    lib = OUT / f"lib{tag}.so"
-    proc = subprocess.run([kb._nvcc(), *kb.FLAGS, "-o", str(lib), src],
+    proc = subprocess.run([kb._nvcc(), *kb.FLAGS, "-o", str(lib),
+                           *map(str, sources)],
                           capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     regs = {}
     for m in re.finditer(r"Compiling entry function '(\w+)'((?:(?!Compiling)"
                          r".)*)", log, re.S):
-        t = re.search(r"rotseq_batched_kernelILi\d+ELi\d+E(f|13__nv_bfloat16"
-                      r"|6__half)", m.group(1))
+        t = _INSTANCE.search(m.group(1))
         used = re.search(r"Used (\d+) registers", m.group(2))
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill",
                           m.group(2))
         if t and used:
-            regs[t.group(1)] = dict(registers=int(used.group(1)),
+            regs[t.groups()] = dict(registers=int(used.group(1)),
                                     spill_bytes=sum(map(int, spill.groups()))
                                     if spill else 0)
     return tag, lib, proc.returncode, log, regs
 
 
-def _sass(lib: Path) -> dict:
-    """``{type: (opcode counts, normalised float32 listing)}``."""
+def sass(lib: Path) -> dict:
+    """``{(kernel, mangled type): (opcode counts, normalised listing)}``
+    of the band kernels' instantiations in ``lib``: the listing with
+    whitespace and the anonymous namespace's hash taken out."""
     sys.path.insert(0, str(ROOT / "tools"))
     import sass_ops
     out = {}
     for name, body in sass_ops.listing(lib).items():
-        t = re.search(r"rotseq_batched_kernelILi\d+ELi\d+E(f|13__nv_bfloat16"
-                      r"|6__half)", name)
+        t = _INSTANCE.search(name)
         if t:
             ops = collections.Counter(sass_ops._INSN.findall(body))
-            text = [re.sub(r"\s+", " ", ln).strip()
+            text = [re.sub(r"_GLOBAL__N__\w+?_", "_GLOBAL__N__",
+                           re.sub(r"\s+", " ", ln).strip())
                     for ln in body.splitlines() if ln.strip()]
-            out[t.group(1)] = (dict(instructions=sum(ops.values()),
+            out[t.groups()] = (dict(instructions=sum(ops.values()),
                                     **sass_ops.conversions(ops)), text)
     return out
 
@@ -140,22 +150,26 @@ def main() -> int:
         return 2
     OUT.mkdir(parents=True, exist_ok=True)
     with concurrent.futures.ThreadPoolExecutor(len(variants)) as ex:
-        built = list(ex.map(lambda kv: _build(*kv), variants.items()))
+        built = list(ex.map(lambda kv: build(kv[0], [kv[1]],
+                                             OUT / f"lib{kv[0]}.so"),
+                            variants.items()))
     libs = {}
     for tag, lib, rc, log, regs in built:
-        print(json.dumps({"build": tag, "rc": rc, "ptxas": regs}),
-              flush=True)
+        print(json.dumps({"build": tag, "rc": rc, "ptxas": {
+            t: r for (k, t), r in regs.items()
+            if k == "rotseq_batched"}}), flush=True)
         if rc:
             print(log[-3000:], file=sys.stderr)
             return 1
         libs[tag] = lib
     first = None
     for tag, lib in libs.items():
-        sass = _sass(lib)
-        f32 = sass.get("f", (None, None))[1]
+        found = {t: v for (k, t), v in sass(lib).items()
+                 if k == "rotseq_batched"}
+        f32 = found.get("f", (None, None))[1]
         first = f32 if first is None else first
         print(json.dumps({"sass": tag, "f32_equals_first": f32 == first,
-                          **{k: v[0] for k, v in sass.items()}}),
+                          **{k: v[0] for k, v in found.items()}}),
               flush=True)
     env = {**os.environ, "REPRO_PLAN_CACHE": "off"}
     for tag in list(libs) + list(reversed(list(libs))):

@@ -12,7 +12,8 @@ opcodes and its conversions, paired half ops and widenings
 function as compiled (its unrolled chunk body included), not of what a
 launch executes.  Needs the CUDA toolkit (``nvcc``, ``cuobjdump``), not a
 card.  ``chip_smoke.py`` imports :func:`functions` and
-:func:`conversions` for its ``rotseq_batched_half`` line.
+:func:`conversions` for its ``rotseq_wave_half`` and
+``rotseq_batched_half`` lines.
 """
 from __future__ import annotations
 
