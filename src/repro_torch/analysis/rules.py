@@ -1521,7 +1521,11 @@ class RA405CudaConstantsMirrorLimits(Rule):
     MIRRORS: Dict[str, Tuple[Tuple[str, str], ...]] = {
         "rotseq_wave": (("kBand", "WAVE_KB"), ("kWarps", "WAVE_WARPS")),
         "rotseq_mxu": (("kRows", "MXU_ROWS"), ("kSlab", "MXU_SLAB")),
-        "rotseq_mxu_half": (("kVec", "MXU_HALF_VEC"),),
+        "rotseq_mxu_half": (("kRows", "MXU_HALF_ROWS"),
+                            ("kChunk", "MXU_HALF_CHUNK"),
+                            ("kCluster", "MXU_HALF_CLUSTER"),
+                            ("kStages", "MXU_HALF_STAGES"),
+                            ("kVec", "MXU_HALF_VEC")),
         "rotseq_batched": (("kBand", "BATCHED_KB"),
                            ("kThreads", "BATCHED_M_BLK")),
     }

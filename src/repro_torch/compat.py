@@ -22,7 +22,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 __all__ = [
     "TorchDispatchMode", "tree_leaves", "is_functorch_wrapped_tensor",
-    "cuda_current_device", "cuda_raw_stream",
+    "cuda_current_device", "cuda_raw_stream", "cuda_sleep",
     "compute_local_shape_and_global_offset", "fake_store", "ieee_float32",
 ]
 
@@ -43,6 +43,10 @@ def _no_cuda(*_args):
 # without CUDA has neither; the wrappers reach them only for CUDA tensors.
 cuda_current_device = getattr(torch._C, "_cuda_getDevice", _no_cuda)
 cuda_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _no_cuda)
+# A kernel that spins the current stream for some cycles: chip_smoke.py
+# holds the card with it while the host enqueues work to be timed back to
+# back on the card.
+cuda_sleep = getattr(torch.cuda, "_sleep", _no_cuda)
 
 
 def compute_local_shape_and_global_offset(shape, mesh, placements):

@@ -69,8 +69,9 @@ import torch
 
 from repro_torch import obs
 from repro_torch.hw import PLATFORMS, RESIDENT_ROWS, Hardware
-from repro_torch.kernels.limits import (MXU_ROWS, MXU_SLAB, WAVE_KB,
-                                        WAVE_WARPS, mxu_width)
+from repro_torch.kernels.limits import (MXU_HALF_CHUNK, MXU_HALF_CLUSTER,
+                                        MXU_HALF_ROWS, MXU_ROWS, MXU_SLAB,
+                                        WAVE_KB, WAVE_WARPS, mxu_width)
 
 __all__ = [
     "Hardware", "PLATFORMS", "Problem", "Plan", "Capability", "BackendSpec",
@@ -101,6 +102,17 @@ _OFF_DEVICE_PENALTY = 1e3
 # 80GB HBM3, 700 W): a slab takes a + b * WP seconds, fitted at those two.
 _MXU_SLAB_SECONDS = (0.817e-6, 4.81e-9)
 _SMS = 132
+# One chunk of the accumulated kernel's half tier on the card
+# (csrc/rotseq_mxu_half.cu, wgmma): a block of MXU_HALF_ROWS rows walks
+# bands x tiles chain steps, each ceil(n_b / MXU_HALF_CHUNK) +
+# ceil(k_b / MXU_HALF_CHUNK) chunks of Q_t at a padded width WP.  At
+# m = n = 3840, k = 180 its launches took, bf16 / f16, 0.2243 / 0.2203 ms
+# at n_b = k_b = 128 (WP = 256, 2 * 31 * 4 chunks a block) and 0.3070 /
+# 0.3100 ms at 64/64 (WP = 128, 3 * 61 * 2 chunks), 60 blocks on 132 SMs
+# (chip_smoke.py's rotseq_mxu_half line, NVIDIA H100 80GB HBM3, 700.00
+# W): a chunk takes a + b * WP seconds, fitted at those two by dtype.
+_MXU_HALF_CHUNK_SECONDS = {"bfloat16": (0.7728e-6, 0.5147e-9),
+                           "float16": (0.8056e-6, 0.3236e-9)}
 # Host time of one band of cuda_mxu's application (kernels/rotseq_mxu/
 # ops.py: the factor panels, windows and identity target, the padded
 # copy, two launches; some twenty PyTorch calls): the first band's is
@@ -546,13 +558,29 @@ def _mxu_sweep_seconds(p: Problem, n_b: int, k_b: int) -> float:
             * max(1.0, blocks / _SMS))
 
 
+def _mxu_half_sweep_seconds(p: Problem, n_b: int, k_b: int) -> float:
+    """The half tier's launches on the card: every block walks its bands'
+    tiles, chunk by chunk, at the measured chunk time of its dtype and
+    padded width (:data:`_MXU_HALF_CHUNK_SECONDS`), and blocks past one
+    a streaming multiprocessor queue."""
+    bands, tiles, w = _tile_grid(p, n_b, k_b)
+    a, b = _MXU_HALF_CHUNK_SECONDS[p.dtype]
+    chunks = math.ceil(n_b / MXU_HALF_CHUNK) + math.ceil(k_b / MXU_HALF_CHUNK)
+    rows = (p.m if p.sequences > 1 else p.m_total) / _dist_terms(p)[0]
+    blocks = math.ceil(math.ceil(rows / MXU_HALF_ROWS) / MXU_HALF_CLUSTER)
+    blocks *= MXU_HALF_CLUSTER
+    return (p.sequences * bands * tiles * chunks * (a + b * mxu_width(w))
+            * max(1.0, blocks / _SMS))
+
+
 def cost_cuda_mxu(p: Problem, plan: Plan) -> float:
     """Accumulated kernel: accumulated-path traffic at fused constants.
 
     On the card the GEMM sweep is priced by the kernel's measured slab
     time (:data:`_MXU_SLAB_SECONDS`), plus the padded copy of the target
     that feeds each band; in bfloat16 and float16 (the tensor-core tier)
-    by its flops at ``hw.tc_bf16_flops`` against its bytes.  Each band's
+    by its measured chunk time in that dtype
+    (:data:`_MXU_HALF_CHUNK_SECONDS`), plus the same copy.  Each band's
     tile factors are one ``cuda_batched`` launch over ``T`` identity
     targets of ``w`` rows with ``n_b * k_b`` live planes each, at that
     kernel's measured plane rate, plus the packing traffic; they are
@@ -570,15 +598,11 @@ def cost_cuda_mxu(p: Problem, plan: Plan) -> float:
     n_b, k_b = plan.n_b or 128, plan.k_b or 128
     c = _components_accumulated(p, plan)
     bands, tiles, w = _tile_grid(p, n_b, k_b)
-    if p.itemsize == 2:
-        # the half tier (bfloat16, float16) runs its products on the
-        # tensor cores: priced at their dense rate, not the slab fit of
-        # the float32 tier's FMAs
-        sweep = _roofline_seconds(c["stream_flops"] / D / hw.tc_bf16_flops,
-                                  c["stream_bytes"] / D / hw.hbm_bw)
-    else:
-        sweep = (_mxu_sweep_seconds(p, n_b, k_b)
-                 + c["stream_bytes"] / D / hw.hbm_bw)
+    # the half tier (bfloat16, float16) runs its products on the tensor
+    # cores: its own measured chunk time, not the float32 tier's slab fit
+    sweep = (_mxu_half_sweep_seconds(p, n_b, k_b) if p.itemsize == 2
+             else _mxu_sweep_seconds(p, n_b, k_b))
+    sweep += c["stream_bytes"] / D / hw.hbm_bw
     rate = _plane_seconds(_BATCHED_PLANE_SECONDS, p.dtype)
     factors = (bands * _row_chain_seconds(n_b * k_b, tiles * w, rate)
                + c["setup_bytes"] / p.sequences / hw.hbm_bw)

@@ -13,7 +13,9 @@ from __future__ import annotations
 __all__ = [
     "WARP", "SMEM_PER_BLOCK", "SMEM_STATIC", "REGS_PER_THREAD",
     "WAVE_KB", "WAVE_WARPS", "WAVE_ROWS", "MXU_ROWS", "MXU_SLAB",
-    "MXU_MAX_W", "MXU_HALF_VEC", "BATCHED_M_BLK", "BATCHED_KB", "round_up",
+    "MXU_MAX_W", "MXU_HALF_ROWS", "MXU_HALF_CHUNK", "MXU_HALF_CLUSTER",
+    "MXU_HALF_STAGES",
+    "MXU_HALF_VEC", "BATCHED_M_BLK", "BATCHED_KB", "round_up",
     "row_blocks", "wave_smem_bytes", "mxu_width",
 ]
 
@@ -37,10 +39,18 @@ MXU_ROWS = 32
 MXU_SLAB = 32
 MXU_MAX_W = 256
 # the accumulated kernel's half tier (bfloat16, float16 on the tensor
-# cores) reads the factors transposed in 16-byte pieces of MXU_HALF_VEC
-# elements, so their padded row stride is a multiple of it (the constant
-# its source is compiled for, kVec); widths as above, padded to 64, 128
-# or MXU_MAX_W
+# cores, the constants its source is compiled for): a block of
+# MXU_HALF_ROWS rows of A (wgmma's M, kRows), the factors streamed in
+# chunks of MXU_HALF_CHUNK of their K columns (kChunk), blocks in
+# clusters of MXU_HALF_CLUSTER that share each chunk by TMA multicast
+# (kCluster), a ring of MXU_HALF_STAGES chunks (kStages); it reads the
+# factors transposed through TMA, whose row strides are 16-byte pieces of
+# MXU_HALF_VEC elements, so their padded row stride is a multiple of it
+# (kVec); widths as above, padded to 64, 128 or MXU_MAX_W
+MXU_HALF_ROWS = 64
+MXU_HALF_CHUNK = 64
+MXU_HALF_CLUSTER = 2
+MXU_HALF_STAGES = 4
 MXU_HALF_VEC = 8
 # rows of A per block of the fused batched kernel, one thread a row (the
 # block size its source is compiled for, kThreads): small blocks spread

@@ -70,7 +70,10 @@ def rotseq_mxu(fresh, Q, init):
     Args:
       fresh: ``(m, T * n_b)`` fresh column stream, natural layout;
         float32, bfloat16 or float16 on the card.
-      Q: ``(T, w, w)`` accumulated tile factors, ``w = k_b + n_b``.
+      Q: ``(T, w, w)`` accumulated tile factors, ``w = k_b + n_b``;
+        contiguous, or for bfloat16 and float16 also the transposed
+        view of a contiguous ``Q^T`` (as :func:`~.ops.band_factors`
+        leaves it), which the half tier reads without a copy.
       init: ``(m, k_b)`` initial carry.  ``Q`` and ``init`` in
         ``fresh``'s dtype.
 
@@ -85,12 +88,16 @@ def rotseq_mxu(fresh, Q, init):
     T, w, _ = Q.shape
     M, k_b = init.shape
     n_b = w - k_b
+    half = fresh.dtype != torch.float32
     for name, x, shape in (("fresh", fresh, (M, T * n_b)),
                            ("Q", Q, (T, w, w)), ("init", init, (M, k_b))):
         if x.device != dev or x.dtype != fresh.dtype:
             raise TypeError(f"{name}: the kernel takes {fresh.dtype} on "
                             f"{dev}, got {x.dtype} on {x.device}")
-        if tuple(x.shape) != shape or not x.is_contiguous():
+        # the half tier also takes Q as a transposed view of Q^T
+        laid_out = x.is_contiguous() or (
+            half and name == "Q" and x.transpose(1, 2).is_contiguous())
+        if tuple(x.shape) != shape or not laid_out:
             raise ValueError(f"{name}: expected contiguous {shape}, got "
                              f"{tuple(x.shape)}")
     if n_b < 1 or w > MXU_MAX_W:
@@ -104,9 +111,17 @@ def rotseq_mxu(fresh, Q, init):
         if ldq != w:
             Q = F.pad(Q, (0, ldq - w, 0, ldq - w))
     else:
-        # the half tier reads Q transposed, rows in 16-byte pieces
-        ldq = round_up(w, MXU_HALF_VEC)
-        Q = F.pad(Q.transpose(1, 2), (0, ldq - w)).contiguous()
+        # the half tier reads Q^T (wgmma's K-major B) through TMA: the
+        # factor launch's own Q^T where Q is a view of it; TMA reads from
+        # 16-byte aligned coordinates and strides, so where k_b or w is
+        # ragged the fresh rows' columns move to kq and the rows to ldq
+        kq = round_up(k_b, MXU_HALF_VEC)
+        ldq = round_up(kq + n_b, MXU_HALF_VEC)
+        Q = Q.transpose(1, 2)
+        if kq != k_b or ldq != w:
+            Q = torch.cat([F.pad(Q[..., :k_b], (0, kq - k_b)),
+                           F.pad(Q[..., k_b:], (0, ldq - kq - n_b))], -1)
+        Q = Q.contiguous()
     out = torch.empty_like(fresh)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

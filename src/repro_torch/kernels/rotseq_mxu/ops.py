@@ -98,9 +98,10 @@ def batched_band_factors(C, S, p0: int, k_b: int, n_b: int, T: int, *,
     panels = band_panels(C, S, p0, k_b, n_b, T, reflect=reflect, G=G)
     eye, starts, counts, _ = _band_constants(T, n_b, k_b, C.dtype, C.device)
     # the kernel's packed layout holds each target transposed: the
-    # identity is its own transpose, the result is Q_t^T
+    # identity is its own transpose, the result is Q_t^T, returned as the
+    # transposed view Q (the half accumulated tier reads Q^T itself)
     QT, _ = rotseq_batched(eye, *panels, starts, counts)
-    return QT.transpose(1, 2).contiguous()
+    return QT.transpose(1, 2)
 
 
 def band_factors(C, S, p0: int, k_b: int, n_b: int, T: int, *,
@@ -109,14 +110,17 @@ def band_factors(C, S, p0: int, k_b: int, n_b: int, T: int, *,
     in ``dtype`` (the target's, as the reference accumulates them).
 
     On a CUDA tensor one launch of the fused batched kernel in ``dtype``
-    (:func:`batched_band_factors` on the waves rounded to ``dtype``); on a
-    CPU tensor the eager plain version, :func:`accumulate_tile_factors`
-    of the sheared tiles.
+    (:func:`batched_band_factors` on the waves rounded to ``dtype``):
+    contiguous in float32, and in bfloat16 and float16 the transposed
+    view of the launch's ``Q^T``, which the half tier of the accumulated
+    kernel reads as it is.  On a CPU tensor the eager plain version,
+    :func:`accumulate_tile_factors` of the sheared tiles.
     """
     if C.device.type == "cuda":
-        return batched_band_factors(
+        Q = batched_band_factors(
             C.to(dtype), S.to(dtype), p0, k_b, n_b, T, reflect=reflect,
             G=None if G is None else G.to(dtype))
+        return Q.contiguous() if dtype == torch.float32 else Q
     tiles = pack_sheared(C, S, p0, k_b, n_b, T, reflect=reflect, G=G)
     return accumulate_tile_factors(*tiles, dtype=dtype)
 

@@ -444,6 +444,10 @@ def test_dropped_paired_rounding_is_caught_in_the_real_source(tmp_path,
 @pytest.mark.parametrize("src_name,const,value", [
     ("rotseq_wave.cu", "kBand", 16), ("rotseq_wave.cu", "kWarps", 12),
     ("rotseq_mxu.cu", "kRows", 32), ("rotseq_mxu.cu", "kSlab", 32),
+    ("rotseq_mxu_half.cu", "kRows", 64),
+    ("rotseq_mxu_half.cu", "kChunk", 64),
+    ("rotseq_mxu_half.cu", "kCluster", 2),
+    ("rotseq_mxu_half.cu", "kStages", 4),
     ("rotseq_mxu_half.cu", "kVec", 8),
     ("rotseq_batched.cu", "kBand", 16),
     ("rotseq_batched.cu", "kThreads", 64)])
@@ -469,6 +473,10 @@ def test_mirror_table_is_the_six_pairs_the_tests_assert():
         ("rotseq_wave", "kWarps", "WAVE_WARPS"),
         ("rotseq_mxu", "kRows", "MXU_ROWS"),
         ("rotseq_mxu", "kSlab", "MXU_SLAB"),
+        ("rotseq_mxu_half", "kRows", "MXU_HALF_ROWS"),
+        ("rotseq_mxu_half", "kChunk", "MXU_HALF_CHUNK"),
+        ("rotseq_mxu_half", "kCluster", "MXU_HALF_CLUSTER"),
+        ("rotseq_mxu_half", "kStages", "MXU_HALF_STAGES"),
         ("rotseq_mxu_half", "kVec", "MXU_HALF_VEC"),
         ("rotseq_batched", "kBand", "BATCHED_KB"),
         ("rotseq_batched", "kThreads", "BATCHED_M_BLK")}

@@ -21,8 +21,9 @@ dtypes are held to it.
 
 The half tier of the accumulated kernel (``csrc/rotseq_mxu_half.cu``)
 cannot run here; :func:`_emulate_mxu_half` walks its shared-memory
-layout, its copies and its ``mma.sync`` fragments in numpy, reading the
-source's constants, and is held to the plain version.  The wrappers'
+layout, its TMA boxes and stores through the swizzle, and the operands
+its wgmma descriptors read, in numpy, reading the source's constants,
+and is held to the plain version.  The wrappers'
 dispatch by dtype is checked with the library's entry lookup mocked.
 """
 import pathlib
@@ -466,98 +467,151 @@ def _constant(name):
     return int(re.search(rf"constexpr int {name} = (\d+);", CU).group(1))
 
 
-ROWS, VEC, WARPS, PAD = (_constant(c) for c in
-                         ("kRows", "kVec", "kWarps", "kPad"))
+ROWS, CHUNK, STAGES, CLUSTER, VEC, GROUPS = (
+    _constant(c) for c in ("kRows", "kChunk", "kStages", "kCluster", "kVec",
+                           "kGroups"))
+XCHUNK = ROWS * CHUNK * 2   # bytes of one chunk of X
+
+
+def _sw_addr(addr):
+    """The card's 128-byte swizzle of a shared-memory byte address (TMA's
+    ``SWIZZLE_128B`` writes and wgmma's swizzled descriptors read through
+    it): the 16-byte piece XORed with the address's 128-byte row mod 8."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def _swz(r, c):
+    """The source's ``swz``: byte offset of (row ``r``, column ``c``) in a
+    run of swizzled chunks, as the kernel's own stores compute it."""
+    return ((c >> 6) * XCHUNK + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4)
+            + ((c & 7) << 1))
+
+
+def _tma(smem, dst, src, coords, box):
+    """A 3D TMA box load into the byte address ``dst`` (a multiple of
+    1024): ``src`` (d2, d1, d0) numpy, ``coords``/``box`` innermost first;
+    elements past ``src``'s extents read as zeros; rows of ``box[0]``
+    elements (128 bytes) in order, swizzled."""
+    b0, b1, b2 = box
+    c0, c1, c2 = coords
+    tile = np.zeros((b2, b1, b0), np.float32)
+    part = src[c2:c2 + b2, c1:c1 + b1, c0:c0 + b0]
+    tile[:part.shape[0], :part.shape[1], :part.shape[2]] = part
+    rows = np.arange(b2 * b1)[:, None]
+    cols = np.arange(b0)[None, :]
+    smem[_sw_addr(dst + rows * 128 + cols * 2) // 2] = tile.reshape(-1, b0)
+
+
+def _operand(smem, addr, rows):
+    """What a wgmma descriptor at byte ``addr`` (a chunk base plus 32
+    bytes a k16 step) reads: ``rows`` x 16 K-major, 128 bytes a row."""
+    r = np.arange(rows)[:, None]
+    k = np.arange(16)[None, :]
+    return smem[_sw_addr(addr + r * 128 + k * 2) // 2].astype(np.float64)
 
 
 def _emulate_mxu_half(fresh, Q, init, dtype):
-    """``rotseq_mxu_half_kernel`` in numpy: the wrapper's transposed,
-    padded factors; each block's zeroed shared memory (``qs``, ``xs``,
-    ``ys`` rows of ``WP + kPad``), its copies (16-byte pieces or element
-    by element, as ``vec`` says), every warp's ``m16n8k16`` fragments read
-    at the source's addresses and placed by the PTX layout of the
-    ``row.col`` bf16/f16 operands, the float32 sums (in float64 here,
-    then rounded to float32) rounded to ``dtype``, the carry and the
-    stores."""
+    """``rotseq_mxu_half_kernel`` in numpy, one block at a time: the
+    wrapper's ``Q^T`` (the fresh rows' columns from ``kq``, ``k_b``
+    rounded up to ``kVec``, zeros between and to ``ldq``); each block's
+    shared memory as
+    the source lays it out (the ring of ``kStages`` chunks of ``WP`` rows,
+    then the two X buffers of ``WP/64 + 1`` chunks, ``[carry | fresh]``),
+    zeroed, with the initial carry stored through ``swz``; per tile the
+    producer's loads (fresh by a TMA box of the ``(M, T, n_b)`` view where
+    ``n_b`` is a multiple of ``kVec``, else element by element through
+    ``swz``; each chunk of ``Q_t^T`` as ``kCluster`` multicast boxes of
+    ``WP / kCluster`` rows of the one map of ``Q^T``, the fresh rows read
+    from ``kq`` on, the carry's from 0, against X's zero columns past
+    ``k_b``); each
+    warpgroup's k16 steps, fresh chunks then carry chunks, read through
+    the descriptors and summed in float32 (each step's products exactly,
+    in float64, then rounded to float32), every step of every chunk (past
+    the segment's depth both operands are zeros); ``Y_t`` rounded to
+    ``dtype`` once, its carry columns stored through ``swz`` into the
+    other X buffer (whole 8-column blocks where ``n_b`` is a multiple of
+    8) and its first ``n_b`` columns of rows below ``M`` to ``out``."""
     M, k_b = init.shape
     T, w, _ = Q.shape
     n_b = w - k_b
     WP = limits.mxu_width(w)
-    LDS = WP + PAD
-    WN = WP // WARPS
-    ldq = limits.round_up(w, limits.MXU_HALF_VEC)
-    qt = torch.nn.functional.pad(Q.transpose(1, 2), (0, ldq - w))
-    qt = qt.float().numpy()
+    N = WP // GROUPS
+    kq = limits.round_up(k_b, VEC)   # the fresh rows' first column
+    ldq = limits.round_up(kq + n_b, VEC)
+    qt = np.zeros((T, w, ldq), np.float32)
+    QT = Q.transpose(1, 2).float().numpy()
+    qt[..., :k_b], qt[..., kq:kq + n_b] = QT[..., :k_b], QT[..., k_b:]
     f, i0 = fresh.float().numpy(), init.float().numpy()
-    ldf = T * n_b
-    vec = n_b % VEC == 0 and k_b % VEC == 0
-    out = np.full((M, ldf), np.nan, np.float32)
-    wk = -(-w // 16) * 16
+    U = T * n_b
+    vec = n_b % VEC == 0
+    kc, kf = -(-k_b // CHUNK), -(-n_b // CHUNK)
+    # carry columns stored: whole 8-column blocks where n_b allows (their
+    # columns past w are +0), else exactly k_b
+    kw = limits.round_up(k_b, 8) if n_b % 8 == 0 else k_b
+    qbytes = WP * CHUNK * 2
+    xbytes = (WP // CHUNK + 1) * XCHUNK
+    ring, xbuf = 0, STAGES * qbytes
+    assert xbuf % 1024 == 0 and xbytes % 1024 == 0
+    out = np.full((M, U), np.nan, np.float32)
     rnd = (lambda v: torch.from_numpy(np.asarray(v, np.float32))
            .to(dtype).float().numpy())
-    for row0 in range(0, M, ROWS):
-        rows = min(ROWS, M - row0)
-        qs = np.zeros((WP, LDS), np.float32)
-        xs = np.zeros((ROWS, LDS), np.float32)
-        ys = np.zeros((ROWS, LDS), np.float32)
-        xs[:rows, :k_b] = i0[row0:row0 + rows]
-
-        def load(t):
-            qs[:w, :ldq] = qt[t]
-            src = f[row0:row0 + rows, t * n_b:(t + 1) * n_b]
-            if vec:   # 16-byte pieces: n_b / kVec a row
-                for c in range(0, n_b, VEC):
-                    xs[:rows, k_b + c:k_b + c + VEC] = src[:, c:c + VEC]
-            else:
-                xs[:rows, k_b:k_b + n_b] = src
-        load(0)
+    blocks = -(-M // ROWS)
+    blocks = -(-blocks // CLUSTER) * CLUSTER
+    for blk in range(blocks):
+        row0 = blk * ROWS
+        smem = np.zeros((xbuf + 2 * xbytes) // 2, np.float32)
+        live = max(0, min(ROWS, M - row0))
+        r_live, c_k = np.meshgrid(np.arange(live), np.arange(k_b),
+                                  indexing="ij")
+        smem[(xbuf + _swz(r_live, c_k)) // 2] = i0[row0:row0 + live]
+        pos = 0   # ring position
         for t in range(T):
-            for warp in range(WARPS):
-                n0 = warp * WN
-                acc = np.zeros((ROWS // 16, WN // 8, 16, 8))
-                for k0 in range(0, wk, 16):
-                    for mi in range(ROWS // 16):
-                        A_t = np.full((16, 16), np.nan)
-                        for lane in range(32):
-                            g, tq = lane >> 2, lane & 3
-                            r0 = mi * 16 + g
-                            c0 = k0 + 2 * tq
-                            regs = [xs[r0, c0:c0 + 2], xs[r0 + 8, c0:c0 + 2],
-                                    xs[r0, c0 + 8:c0 + 10],
-                                    xs[r0 + 8, c0 + 8:c0 + 10]]
-                            # PTX: a0 (g, 2tq), a1 (g+8, 2tq), a2 (g,
-                            # 2tq+8), a3 (g+8, 2tq+8), two columns each
-                            for (dr, dc), v in zip(((0, 0), (8, 0), (0, 8),
-                                                    (8, 8)), regs):
-                                A_t[g + dr, 2 * tq + dc:2 * tq + dc + 2] = v
-                        for ni in range(WN // 8):
-                            B_t = np.full((16, 8), np.nan)
-                            for lane in range(32):
-                                g, tq = lane >> 2, lane & 3
-                                qrow = qs[n0 + ni * 8 + g]
-                                c0 = k0 + 2 * tq
-                                # PTX: b0 rows 2tq, 2tq+1 and b1 8 further,
-                                # column g
-                                B_t[2 * tq:2 * tq + 2, g] = qrow[c0:c0 + 2]
-                                B_t[2 * tq + 8:2 * tq + 10, g] = \
-                                    qrow[c0 + 8:c0 + 10]
-                            acc[mi, ni] += A_t @ B_t
-                for mi in range(ROWS // 16):
-                    for ni in range(WN // 8):
-                        col = n0 + ni * 8
-                        ys[mi * 16:mi * 16 + 16, col:col + 8] = rnd(
-                            acc[mi, ni].astype(np.float32))
-            if t + 1 < T:
-                load(t + 1)
-            xs[:, :k_b] = ys[:, n_b:n_b + k_b]
-            out[row0:row0 + rows, t * n_b:(t + 1) * n_b] = ys[:rows, :n_b]
+            xb = xbuf + (t & 1) * xbytes
+            xf = xb + kc * XCHUNK
+            if vec:
+                view = f.reshape(M, T, n_b)
+                for j in range(kf):
+                    _tma(smem, xf + j * XCHUNK, view, (j * CHUNK, t, row0),
+                         (CHUNK, 1, ROWS))
+            else:
+                r_f, c_f = np.meshgrid(np.arange(live), np.arange(n_b),
+                                       indexing="ij")
+                smem[(xf + _swz(r_f, c_f)) // 2] = \
+                    f[row0:row0 + live, t * n_b:(t + 1) * n_b]
+            acc = np.zeros((ROWS, WP), np.float32)
+            for j in range(kf + kc):   # fresh rows first, then the carry's
+                fr = j < kf
+                slot = ring + (pos % STAGES) * qbytes
+                pos += 1
+                k0 = kq + j * CHUNK if fr else (j - kf) * CHUNK
+                share = WP // CLUSTER
+                for rank in range(CLUSTER):   # the producers' multicasts
+                    _tma(smem, slot + rank * share * 128, qt,
+                         (k0, rank * share, t), (CHUNK, share, 1))
+                x0 = xf + j * XCHUNK if fr else xb + (j - kf) * XCHUNK
+                for n0 in range(0, WP, N):   # each warpgroup's k16 steps
+                    for k in range(CHUNK // 16):
+                        a = _operand(smem, x0 + 32 * k, ROWS)
+                        b = _operand(smem, slot + n0 * 128 + 32 * k, N)
+                        acc[:, n0:n0 + N] = (acc[:, n0:n0 + N]
+                                             + a @ b.T).astype(np.float32)
+            Y = rnd(acc)
+            if t + 1 < T:   # the carry, through swz, to the other buffer
+                xn = xbuf + ((t + 1) & 1) * xbytes
+                r_c, c_c = np.meshgrid(np.arange(ROWS), np.arange(kw),
+                                       indexing="ij")
+                smem[(xn + _swz(r_c, c_c)) // 2] = Y[:, n_b:n_b + kw]
+            out[row0:row0 + live, t * n_b:(t + 1) * n_b] = Y[:live, :n_b]
     return torch.from_numpy(out).to(dtype)
 
 
 @pytest.mark.parametrize("name,tdt,jdt", HALF)
 @pytest.mark.parametrize("m,n,k,n_b,k_b", [(40, 30, 8, 8, 8),
                                            (33, 50, 6, 10, 6),
-                                           (32, 100, 64, 64, 64)])
+                                           (32, 100, 64, 64, 64),
+                                           (65, 120, 20, 13, 7),
+                                           (100, 420, 60, 200, 56),
+                                           (130, 600, 3, 255, 1)])
 def test_mxu_half_kernel_emulated_vs_plain(m, n, k, n_b, k_b, name, tdt,
                                            jdt):
     """The emulated half kernel on one band equals the plain version up

@@ -220,10 +220,14 @@ def _mxu_plain(A, C, S, n_b, k_b):
 
 
 @pytest.mark.parametrize("dtype", HALF)
-@pytest.mark.parametrize("n_b,k_b", [(128, 128), (64, 64), (8, 8)])
-def test_mxu_half_within_tolerance_on_the_card(dtype, n_b, k_b):
+@pytest.mark.parametrize("n_b,k_b", [(128, 128), (64, 64), (8, 8), (13, 7),
+                                     (200, 56)])
+@pytest.mark.parametrize("m", [1000, 1, 63, 65])
+def test_mxu_half_within_tolerance_on_the_card(dtype, n_b, k_b, m):
+    """Ragged widths (``w`` not a multiple of 16, ``w = 256``) and rows
+    (``m`` not a multiple of the kernel's 64) included."""
     dev = _cuda()
-    m, n, k = 1000, 1100, 150
+    n, k = 1100, 150
     A, C, S, _ = _problem(m, n, k, 11, dtype, dev)
     before = mxu_k.LAUNCHES
     out = rot_sequence_mxu(A, C, S, n_b=n_b, k_b=k_b)

@@ -248,6 +248,56 @@ def test_float16_eligible_for_auto():
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_half_mxu_sweep_priced_at_its_dtype_chunk_time(dtype, monkeypatch):
+    """A half target's ``cuda_mxu`` sweep reads its own dtype's measured
+    chunk time (the tensor-core tier's fit), not the other half dtype's,
+    and a float32 target's price does not move with it: float32 keeps
+    the slab fit of its FMA tier.  At the paper shape the sweep is the
+    fit's time of a chunk of ``Q_t`` at the tiling's padded width, bands
+    x tiles x chunks of a block, the 60 blocks of 64 rows on 132 SMs at
+    once."""
+    times = treg._MXU_HALF_CHUNK_SECONDS
+    other = "float16" if dtype == "bfloat16" else "bfloat16"
+    assert set(times) == {"bfloat16", "float16"}
+    assert all(a > 0 and b > 0 for a, b in times.values())
+    half = treg.Problem(m=3840, n=3840, k=180, dtype=dtype, platform="cuda")
+    f32 = dataclasses.replace(half, dtype="float32")
+    oth = dataclasses.replace(half, dtype=other)
+    plan = treg.Plan("cuda_mxu", n_b=128, k_b=128)
+    costs = {}
+    for a in (1e-6, 4e-6):
+        monkeypatch.setitem(times, dtype, (a, 0.0))
+        costs[a] = (treg.cost_cuda_mxu(half, plan),
+                    treg.cost_cuda_mxu(f32, plan),
+                    treg.cost_cuda_mxu(oth, plan))
+        # 2 bands of 31 tiles of 2 + 2 chunks
+        assert treg._mxu_half_sweep_seconds(half, 128, 128) == \
+            pytest.approx(2 * 31 * 4 * a)
+    assert costs[4e-6][0] > costs[1e-6][0]
+    assert costs[4e-6][1] == costs[1e-6][1]
+    assert costs[4e-6][2] == costs[1e-6][2]
+    monkeypatch.setitem(times, dtype, (0.0, 1e-8))
+    # 3 bands of 61 tiles of 1 + 1 chunks at the padded width 128
+    assert treg._mxu_half_sweep_seconds(half, 64, 64) == \
+        pytest.approx(3 * 61 * 2 * 128 * 1e-8)
+    assert limits.MXU_HALF_CHUNK == 64 and limits.MXU_HALF_ROWS == 64
+
+
+def test_half_mxu_picks_follow_the_card():
+    """With the half sweep at its measured chunk time, ``auto`` plans at
+    the paper shape the tiling the card runs faster in both half dtypes,
+    64/64 (chip_smoke.py's half_main_path line, the applications timed
+    back to back on the card: 128/128 pays two bands of factors over
+    twice the planes); float32 keeps 64/64."""
+    treg.clear_plan_cache()
+    picks = {dt: treg.select_plan(3840, 3840, 180, dtype=dt,
+                                  platform="cuda")
+             for dt in ("bfloat16", "float16", "float32")}
+    assert {dt: (p.method, p.n_b, p.k_b) for dt, p in picks.items()} == {
+        dt: ("cuda_mxu", 64, 64) for dt in picks}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 def test_half_wave_priced_at_its_dtype_rate(dtype, monkeypatch):
     """A half target's ``cuda_wave`` price reads its own dtype's plane
     rate, not float32's, and a float32 target's does not: the measured

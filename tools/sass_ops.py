@@ -5,15 +5,15 @@
 
 Builds the kernel library (``kernels/_build.py``) if needed, disassembles
 it with ``cuobjdump -sass`` and prints, for every kernel function whose
-mangled name matches ``REGEX`` (default: the wavefront and fused
-kernels' instantiations), its instruction count, the most frequent
-opcodes and its conversions, paired half ops and widenings
-(:func:`conversions`), one JSON line each.  The counts are of the whole
+mangled name matches ``REGEX`` (default: the wavefront, fused and
+half accumulated kernels' instantiations), its instruction count, the
+most frequent opcodes and its conversions, paired half ops and
+widenings (:func:`conversions`), one JSON line each.  The counts are of the whole
 function as compiled (its unrolled chunk body included), not of what a
 launch executes.  Needs the CUDA toolkit (``nvcc``, ``cuobjdump``), not a
 card.  ``chip_smoke.py`` imports :func:`functions` and
-:func:`conversions` for its ``rotseq_wave_half`` and
-``rotseq_batched_half`` lines.
+:func:`conversions` for its ``rotseq_wave_half``,
+``rotseq_batched_half`` and ``rotseq_mxu_half`` lines.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-DEFAULT = r"rotseq_(wave|batched)_kernel"
+DEFAULT = r"rotseq_(wave|batched|mxu_half)_kernel"
 # an instruction line of cuobjdump's listing: /*0a30*/ [@P0] OPCODE ...
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                    r"([A-Z][A-Z0-9_.]+)")
