@@ -204,6 +204,8 @@ try:
     from repro_torch.obs import timing
 except ImportError:
     timing = None
+# when run() began, on that clock
+RUN_START = None
 
 # H100 SXM peaks (NVIDIA data sheet): float32 off the tensor cores, HBM3,
 # dense bf16/f16 on the tensor cores
@@ -348,6 +350,11 @@ PAPER_CHECK_MAX = 1920
 
 
 def emit(**row):
+    """Print ``row`` as one JSON line; within ``run()`` with ``at_s``, the
+    seconds since the run began (a phase's cost is the step to the
+    next line's)."""
+    if RUN_START is not None:
+        row["at_s"] = timing.now() - RUN_START
     print(json.dumps(row), flush=True)
 
 
@@ -444,12 +451,60 @@ def pack_wave(A, C, S, G=None):
                                   for x in (C, S, sign_grid(C, False, G))))
 
 
+def small_band_checks(ctx, tag: str, A, C, S, plain) -> dict:
+    """The small band's launch (``WAVE_SMALL_KB``) at the paper shape,
+    on the ragged signed problem and the small one of ``ctx``; its
+    paper-shape and ragged launches timed, the ragged one beside the
+    default band's.  On the ragged and small problems it is held to its
+    plain version at its band as bit views.  At the paper shape it is
+    held to ``plain``, the default band's plain version there (the small
+    band's walks four times the steps of the default band's): the
+    two bands' plain versions differ only in the sign of a zero that the
+    default band's pad planes touch, after every real wave
+    (``tests/test_torch_wave.py``), so the launch must equal ``plain``
+    as values and bit for bit wherever it is not a zero.
+    ``{"paper_ms", "paper_vs_default_plain", "ragged_ms": {band: ms}}``."""
+    import torch
+    from repro_torch.kernels.limits import WAVE_SMALL_KB, WAVE_BANDS
+    from repro_torch.kernels.rotseq import kernel as wave_k
+    from repro_torch.kernels.rotseq.ref import rotseq_wave_ref
+    kb = WAVE_SMALL_KB
+    args = pack_wave(A, C, S)
+    o_k = wave_k.rotseq_wave(*args, k_b=kb)
+    nonzero = o_k != 0
+    check(torch.equal(o_k, plain) and same_bits(o_k[nonzero],
+                                                plain[nonzero]),
+          f"rotseq_wave {tag} k_b={kb} != plain version at the paper shape")
+    zeros = int((~nonzero).sum())
+    del o_k, nonzero
+    ragged = None
+    for name in ("ragged", "small"):
+        X, seq_x = ctx[name]
+        a_x = pack_wave(X.to(A.dtype), *(None if x is None else x.to(A.dtype)
+                                         for x in (seq_x.cos, seq_x.sin,
+                                                   seq_x.sign)))
+        check(same_bits(wave_k.rotseq_wave(*a_x, k_b=kb),
+                        rotseq_wave_ref(*a_x, k_b=kb)),
+              f"rotseq_wave {tag} k_b={kb} != plain version on the {name} "
+              f"problem")
+        ragged = a_x if name == "ragged" else ragged
+    return dict(paper_ms=time_ms(lambda: wave_k.rotseq_wave(*args, k_b=kb),
+                                 5),
+                paper_vs_default_plain={"values": True,
+                                        "bits_but_zero_signs": True,
+                                        "zeros": zeros},
+                ragged_ms={b: time_ms(lambda: wave_k.rotseq_wave(
+                    *ragged, k_b=b), 10) for b in WAVE_BANDS})
+
+
 def wave_phase(ctx, ptxas: dict) -> dict:
     """Hold ``rotseq_wave`` bit for bit against its plain version at the
-    paper shape, the ragged signed shape and the small one; check that an
-    application is one launch; time it; fail on a ptxas spill."""
+    paper shape, the ragged signed shape and the small one, at every
+    compiled band; check that an application is one launch; time it;
+    fail on a ptxas spill of any instantiation."""
     import torch
-    from repro_torch.kernels.limits import WAVE_KB, WAVE_WARPS
+    from repro_torch.kernels.limits import (WAVE_KB, WAVE_SMALL_KB,
+                                            WAVE_WARPS)
     from repro_torch.kernels.rotseq import kernel as wave_k
     from repro_torch.kernels.rotseq.ops import rot_sequence_wave
     from repro_torch.kernels.rotseq.ref import rotseq_wave_ref
@@ -471,6 +526,7 @@ def wave_phase(ctx, ptxas: dict) -> dict:
         check(torch.equal(wave_k.rotseq_wave(*a_x), rotseq_wave_ref(*a_x)),
               f"rotseq_wave != plain version on the {name} problem")
     ms = time_ms(lambda: wave_k.rotseq_wave(*args), 5)
+    small = small_band_checks(ctx, "f32", A, C, S, o_p)
 
     before = wave_k.LAUNCHES
     out_w = rot_sequence_wave(A, C, S)
@@ -487,17 +543,124 @@ def wave_phase(ctx, ptxas: dict) -> dict:
                        4.0 * (2 * M * N + 3 * (N - 1) * K))
     regs = wave_instances(ptxas)
     no_spills(regs, "rotseq_wave")
+    for kb in (WAVE_KB, WAVE_SMALL_KB):
+        check(f"kb{kb}/w{WAVE_WARPS}" in regs,
+              f"no k_b={kb} instantiation of rotseq_wave in the ptxas "
+              f"report")
     emit(phase="rotseq_wave", m=M, n=N, k=K, kb=WAVE_KB, warps=WAVE_WARPS,
          launches=launches, bitwise_vs_plain=["paper", "ragged", "small"],
          max_abs_err_vs_plain=err_w, max_abs_err_vs_wavefront=err_wf,
          ms=ms, plain_ms=plain_ms, apply_ms=apply_ms,
-         matmul_ms=ctx["lib_ms"], bound_ms=b_ms, bound_by=b_by, ptxas=regs)
+         matmul_ms=ctx["lib_ms"], bound_ms=b_ms, bound_by=b_by,
+         small_band={"kb": WAVE_SMALL_KB,
+                     "bitwise_vs_plain": ["ragged", "small"],
+                     **small}, ptxas=regs)
     return dict(
         name="rotseq_wave", route="cuda",
         source="src/repro_torch/csrc/rotseq_wave.cu",
         replaces="src/repro/kernels/rotseq/kernel.py:72",
         max_abs_err=err_w, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=ctx["lib_ms"], tiles=WAVE_TILES)
+
+
+def held_ms(fn, reps: int = 20, rounds: int = 3) -> float:
+    """Milliseconds of one call of ``fn`` on the card: ``reps`` calls
+    enqueued while a sleep kernel holds the card, so they run back to
+    back whatever the host's pace (a launch of a few tens of
+    microseconds takes about as long to call); the best of ``rounds``."""
+    import torch
+    from repro_torch.compat import cuda_sleep
+    fn()
+    best = None
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        cuda_sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+        best = ms if best is None else min(best, ms)
+    return best
+
+
+def wave_flush_phase(ctx, ptxas: dict) -> dict:
+    """``rotseq_wave`` at an eigensolver's flush ``(EIG_N, EIG_N,
+    EIG_K_DELAY)``, float32, at each compiled band: the launch held bit
+    for bit to its plain version at that band, timed alone on the card
+    (``held_ms``) and back to back, its ``plan.apply``; beside them
+    ``cuda_mxu`` 64/32's ``plan.apply`` at the same point and
+    ``torch.matmul`` of two ``EIG_N²`` matrices (TF32 off); the bound;
+    each band's ptxas registers; the model's ranking there.  Returns the
+    small band's kernels-line entry."""
+    import torch
+    from repro_torch import random_sequence
+    from repro_torch.core import registry
+    from repro_torch.kernels.limits import (WAVE_BANDS, WAVE_SMALL_KB,
+                                            WAVE_WARPS)
+    from repro_torch.kernels.rotseq import kernel as wave_k
+    from repro_torch.kernels.rotseq.ref import rotseq_wave_ref
+    dev = ctx["A"].device
+    n, k = EIG_N, EIG_K_DELAY
+    gen = torch.Generator().manual_seed(SEED + 35)
+    A = torch.randn((n, n), generator=gen).to(dev)
+    B = torch.randn((n, n), generator=gen).to(dev)
+    seq = random_sequence(n, k, generator=gen, device=dev)
+    args = pack_wave(A, seq.cos, seq.sin)
+    b_ms, b_by = bound(6.0 * n * (n - 1) * k,
+                       4.0 * (2 * n * n + 3 * (n - 1) * k))
+    regs = wave_instances(ptxas)
+    bands = {}
+    for kb in WAVE_BANDS:
+        o_k = wave_k.rotseq_wave(*args, k_b=kb)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        o_p = rotseq_wave_ref(*args, k_b=kb)
+        end.record()
+        torch.cuda.synchronize()
+        check(torch.equal(o_k, o_p), f"rotseq_wave k_b={kb} != plain "
+              f"version at the eig flush")
+        pl = seq.plan(like=A, method="cuda_wave", k_b=kb)
+        check(torch.equal(pl.apply(A), o_p.t()),
+              f"cuda_wave k_b={kb} plan.apply != plain version")
+        rep = regs[f"kb{kb}/w{WAVE_WARPS}"]
+        bands[kb] = dict(
+            ms=held_ms(lambda: wave_k.rotseq_wave(*args, k_b=kb)),
+            ms_back_to_back=time_ms(lambda: wave_k.rotseq_wave(
+                *args, k_b=kb), 20),
+            plain_ms=start.elapsed_time(end),
+            apply_ms=time_ms(lambda: pl.apply(A), 20),
+            apply_held_ms=held_ms(lambda: pl.apply(A)),
+            max_abs_err=max_abs(o_k, o_p), registers=rep.get("registers"),
+            spill_bytes=rep.get("spill_stores", 0) + rep.get("spill_loads",
+                                                             0))
+    mxu = seq.plan(like=A, method="cuda_mxu", n_b=64, k_b=32)
+    mxu_ms = time_ms(lambda: mxu.apply(A), 20)
+    mxu_held = held_ms(lambda: mxu.apply(A))
+    matmul_ms = time_ms(lambda: torch.matmul(A, B), 20)
+    ranked = registry._modeled_plans(registry.Problem(m=n, n=n, k=k))
+    small, default = bands[WAVE_SMALL_KB], bands[16]
+    emit(phase="rotseq_wave_flush", m=n, n=n, k=k, warps=WAVE_WARPS,
+         bands={f"kb{kb}": row for kb, row in bands.items()},
+         bound_ms=b_ms, bound_by=b_by,
+         cuda_mxu_64_32_apply_ms=mxu_ms,
+         cuda_mxu_64_32_apply_held_ms=mxu_held, matmul_ms=matmul_ms,
+         model=[{"method": pl.method, "tiles": tiles_of(pl),
+                 "est_ms": pl.est_seconds * 1e3} for pl in ranked[:5]],
+         default_over_small=default["ms"] / small["ms"],
+         mxu_over_small_apply=mxu_ms / small["apply_ms"])
+    return dict(
+        name=f"rotseq_wave_kb{WAVE_SMALL_KB}", route="cuda",
+        source="src/repro_torch/csrc/rotseq_wave.cu",
+        replaces="src/repro/kernels/rotseq/kernel.py:72",
+        max_abs_err=small["max_abs_err"], ms=small["ms"],
+        plain_ms=small["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+        library_ms=matmul_ms, band=WAVE_SMALL_KB,
+        shape=[n, n, k])
 
 
 def mxu_instances(ptxas: dict) -> dict:
@@ -887,22 +1050,16 @@ def wave_half_phase(hctx, ptxas: dict) -> dict:
     its plain version at the paper shape, the ragged signed problem, the
     small one and, as bit views, the special-value case; one launch an
     application; time it beside its plain version and ``torch.matmul`` in
-    that dtype, and its plane rate as ``core/registry.py`` prices it;
+    that dtype, and the launch as ``core/registry.py`` prices it;
     count its conversions; fail on a spill of any instantiation.  Returns
     the kernels line's entries."""
     import torch
-    from repro_torch.core.registry import _row_chain_seconds
-    from repro_torch.kernels.limits import WAVE_KB, WAVE_WARPS
+    from repro_torch.core.registry import _wave_launch_seconds
+    from repro_torch.kernels.limits import (WAVE_KB, WAVE_SMALL_KB,
+                                            WAVE_WARPS)
     from repro_torch.kernels.rotseq import kernel as wave_k
     from repro_torch.kernels.rotseq.ops import rot_sequence_wave
     from repro_torch.kernels.rotseq.ref import rotseq_wave_ref
-    # the plane chain the cost model prices at the paper shape (its
-    # cost_cuda_wave): a warp's share of a row's padded bands, the row
-    # groups' warps queueing past the card's resident rows
-    bands = -(-K // WAVE_KB)
-    warps = min(WAVE_WARPS, bands)
-    chain = _row_chain_seconds((N - 1) * bands * WAVE_KB / warps,
-                               M * warps, 1.0)
     rows, entries = {}, {}
     for tag, h in hctx.items():
         A, C, S = h["A"], h["C"], h["S"]
@@ -926,6 +1083,7 @@ def wave_half_phase(hctx, ptxas: dict) -> dict:
                   f"rotseq_wave {tag} != plain version on the {name} "
                   f"problem")
         ms = time_ms(lambda: wave_k.rotseq_wave(*args), 5)
+        small = small_band_checks(h, tag, A, C, S, o_p)
         before = wave_k.LAUNCHES
         out_w = rot_sequence_wave(A, C, S)
         torch.cuda.synchronize()
@@ -947,7 +1105,16 @@ def wave_half_phase(hctx, ptxas: dict) -> dict:
                          bound_by=b_by,
                          special_values=wave_special_case(tag, h["dtype"],
                                                           A.device),
-                         paper_plane_seconds=ms * 1e-3 / chain)
+                         model_ms=_wave_launch_seconds(
+                             M, N, K, WAVE_KB, HALF[tag]) * 1e3,
+                         small_band={
+                             "kb": WAVE_SMALL_KB,
+                             "bitwise_vs_plain": ["ragged", "small",
+                                                  "special"],
+                             "special_values": wave_special_case(
+                                 tag, h["dtype"], A.device,
+                                 k_b=WAVE_SMALL_KB),
+                             **small})
         entries[f"rotseq_wave_{tag}"] = dict(
             name=f"rotseq_wave_{tag}", route="cuda",
             source="src/repro_torch/csrc/rotseq_wave.cu",
@@ -957,8 +1124,10 @@ def wave_half_phase(hctx, ptxas: dict) -> dict:
     regs = wave_instances(ptxas)
     no_spills(regs, "rotseq_wave")
     for tag in HALF:
-        check(f"kb{WAVE_KB}/w{WAVE_WARPS}/{tag}" in regs,
-              f"no {tag} instantiation of rotseq_wave in the ptxas report")
+        for kb in (WAVE_KB, WAVE_SMALL_KB):
+            check(f"kb{kb}/w{WAVE_WARPS}/{tag}" in regs,
+                  f"no {tag} k_b={kb} instantiation of rotseq_wave in the "
+                  f"ptxas report")
     emit(phase="rotseq_wave_half", m=M, n=N, k=K, kb=WAVE_KB,
          warps=WAVE_WARPS, dtypes=rows,
          bitwise_vs_plain=["paper", "ragged", "small", "special"],
@@ -979,8 +1148,10 @@ def same_bits(a, b) -> bool:
 # results overflow the type, one whose products land in its subnormals
 HALF_SPECIAL = {"bf16": (0x7FC1, 3.0e38, 3.0e-39),
                 "f16": (0x7E01, 6.0e4, 3.0e-5)}
-# the wave's special-value case: rows no multiple of 8, two passes
-WAVE_SPECIAL = (1021, 1000, 200)
+# the wave's special-value case: rows no multiple of 8, two passes, the
+# last band padded; by band (200 waves are five passes at the small band,
+# four times the plain version's steps: 50 are two)
+WAVE_SPECIAL = {16: (1021, 1000, 200), 4: (1021, 1000, 50)}
 # planes j < SPECIAL_EDGE and j >= n - 1 - SPECIAL_EDGE are the identity
 # in every wave of the special-value case: those columns lie outside
 # every hull
@@ -1048,17 +1219,18 @@ def batched_special_case(A, seqs, tag: str) -> dict:
     return dict(bitwise_vs_plain=True, outside_hulls_kept=True, **found)
 
 
-def wave_special_case(tag: str, dtype, dev) -> dict:
-    """``rotseq_wave`` at ``WAVE_SPECIAL`` (rows no multiple of 8: warp
-    0's columns by plain loads; two passes of 12 bands) on targets with
-    NaN (with a payload), +-inf, -0.0, overflowing and subnormal-making
-    values, the edge planes the identity in every wave: kernel and plain
-    version equal as bit views."""
+def wave_special_case(tag: str, dtype, dev, k_b: int = 16) -> dict:
+    """``rotseq_wave`` at ``WAVE_SPECIAL[k_b]`` (rows no multiple of 8:
+    warp 0's columns by plain loads; two passes of 12 bands, the last
+    padded) on targets with NaN (with a payload), +-inf, -0.0,
+    overflowing and subnormal-making values, the edge planes the
+    identity in every wave, at bands of ``k_b`` waves: kernel and plain
+    version at that band equal as bit views."""
     import torch
     from repro_torch import random_sequence
     from repro_torch.kernels.rotseq import kernel as wave_k
     from repro_torch.kernels.rotseq.ref import rotseq_wave_ref
-    m, n, k = WAVE_SPECIAL
+    m, n, k = WAVE_SPECIAL[k_b]
     gen = torch.Generator().manual_seed(SEED + 33)
     seq = random_sequence(n, k, generator=gen, device=dev, dtype=dtype)
     C, S = seq.cos.clone(), seq.sin.clone()
@@ -1067,11 +1239,12 @@ def wave_special_case(tag: str, dtype, dev) -> dict:
     X = torch.randn((1, m, n), generator=gen).to(dev, dtype)
     A = special_targets(X, tag, SEED + 34)[0]
     args = pack_wave(A, C, S)
-    o_k = wave_k.rotseq_wave(*args)
-    o_p = rotseq_wave_ref(*args)
+    o_k = wave_k.rotseq_wave(*args, k_b=k_b)
+    o_p = rotseq_wave_ref(*args, k_b=k_b)
     torch.cuda.synchronize()
     check(same_bits(o_k, o_p),
-          f"rotseq_wave {tag} special values: bits != plain version")
+          f"rotseq_wave {tag} k_b={k_b} special values: bits != plain "
+          f"version")
     out = o_k.float()
     found = dict(nan=int(torch.isnan(out).sum()),
                  inf=int(torch.isinf(out).sum()),
@@ -1079,17 +1252,19 @@ def wave_special_case(tag: str, dtype, dev) -> dict:
                      dtype).tiny)).sum()),
                  negative_zero=int(((out == 0) & torch.signbit(out)).sum()))
     check(found["nan"] and found["subnormal"] and found["negative_zero"],
-          f"rotseq_wave {tag} special case lacks a kind of value: {found}")
-    return dict(shape=[m, n, k], bitwise_vs_plain=True, **found)
+          f"rotseq_wave {tag} k_b={k_b} special case lacks a kind of "
+          f"value: {found}")
+    return dict(shape=[m, n, k], k_b=k_b, bitwise_vs_plain=True, **found)
 
 
 def sass_half(kernel: str) -> dict:
     """Opcode counts of ``kernel``'s instantiations (``rotseq_wave``,
-    ``rotseq_batched``; ``tools/sass_ops.py``): conversions, paired half
-    ops and widenings in all and a plane (the unrolled chunk holds
-    ``kChunkPlanes`` = 128; the whole function's count over 128 bounds
-    what a plane issues from above); fail past 4 conversions a plane or
-    on bfloat16's ``F2F``."""
+    ``rotseq_batched``; ``tools/sass_ops.py``; the wavefront kernel's
+    small band tagged ``kb4/``): conversions, paired half ops and
+    widenings in all and a plane (the unrolled chunk holds ``kChunkPlanes``
+    = 128 planes at a band of 16, 32 at 4; the whole function's count
+    over those bounds what a plane issues from above); fail past 4
+    conversions a plane or on bfloat16's ``F2F``."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "sass_ops", ROOT / "tools" / "sass_ops.py")
@@ -1097,22 +1272,31 @@ def sass_half(kernel: str) -> dict:
     spec.loader.exec_module(sass)
     out = {}
     for name, ops in sass.functions(rf"{kernel}_kernel").items():
-        m = re.search(rf"{kernel}_kernelILi\d+ELi\d+E" + _MANGLED_TYPE,
+        m = re.search(rf"{kernel}_kernelILi(\d+)ELi\d+E" + _MANGLED_TYPE,
                       name)
-        tag = _TYPE_TAG[m.group(1)][1:] or "f32"
+        band = int(m.group(1))
+        # the unrolled chunk's planes: band x min(2 band, 128 / band)
+        planes = band * min(2 * band, 128 // band)
+        tag = _TYPE_TAG[m.group(2)][1:] or "f32"
+        if band != 16:   # the wavefront kernel's small band
+            tag = f"kb{band}/{tag}"
         conv = sass.conversions(ops)
         out[tag] = dict(instructions=sum(ops.values()), **conv,
-                        conversions_a_plane=conv["conversion_total"] / 128,
-                        paired_a_plane=conv["paired_total"] / 128,
-                        widenings_a_plane=conv["widening_total"] / 128,
+                        chunk_planes=planes,
+                        conversions_a_plane=conv["conversion_total"] / planes,
+                        paired_a_plane=conv["paired_total"] / planes,
+                        widenings_a_plane=conv["widening_total"] / planes,
                         fmul=ops.get("FMUL", 0), fadd=ops.get("FADD", 0))
-    for tag in HALF:
-        check(out[tag]["conversions_a_plane"] <= 4.0,
-              f"{kernel} {tag}: {out[tag]['conversions_a_plane']} "
-              f"conversions a plane")
-    check(not any(op.startswith("F2F.BF16")
-                  for op in out["bf16"]["conversions"]),
-          f"{kernel} bf16 rounds on F2F: {out['bf16']['conversions']}")
+    for tag, row in out.items():
+        if tag.endswith(tuple(HALF)):
+            check(row["conversions_a_plane"] <= 4.0,
+                  f"{kernel} {tag}: {row['conversions_a_plane']} "
+                  f"conversions a plane")
+        if tag.endswith("bf16"):
+            check(not any(op.startswith("F2F.BF16")
+                          for op in row["conversions"]),
+                  f"{kernel} {tag} rounds on F2F: {row['conversions']}")
+    check(all(tag in out for tag in HALF), f"{kernel}: no half SASS")
     return out
 
 
@@ -1374,28 +1558,17 @@ def mxu_sweep_turns(h, rounds: int = 4, reps: int = 3) -> dict:
     """``{(n_b, k_b): ms}``: each ``MXU_SWEEP`` tiling's application to
     ``h``'s paper-shape target on the card, the best of ``rounds``, the
     tilings in turns (in order, then reversed).  A round's ``reps``
-    applications are enqueued while a sleep kernel holds the card, so
+    applications are held behind a sleep kernel (:func:`held_ms`), so
     they run back to back: the card's time, not the host's pace (the
     host's calls for a band take about as long as its launches at 64/64,
     and their time moves with the host's load)."""
-    import torch
-    from repro_torch.compat import cuda_sleep
     from repro_torch.kernels.rotseq_mxu.ops import rot_sequence_mxu
     best = {}
     for r in range(rounds):
         for tiles in (MXU_SWEEP if r % 2 == 0 else MXU_SWEEP[::-1]):
             key = (tiles["n_b"], tiles["k_b"])
-            rot_sequence_mxu(h["A"], h["C"], h["S"], **tiles)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            cuda_sleep(SLEEP_CYCLES)
-            start.record()
-            for _ in range(reps):
-                rot_sequence_mxu(h["A"], h["C"], h["S"], **tiles)
-            end.record()
-            torch.cuda.synchronize()
-            ms = start.elapsed_time(end) / reps
+            ms = held_ms(lambda: rot_sequence_mxu(h["A"], h["C"], h["S"],
+                                                  **tiles), reps, rounds=1)
             best[key] = min(best.get(key, ms), ms)
     return best
 
@@ -1704,18 +1877,27 @@ def plain_of(method: str) -> str:
 def plain_replay(buf, recordings, what: str) -> dict:
     """Flush ``recordings`` (host ``(C, S)`` pairs in push order) into a
     fresh identity through the plain version of ``buf``'s pick, at its
-    tiles, on the card, and hold ``buf``'s accumulator to the result."""
+    tiles, on the card, and hold ``buf``'s accumulator to the result.
+    A ``cuda_wave`` pick is replayed at the default band whatever its
+    own: the blocked plain version's values are every band's on finite
+    targets (``tests/test_torch_wave.py``; signed zeros aside, which
+    ``torch.equal`` takes as equal), and at the small band it walks four
+    times the steps."""
     import torch
     from repro_torch import RotationSequence
     from repro_torch.eig import DelayedRotationBuffer
+    from repro_torch.kernels.limits import WAVE_KB
     (plan,) = buf._plans.values()
     check(plan.method in KERNEL_OF, f"{what}: auto planned {plan.method}")
     got = buf.value
     plain = plain_of(plan.method)
+    tiles = dict(plan.kwargs)
+    if plan.method == "cuda_wave":
+        tiles["k_b"] = WAVE_KB
     eye = torch.eye(got.shape[-1], dtype=got.dtype, device=got.device)
     t0 = timing.now()
     pbuf = DelayedRotationBuffer(eye, k_delay=buf.k_delay, method=plain,
-                                 **dict(plan.kwargs))
+                                 **tiles)
     for C, S in recordings:
         pbuf.push_sequence(RotationSequence(torch.from_numpy(C),
                                             torch.from_numpy(S)))
@@ -1725,8 +1907,49 @@ def plain_replay(buf, recordings, what: str) -> dict:
     err = same_family(got, want, [plan.method],
                       f"{what}: {plan.method} flushes vs {plain}")
     return dict(method=plan.method, tiles=dict(plan.kwargs),
-                flushes=buf.flushes, plain=plain, plain_flush_ms=ms,
-                err_vs_plain=err)
+                flushes=buf.flushes, plain=plain, plain_tiles=tiles,
+                plain_flush_ms=ms, err_vs_plain=err)
+
+
+def reset_launches(kernels) -> None:
+    """Every kernel's launch count to 0, the wavefront kernel's by band
+    too."""
+    for k in kernels.values():
+        k.LAUNCHES = 0
+        for band in getattr(k, "BAND_LAUNCHES", {}):
+            k.BAND_LAUNCHES[band] = 0
+
+
+def band_launches(kernels) -> dict:
+    """The wavefront kernel's launches by band since the last reset."""
+    wave = kernels.get("rotseq_wave")
+    return {f"kb{b}": n for b, n in getattr(wave, "BAND_LAUNCHES",
+                                            {}).items()}
+
+
+def flush_device_ms(plan, C, S, target, want, what: str) -> float:
+    """Milliseconds on the card of the flushes of ``(C, S)`` (host
+    arrays, in push order) into ``target`` through ``plan`` (rebound a
+    flush of ``EIG_K_DELAY`` waves, the last padded to it), back to back
+    from ``target``, once held to ``want`` (the buffer's value), then
+    timed."""
+    import torch
+    from repro_torch import RotationSequence
+    dev = target.device
+    chunks = [plan.rebind(RotationSequence(
+        torch.from_numpy(C[:, i:i + EIG_K_DELAY]).float().to(dev),
+        torch.from_numpy(S[:, i:i + EIG_K_DELAY]).float().to(dev)).pad_to(
+            EIG_K_DELAY)) for i in range(0, C.shape[1], EIG_K_DELAY)]
+
+    def run():
+        out = target
+        for pl in chunks:
+            out = (pl.apply_batched(out, direct=True) if out.ndim == 3
+                   else pl.apply_direct(out))
+        return out
+
+    same_family(run(), want, [plan.method], f"{what}: flushes back to back")
+    return time_ms(run, 3)
 
 
 def eig_qr(dev, kernels) -> dict:
@@ -1739,14 +1962,12 @@ def eig_qr(dev, kernels) -> dict:
     import numpy as np
     import torch
     import repro_torch.eig.api as eig_api
-    from repro_torch import RotationSequence
     from repro_torch.eig import eigh_givens
     n = EIG_N
     rng = np.random.default_rng(SEED + 5)
     X = rng.standard_normal((n, n)).astype(np.float32)
     H = (X + X.T) / 2
-    for k in kernels.values():
-        k.LAUNCHES = 0
+    reset_launches(kernels)
     t0 = timing.now()
     with recorded(eig_api, "tridiagonalize", "tridiag_qr",
                   "DelayedRotationBuffer") as seen:
@@ -1755,6 +1976,7 @@ def eig_qr(dev, kernels) -> dict:
         torch.cuda.synchronize()
     eigh_s = timing.now() - t0
     counts = {name: k.LAUNCHES for name, k in kernels.items()}
+    bands = band_launches(kernels)
     ((tri_s, tri),) = seen["tridiagonalize"]
     ((qr_s, qr),) = seen["tridiag_qr"]
     ((_, buf),) = seen["DelayedRotationBuffer"]
@@ -1787,21 +2009,8 @@ def eig_qr(dev, kernels) -> dict:
           f"{KERNEL_OF[plan.method]} never launched during the eig flushes")
     V_raw = buf.value
     # the flushes' applications alone, back to back on the device
-    chunks = [plan.rebind(RotationSequence(
-        torch.from_numpy(C[:, i:i + EIG_K_DELAY]).float().to(dev),
-        torch.from_numpy(S[:, i:i + EIG_K_DELAY]).float().to(dev)).pad_to(
-            EIG_K_DELAY)) for i in range(0, waves, EIG_K_DELAY)]
-    eye = torch.eye(n, device=dev)
-
-    def run():
-        out = eye
-        for pl in chunks:
-            out = pl.apply_direct(out)
-        return out
-
-    same_family(run(), V_raw, [plan.method], "flushes back to back")
-    device_ms = time_ms(run, 3)
-    del chunks
+    device_ms = flush_device_ms(plan, C, S, torch.eye(n, device=dev), V_raw,
+                                "eigh_qr")
 
     Hd = torch.from_numpy(H).to(dev)
     lib_ms = time_ms(lambda: torch.linalg.eigh(Hd), 3)
@@ -1812,12 +2021,14 @@ def eig_qr(dev, kernels) -> dict:
          host_s={"tridiagonalize": tri_s, "tridiag_qr": qr_s},
          waves={"tridiagonalize": tri.cos.shape[1], "tridiag_qr": qr.sweeps},
          live_planes=live, plan=replay, eigh_givens_s=eigh_s,
-         launches=counts, flush_wall_ms=wall_ms, flush_device_ms=device_ms,
+         launches=counts, wave_launches_by_band=bands,
+         flush_wall_ms=wall_ms, flush_device_ms=device_ms,
          device_ms_per_flush=device_ms / buf.flushes, bound_ms=b_ms,
          bound_by=b_by, bound_live_ms=live_ms, bound_live_by=live_by,
          torch_linalg_eigh_ms=lib_ms, eigenvalue_err=w_err, scale=scale,
          orth_err=orth, residual=resid, tol=EIG_TOL)
-    return dict(C=C, S=S, V_raw=V_raw, method=plan.method)
+    return dict(C=C, S=S, V_raw=V_raw, method=plan.method,
+                wave_launches_by_band=bands)
 
 
 def eig_svd(dev, kernels) -> None:
@@ -1832,8 +2043,7 @@ def eig_svd(dev, kernels) -> None:
     m, n = SVD_SHAPE
     A = np.random.default_rng(SEED + 6).standard_normal((m, n)).astype(
         np.float32)
-    for k in kernels.values():
-        k.LAUNCHES = 0
+    reset_launches(kernels)
     t0 = timing.now()
     with recorded(eig_api, "bidiagonalize", "bidiag_qr",
                   "DelayedRotationBuffer") as seen:
@@ -1841,6 +2051,7 @@ def eig_svd(dev, kernels) -> None:
         torch.cuda.synchronize()
     svd_s = timing.now() - t0
     counts = {name: k.LAUNCHES for name, k in kernels.items()}
+    bands = band_launches(kernels)
     ((bd_s, bd),) = seen["bidiagonalize"]
     ((bq_s, bq),) = seen["bidiag_qr"]
     (_, ubuf), (_, vbuf) = seen["DelayedRotationBuffer"]
@@ -1858,16 +2069,28 @@ def eig_svd(dev, kernels) -> None:
     rec = float((Ud @ torch.diag(s.double()) @ Vd - A64).abs().max())
     check(rec <= EIG_TOL * smax, f"svd reconstruction {rec}")
     # the recordings each buffer was pushed, in svd_givens' order
-    left = plain_replay(ubuf, [
+    records = {"left": [
         (bd.cos_left, bd.sin_left),
         (eig_api._embed_planes(bq.cos_left, m - 1, 1.0),
-         eig_api._embed_planes(bq.sin_left, m - 1, 0.0))], "svd left")
-    right = plain_replay(vbuf, [(bd.cos_right, bd.sin_right),
-                                (bq.cos_right, bq.sin_right)], "svd right")
+         eig_api._embed_planes(bq.sin_left, m - 1, 0.0))],
+        "right": [(bd.cos_right, bd.sin_right),
+                  (bq.cos_right, bq.sin_right)]}
+    left = plain_replay(ubuf, records["left"], "svd left")
+    right = plain_replay(vbuf, records["right"], "svd right")
     for side in (left, right):
         check(counts[KERNEL_OF[side["method"]]] > 0,
               f"{KERNEL_OF[side['method']]} never launched during the svd "
               f"flushes")
+    # each side's flushes alone, back to back on the device
+    device_ms = 0.0
+    for side, buf in (("left", ubuf), ("right", vbuf)):
+        (plan,) = buf._plans.values()
+        C, S = (np.concatenate([r[i] for r in records[side]], 1)
+                for i in (0, 1))
+        got = buf.value
+        device_ms += flush_device_ms(
+            plan, C, S, torch.eye(got.shape[-1], device=dev), got,
+            f"svd {side}")
     Ad = A64.float()
     lib_ms = time_ms(lambda: torch.linalg.svd(Ad, full_matrices=False), 3)
     emit(phase="eig", part="svd", shape=[m, n], k_delay=EIG_K_DELAY,
@@ -1876,7 +2099,10 @@ def eig_svd(dev, kernels) -> None:
                 "right": bd.cos_right.shape[1] + bq.sweeps},
          flushes=ubuf.flushes + vbuf.flushes, plan={"left": left,
                                                     "right": right},
-         svd_givens_s=svd_s, launches=counts, sv_err=s_err, s_max=smax,
+         svd_givens_s=svd_s, launches=counts, wave_launches_by_band=bands,
+         flush_device_ms=device_ms,
+         device_ms_per_flush=device_ms / (ubuf.flushes + vbuf.flushes),
+         sv_err=s_err, s_max=smax,
          orth_err=orth, reconstruction_err=rec, tol=EIG_TOL,
          torch_linalg_svd_ms=lib_ms)
 
@@ -1895,8 +2121,7 @@ def eig_jacobi(dev, kernels) -> None:
     X = np.random.default_rng(SEED + 7).standard_normal((n, n)).astype(
         np.float32)
     H = (X + X.T) / 2
-    for k in kernels.values():
-        k.LAUNCHES = 0
+    reset_launches(kernels)
     t0 = timing.now()
     with recorded(jac, "jacobi_eigh", "jacobi_apply_basis") as seen:
         w, V = eigh_givens(H, method="jacobi", cycles=JACOBI_CYCLES,
@@ -1904,6 +2129,7 @@ def eig_jacobi(dev, kernels) -> None:
         torch.cuda.synchronize()
     seconds = timing.now() - t0
     counts = {name: k.LAUNCHES for name, k in kernels.items()}
+    bands = band_launches(kernels)
     ((loop_s, res),) = seen["jacobi_eigh"]
     ((apply_s, V_raw),) = seen["jacobi_apply_basis"]
     # the plan jacobi_apply_basis resolved (the cost model is
@@ -1922,6 +2148,9 @@ def eig_jacobi(dev, kernels) -> None:
     plain_ms = (timing.now() - t1) * 1e3
     err_plain = same_family(V_raw, V_plain, [plan.method],
                             f"Jacobi basis: {plan.method} vs {plain}")
+    # its one application (the basis's single flush) alone on the device
+    eye = torch.eye(V_raw.shape[-1], device=dev)
+    device_ms = time_ms(lambda: plan.apply_direct(eye), 3)
     ref = np.linalg.eigvalsh(H.astype(np.float64))
     w_err = float(np.abs(w.cpu().double().numpy() - ref).max())
     check(w_err <= 1e-4 * n, f"Jacobi eigenvalues max|d| {w_err}")
@@ -1934,7 +2163,8 @@ def eig_jacobi(dev, kernels) -> None:
     check(resid <= 2e-4 * n, f"Jacobi residual {resid}")
     emit(phase="eig", part="eigh_jacobi", n=n, cycles=JACOBI_CYCLES,
          waves=JACOBI_CYCLES * n, seconds=seconds, loop_s=loop_s,
-         apply_s=apply_s, launches=counts,
+         apply_s=apply_s, launches=counts, wave_launches_by_band=bands,
+         device_ms_per_flush=device_ms,
          plan={"method": plan.method, "tiles": dict(plan.kwargs)},
          plain=plain, plain_ms=plain_ms, err_vs_plain=err_plain,
          eigenvalue_err=w_err, scale=float(np.abs(ref).max()),
@@ -1959,14 +2189,14 @@ def eig_batched(dev, kernels, rec: dict) -> None:
     M = torch.stack([eye[p] for p in perms])
     seq = RotationSequence(torch.from_numpy(rec["C"]),
                            torch.from_numpy(rec["S"]))
-    for k in kernels.values():
-        k.LAUNCHES = 0
+    reset_launches(kernels)
     t0 = timing.now()
     buf = DelayedRotationBuffer(M, k_delay=EIG_K_DELAY)
     out = buf.push_sequence(seq).value
     torch.cuda.synchronize()
     wall_ms = (timing.now() - t0) * 1e3
     counts = {name: k.LAUNCHES for name, k in kernels.items()}
+    bands = band_launches(kernels)
     (plan,) = buf._plans.values()
     check(plan.method in KERNEL_OF, f"auto planned {plan.method} for the "
           f"batched accumulator")
@@ -1980,7 +2210,10 @@ def eig_batched(dev, kernels, rec: dict) -> None:
          plan={"method": plan.method, "tiles": dict(plan.kwargs),
                "route": registry.get_backend(plan.method).capability
                .batch_via},
-         launches=counts, wall_ms=wall_ms, err_vs_2d=err,
+         launches=counts, wave_launches_by_band=bands, wall_ms=wall_ms,
+         device_ms_per_flush=flush_device_ms(
+             plan, rec["C"], rec["S"], M, out, "batched") / buf.flushes,
+         err_vs_2d=err,
          bitwise_vs_2d=err == 0.0)
 
 
@@ -2117,6 +2350,14 @@ def autotune_point(label, sq, X, seqs, model, kernels, seen) -> dict:
         times["pick"], times["model"] = times[best.method], times[model_key]
     # every kernel plan timed here (the model's pick is one too)
     floor = min(alone[name] for name in (*KERNEL_OF, "model"))
+    # the pick's margin in autotune's own measurement: the next-best
+    # candidate over the pick
+    pick_secs = next(secs for p, secs in timed if tiles_of(p) == tiles_of(
+        best) and p.method == best.method)
+    nxt, nxt_secs = min(((p, secs) for p, secs in timed
+                         if (p.method, tiles_of(p)) != (best.method,
+                                                        tiles_of(best))),
+                        key=lambda t: t[1])
     row = dict(
         problem={key: prob[key] for key in ("m", "n", "k", "batch",
                                             "shared_sequence",
@@ -2127,6 +2368,9 @@ def autotune_point(label, sq, X, seqs, model, kernels, seen) -> dict:
                      "ms": secs * 1e3} for p, secs in timed],
         pick={"method": best.method, "tiles": tiles_of(best),
               "ms": best.est_seconds * 1e3},
+        next_best={"method": nxt.method, "tiles": tiles_of(nxt),
+                   "ms": nxt_secs * 1e3},
+        margin=nxt_secs / pick_secs,
         launches=launches, autotune_s=seconds, err_vs_cuda_wave=err,
         apply_ms_alone=alone, apply_ms_back_to_back=b2b,
         pick_vs_fastest_kernel=alone["pick"] / floor,
@@ -2251,6 +2495,7 @@ def autotune_phase(ctx, seq, bctx, rec, kernels) -> None:
     import torch
     from repro_torch import RotationSequence
     from repro_torch.core import registry
+    from repro_torch.kernels.limits import WAVE_BANDS
     dev = ctx["A"].device
     t0 = timing.now()
     points = {label: (sq, X, None)
@@ -2272,6 +2517,13 @@ def autotune_phase(ctx, seq, bctx, rec, kernels) -> None:
         rows = {label: autotune_point(label, sq, X, seqs, model[label],
                                       kernels, seen)
                 for label, (sq, X, seqs) in points.items()}
+        # the eig flush: every band of the wavefront kernel a candidate
+        flush = rows[f"eig flush {EIG_N}^2 k{EIG_K_DELAY}"]
+        timed_bands = sorted(c["tiles"].get("k_b") for c in flush[
+            "candidates"] if c["method"] == "cuda_wave")
+        check(timed_bands == sorted(WAVE_BANDS),
+              f"autotune at the eig flush timed cuda_wave at "
+              f"{timed_bands}, not every band {WAVE_BANDS}")
         persistence = autotune_persistence(points, dev.type, seen)
         entry = autotune_entry_points(bctx, rec, seen)
     emit(phase="autotune", autotune_top=AUTOTUNE_TOP, slack=AUTOTUNE_SLACK,
@@ -4302,10 +4554,11 @@ def main() -> int:
 
 
 def run() -> int:
-    global timing
+    global timing, RUN_START
     import torch
     sys.path.insert(0, str(SRC))
     from repro_torch.obs import timing
+    t_run = RUN_START = timing.now()
     from repro_torch import RotationSequence, random_sequence
     from repro_torch.core.accumulate import rot_sequence_accumulated
     from repro_torch.core.blocked import rot_sequence_blocked
@@ -4369,6 +4622,7 @@ def run() -> int:
     # -- the two tiled kernels at the paper's configuration ---------------
     entries = {"rotseq_wave": wave_phase(ctx, ptxas),
                "rotseq_mxu": mxu_phase(ctx, ptxas)}
+    small_wave = wave_flush_phase(ctx, ptxas)
     BEST_TILES["cuda_mxu"] = entries["rotseq_mxu"]["best"]
 
     # -- main path: plan(like=A).apply(A), auto and both kernels ----------
@@ -4499,6 +4753,12 @@ def run() -> int:
     # -- the eigensolver path: recorded rotations flushed in batches ------
     rec = eig_phase(dev, {"rotseq_wave": wave_k, "rotseq_mxu": mxu_k,
                           "rotseq_batched": batched_k})
+    # the small band's launches: eigh_qr's flushes (the eig path's run)
+    small_wave["launches"] = rec["wave_launches_by_band"][
+        f"kb{small_wave['band']}"]
+    check(small_wave["launches"] > 0, "rotseq_wave at the small band never "
+          "launched during the eig flushes")
+    entries[small_wave["name"]] = small_wave
 
     # -- measured autotune, after every phase that checks auto's pick ------
     autotune_phase(ctx, seq, bctx, rec, {"rotseq_wave": wave_k,
@@ -4594,7 +4854,8 @@ def run() -> int:
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]
-    extra = ["dtype", "launches_by_path"]
+    extra = ["dtype", "band", "shape", "launches_by_path"]
+    emit(phase="total", seconds=timing.now() - t_run)
     print(json.dumps({"kernels": [
         {**{key: e[key] for key in order},
          **{key: e[key] for key in extra if key in e}}

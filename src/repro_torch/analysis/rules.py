@@ -1519,7 +1519,8 @@ class RA405CudaConstantsMirrorLimits(Rule):
 
     # source under csrc/ -> (its constexpr int, the limits name) pairs
     MIRRORS: Dict[str, Tuple[Tuple[str, str], ...]] = {
-        "rotseq_wave": (("kBand", "WAVE_KB"), ("kWarps", "WAVE_WARPS")),
+        "rotseq_wave": (("kBand", "WAVE_KB"), ("kSmallBand", "WAVE_SMALL_KB"),
+                        ("kWarps", "WAVE_WARPS")),
         "rotseq_mxu": (("kRows", "MXU_ROWS"), ("kSlab", "MXU_SLAB")),
         "rotseq_mxu_half": (("kRows", "MXU_HALF_ROWS"),
                             ("kChunk", "MXU_HALF_CHUNK"),

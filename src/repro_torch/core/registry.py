@@ -24,14 +24,16 @@ planes only (``Problem.live_planes``): identity padding from ``pad_to``
 and ``seq.T`` staircases is skipped, not multiplied through.
 
 On the card the two row-parallel kernels (``cuda_wave``, ``cuda_batched``)
-are far from the flop roofline, so there each is also priced by its
-plane rate measured on an H100, by dtype (:data:`_WAVE_PLANE_SECONDS`,
-:data:`_BATCHED_PLANE_SECONDS`: a half plane rounds seven times, and the
-two kernels' half bodies round them differently fast): one lane walks a
-row's planes in order
-(``cuda_wave`` splits them over the warps of its band pipeline), so a
-launch takes the planes of one chain times the time of one, for as many
-rows as the card runs at once (:data:`repro_torch.hw.RESIDENT_ROWS`).
+are far from the flop roofline, so there each is also priced by what was
+measured on an H100, by dtype (a half plane rounds seven times, and the
+two kernels' half bodies round them differently fast).  ``cuda_batched``
+by its plane rate (:data:`_BATCHED_PLANE_SECONDS`): one lane walks a
+row's planes in order, so a launch takes the planes of one chain times
+the time of one, for as many rows as the card runs at once
+(:data:`repro_torch.hw.RESIDENT_ROWS`).  ``cuda_wave`` splits a row's
+bands over the warps of its band pipeline, which walk them in chunks: a
+launch takes its chunk iterations, each a fixed part and its planes
+(:data:`_WAVE_STEP_SECONDS`, fitted at both of its bands).
 
 Measured autotune (``select_plan(..., autotune=True)``) times the top
 modeled plans on the problem's own platform (CUDA events on the card) and
@@ -71,7 +73,9 @@ from repro_torch import obs
 from repro_torch.hw import PLATFORMS, RESIDENT_ROWS, Hardware
 from repro_torch.kernels.limits import (MXU_HALF_CHUNK, MXU_HALF_CLUSTER,
                                         MXU_HALF_ROWS, MXU_ROWS, MXU_SLAB,
-                                        WAVE_KB, WAVE_WARPS, mxu_width)
+                                        WAVE_BANDS, WAVE_KB, WAVE_ROWS,
+                                        WAVE_WARPS, mxu_width,
+                                        wave_chunk_steps, wave_lag)
 
 __all__ = [
     "Hardware", "PLATFORMS", "Problem", "Plan", "Capability", "BackendSpec",
@@ -121,44 +125,109 @@ _MXU_HALF_CHUNK_SECONDS = {"bfloat16": (0.7728e-6, 0.5147e-9),
 # took 0.29-0.37 ms (factors_ms, paced by the host; same card).
 _MXU_BAND_HOST_SECONDS = 0.35e-3
 
-# Time of one plane of one row through each row-parallel kernel's
-# application on the card.  cuda_batched: plan.apply at m = n = 3840,
-# k = 180 (3839 * 180 planes a row, 3840 rows) took 6.62 ms (bands of 16
-# waves, 64 threads a block), measured by chip_smoke.py's main_path phase
-# on an NVIDIA H100 80GB HBM3 at 700 W.  cuda_wave runs the 12 bands of a
-# row group (the last padded to 16 waves) on 12 warps at once, so at that
-# shape a warp's chain is 3839 * 192 / 12 planes and the row groups need
-# 3840 * 12 / 32 warps, 2.7 times the card's resident ones; its one
-# launch took 1.66 ms there (chip_smoke.py's rotseq_wave phase, same
-# card), and the roofline term the model adds (0.30 ms) stands for the
-# transposes around it (plan.apply measured 1.95 ms).  Each rate is
-# fitted at that one shape and was checked on the card only there, at
-# one 1024 x 1024 target and at the 16-request serving bucket; the
-# queueing past the card's resident rows and the per-request loop of
-# wavefront launches are extrapolated.
-# In bfloat16 and float16 each plane rounds each product and sum to the
-# half type (csrc/half_store.cuh).  cuda_batched's half rates are the same
-# plan.apply at the paper shape in each dtype, 9.425 ms in bfloat16 and
-# 14.345 ms in float16, measured by chip_smoke.py's rotseq_batched_half
-# line (paper_apply_ms) on an NVIDIA H100 80GB HBM3 at 700.00 W; they
-# price cuda_mxu's half factor builds too (one half rotseq_batched launch
-# a band).  cuda_wave's are its one launch at that shape, 1.680 ms in
-# bfloat16 and 2.027 ms in float16 (tools/wave_half_ab.py, the same card
-# and limit; chip_smoke.py's rotseq_wave_half line prints the rate its
-# own launch implies, paper_plane_seconds).
-_WAVE_CHAIN = 3839 * 192 / 12 * (3840 * 12 / RESIDENT_ROWS["cuda"])
-_WAVE_PLANE_SECONDS = {"float32": 1.66e-3 / _WAVE_CHAIN,
-                       "bfloat16": 1.680e-3 / _WAVE_CHAIN,
-                       "float16": 2.027e-3 / _WAVE_CHAIN}
+# Time of one plane of one row through the fused batched kernel's
+# application on the card: plan.apply at m = n = 3840, k = 180 (3839 *
+# 180 planes a row, 3840 rows) took 6.62 ms (bands of 16 waves, 64
+# threads a block), measured by chip_smoke.py's main_path phase on an
+# NVIDIA H100 80GB HBM3 at 700 W.  In bfloat16 and float16 each plane
+# rounds each product and sum to the half type (csrc/half_store.cuh): the
+# same plan.apply took 9.425 ms in bfloat16 and 14.345 ms in float16
+# (chip_smoke.py's rotseq_batched_half line, paper_apply_ms, the same card
+# at 700.00 W).  These rates price cuda_mxu's half factor builds too (one
+# half rotseq_batched launch a band).
 _BATCHED_PLANE_SECONDS = {"float32": 6.62e-3 / (3839 * 180),
                           "bfloat16": 9.425e-3 / (3839 * 180),
                           "float16": 14.345e-3 / (3839 * 180)}
 
+# One launch of the wavefront kernel on the card (csrc/rotseq_wave.cu).
+# A block is a row group of WAVE_ROWS rows; its min(WAVE_WARPS, bands)
+# busy warps each walk one band of k_b waves a pass, in chunks of
+# wave_chunk_steps(k_b) steps, wave_lag(k_b) chunks behind the warp
+# before, so a pass is ceil((n + 2 k_b - 2) / steps) + lag * (warps - 1)
+# chunk iterations, each closed by the block's barrier.  An iteration
+# costs a fixed part c (staging the next chunk, the barrier, the
+# hand-offs: latency, whatever its planes) and s a plane for its k_b *
+# steps planes times the busy warps that share one of an SM's
+# _SCHEDULERS schedulers (a warp alone waits on its chain; three take
+# turns); row groups past one an SM queue.  At few bands the fixed part
+# rules: at k = 32 the default band runs 2 warps through 137 iterations
+# of 128 planes, the small band 8 warps through 143 of 32.
+# (c, s) by dtype are fitted to the launches of _WAVE_LAUNCHES, in ms by
+# (M, n, K, k_b): the paper shape, the ragged problem and (float32) an
+# eigensolver's flush at both bands, timed by chip_smoke.py's rotseq_wave,
+# rotseq_wave_flush and rotseq_wave_half lines, the middle of five whole
+# runs on an NVIDIA H100 80GB HBM3 at 700.00 W; through the paper shape's
+# launch at the default band exactly, least squares in relative error at
+# the others.  The fit holds every float32 launch within 7% (the flush
+# at the two bands 0.214 and 0.169 ms, against 0.221 and 0.163) and the
+# half ones within 8%, but the ragged problem's at the default band,
+# which it prices short: 0.237 against 0.271 ms in bfloat16, 0.310
+# against 0.402 in float16.
+# cost_cuda_wave's roofline term (0.30 ms at the paper shape) stands for
+# the transposes around the launch (plan.apply measured 1.95 ms there).
+_SCHEDULERS = 4
+_WAVE_LAUNCHES = {
+    "float32": {(1024, 1024, 32, 16): 0.2206, (1024, 1024, 32, 4): 0.1633,
+                (3840, 3840, 180, 16): 1.658, (3840, 3840, 180, 4): 2.757,
+                (3000, 1000, 37, 16): 0.2327, (3000, 1000, 37, 4): 0.1915},
+    "bfloat16": {(3840, 3840, 180, 16): 1.700, (3840, 3840, 180, 4): 2.930,
+                 (3000, 1000, 37, 16): 0.2710, (3000, 1000, 37, 4): 0.2106},
+    "float16": {(3840, 3840, 180, 16): 2.046, (3840, 3840, 180, 4): 3.860,
+                (3000, 1000, 37, 16): 0.4020, (3000, 1000, 37, 4): 0.2727}}
+_WAVE_ANCHOR = (3840, 3840, 180, WAVE_KB)
 
-def _plane_seconds(rates: dict, dtype: str) -> float:
-    """A row-parallel kernel's measured plane rate (``rates``, by dtype)
-    for targets of ``dtype``: the float32 one for a dtype it was not
-    measured in."""
+
+def _wave_walk(m: float, n: int, k: int, k_b: int) -> Tuple[float, int]:
+    """One wavefront launch over ``m`` rows at bands of ``k_b`` waves:
+    the chunk iterations of a row group's walk, times the queue of row
+    groups past one an SM, and the planes an iteration issues on one
+    scheduler."""
+    steps = wave_chunk_steps(k_b)
+    bands = math.ceil(k / k_b)
+    warps = max(1, min(WAVE_WARPS, bands))
+    passes = math.ceil(bands / WAVE_WARPS)
+    iters = passes * (math.ceil((n + 2 * k_b - 2) / steps)
+                      + wave_lag(k_b) * (warps - 1))
+    queue = max(1.0, math.ceil(m / WAVE_ROWS) / _SMS)
+    return iters * queue, k_b * steps * math.ceil(warps / _SCHEDULERS)
+
+
+def _fit_wave_steps(launches: dict) -> Tuple[float, float]:
+    """``(c, s)`` of :func:`_wave_launch_seconds` fitted to ``launches``
+    (ms by ``(M, n, K, k_b)``): through the paper shape's launch at the
+    default band (the main path's) exactly, least squares in relative
+    error at the others."""
+    it0, pl0 = _wave_walk(*_WAVE_ANCHOR)
+    t0 = launches[_WAVE_ANCHOR] * 1e-3 / it0     # c + s * pl0
+    a, b = [], []
+    for key, ms in launches.items():
+        if key != _WAVE_ANCHOR:
+            iters, planes = _wave_walk(*key)
+            a.append(iters * (planes - pl0) / (ms * 1e-3))
+            b.append(1.0 - iters * t0 / (ms * 1e-3))
+    a, b = np.array(a), np.array(b)
+    s = float(a @ b / (a @ a))
+    return t0 - pl0 * s, s
+
+
+_WAVE_STEP_SECONDS = {dtype: _fit_wave_steps(launches)
+                      for dtype, launches in _WAVE_LAUNCHES.items()}
+
+
+def _wave_launch_seconds(m: float, n: int, k: int, k_b: int,
+                         dtype: str) -> float:
+    """Seconds of one wavefront launch on the card over ``m`` rows at
+    bands of ``k_b`` waves, targets of ``dtype``
+    (:data:`_WAVE_STEP_SECONDS`)."""
+    iters, planes = _wave_walk(m, n, k, k_b)
+    c, s = _plane_seconds(_WAVE_STEP_SECONDS, dtype)
+    return iters * (c + s * planes)
+
+
+def _plane_seconds(rates: dict, dtype: str):
+    """A row-parallel kernel's measured rate (``rates``, by dtype) for
+    targets of ``dtype``: the float32 one for a dtype it was not measured
+    in."""
     return rates.get(dtype, rates["float32"])
 
 
@@ -348,8 +417,12 @@ def _roofline_seconds(flop_term: float, byte_term: float) -> float:
 
 
 def _eager_factor(p: Problem) -> float:
-    """The plain backends on the card are eager step loops, not kernels."""
-    return _OFF_DEVICE_PENALTY if p.platform == "cuda" else 1.0
+    """The plain backends on the card are eager step loops, not kernels:
+    penalised once for each of the ``k`` waves they step through at least,
+    so no kernel's price, however many passes it walks, falls above
+    theirs (one factor for every plain backend: their order among
+    themselves stands)."""
+    return _OFF_DEVICE_PENALTY * max(1, p.k) if p.platform == "cuda" else 1.0
 
 
 _ZERO_SPLIT = {"setup_flops": 0.0, "setup_bytes": 0.0,
@@ -524,24 +597,22 @@ def cost_cuda_wave(p: Problem, plan: Plan) -> float:
 
     ``supports_vmap=False``: a per-request batch runs as separate
     launches, so the latency floor multiplies by the sequence count.  On
-    the card each launch also costs its measured plane rate over its
-    band pipeline: the padded bands of ``WAVE_KB`` waves run on
-    ``min(WAVE_WARPS, bands)`` warps a row group, so each warp's chain is
-    that share of a row's planes and the row groups need that many times
-    the warps (the kernel has no plane skip).  The roofline term still
-    orders the tiles.  A shard runs ``1/D`` of the rows; the
-    communication seconds add outside the kernel's constants.
+    the card each launch also costs its walk at its band ``plan.k_b``
+    (:func:`_wave_launch_seconds`): chunk iterations of a fixed part and
+    the planes each of an SM's schedulers issues, every pass of
+    ``WAVE_WARPS`` bands walked again.  The roofline term, at the default
+    band's traffic whatever the band (it stands for the transposes around
+    the launch), still orders the tiles.  A shard runs ``1/D`` of the
+    rows; the communication seconds add outside the kernel's constants.
     """
     D, comm_s = _dist_terms(p)
-    secs = 0.7 * _blocked_seconds(p, plan) * _off_device_factor(p)
-    if p.platform == "cuda":
-        rows = (p.m if p.sequences > 1 else p.m_total) / D
-        bands = _bands(p.k, WAVE_KB)
-        warps = max(1, min(WAVE_WARPS, bands))
-        planes = max(0, p.n - 1) * bands * WAVE_KB
-        secs += p.sequences * _row_chain_seconds(
-            planes / warps, rows * warps,
-            _plane_seconds(_WAVE_PLANE_SECONDS, p.dtype))
+    if p.platform != "cuda":
+        return max(0.7 * _blocked_seconds(p, plan) * _OFF_DEVICE_PENALTY,
+                   p.sequences * _LATENCY_FLOOR) + comm_s
+    k_b = plan.k_b or WAVE_KB
+    secs = 0.7 * _blocked_seconds(p, dataclasses.replace(plan, k_b=WAVE_KB))
+    rows = (p.m if p.sequences > 1 else p.m_total) / D
+    secs += p.sequences * _wave_launch_seconds(rows, p.n, p.k, k_b, p.dtype)
     return max(secs, p.sequences * _LATENCY_FLOOR) + comm_s
 
 
@@ -736,8 +807,8 @@ def accumulated_tiles(p: Problem) -> List[Plan]:
 
 
 def cuda_wave_tiles(p: Problem) -> List[Plan]:
-    # the band the kernel is compiled for; it has no column tiles
-    return [Plan("", k_b=WAVE_KB)]
+    # every band the kernel is compiled for; it has no column tiles
+    return [Plan("", k_b=b) for b in WAVE_BANDS]
 
 
 def cuda_mxu_tiles(p: Problem) -> List[Plan]:

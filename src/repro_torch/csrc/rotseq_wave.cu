@@ -29,7 +29,8 @@
 // 1. The register window (as in rotseq_batched.cu).  One lane owns one
 //    row.  A warp walks one band in steps; step t touches columns
 //    t-W+2 .. t+1, W = 2*KB, held in registers.  Steps run in chunks of
-//    CS = min(W, 128/KB) steps (128 planes), aligned to multiples of CS,
+//    CS = min(W, 128/KB) steps (128 planes at KB = 16, 32 at KB = 4),
+//    aligned to multiples of CS,
 //    with the chunk body unrolled: at the start of chunk tc, column c
 //    sits in slot (c - tc) mod W, so every slot index is a compile-time
 //    constant, and the window rotates by CS slots at the end of a chunk.
@@ -49,8 +50,9 @@
 //    runs its chunk s - L*w.  The lag L = ceil((W-1)/CS) + 1 chunks is the
 //    least that puts a column's hand-off at an earlier iteration than its
 //    take-in (W-1 steps lie between them); R = 32 columns is enough that
-//    no slot is written again before it is read.  A pass ends with a
-//    block barrier; the next pass reads the row group's columns back from
+//    no slot is written again before a barrier past its last read.  A
+//    pass ends with a block barrier; the next pass reads the row group's
+//    columns back from
 //    `out` in place (warp 0 reads column c many iterations before the
 //    pass's last warp writes it, and rows belong to one block only).
 //    Warps past the last band of a pass only keep the barriers.
@@ -115,10 +117,28 @@ namespace {
 // (tools/wave_sweep.py).
 constexpr int kBand = 16;
 constexpr int kWarps = 12;
+// the small band (limits.WAVE_SMALL_KB): at few waves kBand leaves most
+// warps of a row group idle (k = 32, an eigensolver's flush, is 2 bands
+// of 16 on 2 of 12 warps, each walking the whole row); bands of 4 put 8
+// warps on it, each with a quarter of the chain.  A chunk then holds 32
+// planes, and its staging, barrier and hand-offs weigh four times as
+// much a plane: at k = 32, n = M = 1024 it ran in 0.16 ms against 0.22
+// at kBand, whatever the warps (8, 12 or 16) or the chunks staged ahead
+// (1 to 4), on an H100 (tools/wave_sweep.py).  On finite nonzero values
+// the result does not depend on the band; signed zeros and inf or NaN
+// can, through the pad planes of the last band (tests/test_torch_wave.py).
+constexpr int kSmallBand = 4;
 // planes in the unrolled body of one chunk
 constexpr int kChunkPlanes = 128;
 // columns in each warp's input ring
 constexpr int kRing = 32;
+
+// steps a chunk at bands of KB waves: kChunkPlanes planes, at most the
+// register window's 2 KB steps
+template <int KB>
+__host__ __device__ constexpr int chunk_steps() {
+  return kChunkPlanes / KB < 2 * KB ? kChunkPlanes / KB : 2 * KB;
+}
 
 // Grid: one block a group of 32 rows, NW warps.  `at`/`out` are (n, M),
 // the panels (K, n-1) wave-major (K*(n-1) < 2^31).  One block an SM is
@@ -134,8 +154,7 @@ rotseq_wave_kernel(const T* at, const T* __restrict__ cw,
   using St = Store<T>;
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int W = 2 * KB;                     // the register window
-  constexpr int CS =                            // steps a chunk
-      kChunkPlanes / KB < W ? kChunkPlanes / KB : W;
+  constexpr int CS = chunk_steps<KB>();         // steps a chunk
   constexpr int L = (W - 1 + CS - 1) / CS + 1;  // lag between warps, chunks
   constexpr int R = kRing;
   constexpr int Q = KB * CS / 32;               // panel elements a lane
@@ -144,8 +163,10 @@ rotseq_wave_kernel(const T* at, const T* __restrict__ cw,
   static_assert((R & (R - 1)) == 0, "ring size a power of two");
   static_assert(kF32 || KB % 2 == 0, "half planes rounded in pairs");
   // a hand-off slot is written again only after its take-in, and warp 0's
-  // staged columns outlive their chunk
-  static_assert((R + W - 1) / CS >= L + 1 && R >= 3 * CS, "ring size");
+  // staged columns outlive their chunk: column c's slot takes column c + R
+  // in a barrier after c's last read (column 0, read at chunk 0, as late as
+  // columns CS + 1 .. 2 CS, needs the fourth chunk)
+  static_assert((R + W - 1) / CS >= L + 1 && R >= 4 * CS, "ring size");
   // Dynamic shared memory (wave_smem_bytes): per warp, three chunks of
   // plane values in flight (chunk kw is read from slot kw % 3 while chunk
   // kw + 1 lands in the next; slot kw % 3 is written again only after the
@@ -375,18 +396,19 @@ rotseq_wave_kernel(const T* at, const T* __restrict__ cw,
 
 // C interface, loaded with ctypes.  Applies all K waves of the panels to
 // the packed operand `at` (n, M) into `out` (n, M) in one launch on
-// `stream`; does not synchronise and allocates nothing; returns
-// cudaGetLastError().  The caller handles K == 0 and n < 2 (no planes).
-// One entry a storage type: every operand in that type.
-template <typename T>
-int launch_wave(const T* at, const T* cw, const T* sw, const T* gw, T* out,
+// `stream`, in bands of `kb` waves (kBand or kSmallBand); does not
+// synchronise and allocates nothing; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a band that is not compiled.  The caller
+// handles K == 0 and n < 2 (no planes).  One entry a storage type: every
+// operand in that type.
+template <int KB, typename T>
+int launch_band(const T* at, const T* cw, const T* sw, const T* gw, T* out,
                 int n, int M, int K, void* stream) {
-  constexpr int CS = kChunkPlanes / kBand < 2 * kBand ? kChunkPlanes / kBand
-                                                      : 2 * kBand;
+  constexpr int CS = chunk_steps<KB>();
   constexpr int smem =
-      kWarps * (3 * kBand * CS * (int)sizeof(float4) +
+      kWarps * (3 * KB * CS * (int)sizeof(float4) +
                 kRing * 32 * (int)sizeof(T));
-  auto kernel = rotseq_wave_kernel<kBand, kWarps, T>;
+  auto kernel = rotseq_wave_kernel<KB, kWarps, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -396,23 +418,33 @@ int launch_wave(const T* at, const T* cw, const T* sw, const T* gw, T* out,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_wave(const T* at, const T* cw, const T* sw, const T* gw, T* out,
+                int n, int M, int K, int kb, void* stream) {
+  if (kb == kBand)
+    return launch_band<kBand>(at, cw, sw, gw, out, n, M, K, stream);
+  if (kb == kSmallBand)
+    return launch_band<kSmallBand>(at, cw, sw, gw, out, n, M, K, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" int rotseq_wave_f32(const float* at, const float* cw,
                                const float* sw, const float* gw, float* out,
-                               int n, int M, int K, void* stream) {
-  return launch_wave(at, cw, sw, gw, out, n, M, K, stream);
+                               int n, int M, int K, int kb, void* stream) {
+  return launch_wave(at, cw, sw, gw, out, n, M, K, kb, stream);
 }
 
 extern "C" int rotseq_wave_bf16(const __nv_bfloat16* at,
                                 const __nv_bfloat16* cw,
                                 const __nv_bfloat16* sw,
                                 const __nv_bfloat16* gw, __nv_bfloat16* out,
-                                int n, int M, int K, void* stream) {
-  return launch_wave(at, cw, sw, gw, out, n, M, K, stream);
+                                int n, int M, int K, int kb, void* stream) {
+  return launch_wave(at, cw, sw, gw, out, n, M, K, kb, stream);
 }
 
 extern "C" int rotseq_wave_f16(const __half* at, const __half* cw,
                                const __half* sw, const __half* gw,
-                               __half* out, int n, int M, int K,
+                               __half* out, int n, int M, int K, int kb,
                                void* stream) {
-  return launch_wave(at, cw, sw, gw, out, n, M, K, stream);
+  return launch_wave(at, cw, sw, gw, out, n, M, K, kb, stream);
 }

@@ -12,11 +12,12 @@ from __future__ import annotations
 
 __all__ = [
     "WARP", "SMEM_PER_BLOCK", "SMEM_STATIC", "REGS_PER_THREAD",
-    "WAVE_KB", "WAVE_WARPS", "WAVE_ROWS", "MXU_ROWS", "MXU_SLAB",
-    "MXU_MAX_W", "MXU_HALF_ROWS", "MXU_HALF_CHUNK", "MXU_HALF_CLUSTER",
-    "MXU_HALF_STAGES",
+    "WAVE_KB", "WAVE_SMALL_KB", "WAVE_BANDS", "WAVE_WARPS", "WAVE_ROWS",
+    "MXU_ROWS", "MXU_SLAB", "MXU_MAX_W", "MXU_HALF_ROWS", "MXU_HALF_CHUNK",
+    "MXU_HALF_CLUSTER", "MXU_HALF_STAGES",
     "MXU_HALF_VEC", "BATCHED_M_BLK", "BATCHED_KB", "round_up",
-    "row_blocks", "wave_smem_bytes", "mxu_width",
+    "row_blocks", "wave_chunk_steps", "wave_lag", "wave_smem_bytes",
+    "mxu_width",
 ]
 
 WARP = 32
@@ -25,10 +26,13 @@ SMEM_STATIC = 48 * 1024
 REGS_PER_THREAD = 255
 
 # the wavefront kernel's block: one group of WAVE_ROWS rows of A, one row
-# a lane, run by WAVE_WARPS warps that each apply one band of WAVE_KB
-# waves, a fixed lag behind the warp before (the constants its source is
-# compiled for, kWarps and kBand)
+# a lane, run by WAVE_WARPS warps that each apply one band of waves, a
+# fixed lag behind the warp before (the constants its source is compiled
+# for: kWarps; the bands kBand, the default, and kSmallBand, for few
+# waves); WAVE_BANDS are every band it takes
 WAVE_KB = 16
+WAVE_SMALL_KB = 4
+WAVE_BANDS = (WAVE_KB, WAVE_SMALL_KB)
 WAVE_WARPS = 12
 WAVE_ROWS = 32
 # the accumulated kernel's block: MXU_ROWS rows of A, Q_t streamed in
@@ -76,17 +80,33 @@ def row_blocks(m: int) -> int:
     return -(-m // BATCHED_M_BLK)
 
 
-def wave_smem_bytes(warps: int = WAVE_WARPS) -> int:
-    """Dynamic shared memory of one float32 wavefront block of ``warps``
-    warps (a half-precision block's rings take half as much).
+def wave_chunk_steps(k_b: int = WAVE_KB) -> int:
+    """Steps (columns of a band) in one chunk of the wavefront kernel at
+    bands of ``k_b`` waves: 128 planes, at most its register window's
+    ``2 k_b`` steps (the source's ``chunk_steps``)."""
+    return min(2 * k_b, 128 // k_b)
 
-    Each warp's plane values for three chunks of ``min(2 WAVE_KB, 128 //
-    WAVE_KB)`` steps, one ``float4`` a plane, and its ring of 32 columns
-    of ``WAVE_ROWS`` rows that the warp before it (or, for the first
-    warp, memory) hands its columns through.
+
+def wave_lag(k_b: int = WAVE_KB) -> int:
+    """Chunks each warp of the wavefront kernel runs behind the warp
+    before it at bands of ``k_b`` waves (the source's ``L``): its
+    register window of ``2 k_b`` steps, in chunks, and one more."""
+    cs = wave_chunk_steps(k_b)
+    return -(-(2 * k_b - 1) // cs) + 1
+
+
+def wave_smem_bytes(warps: int = WAVE_WARPS, k_b: int = WAVE_KB) -> int:
+    """Dynamic shared memory of one float32 wavefront block of ``warps``
+    warps at bands of ``k_b`` waves (a half-precision block's rings take
+    half as much).
+
+    Each warp's plane values for three chunks (:func:`wave_chunk_steps`),
+    one ``float4`` a plane, and its ring of 32 columns of ``WAVE_ROWS``
+    rows that the warp before it (or, for the first warp, memory) hands
+    its columns through.
     """
-    chunk = min(2 * WAVE_KB, 128 // WAVE_KB)
-    return warps * (3 * WAVE_KB * chunk * 4 + 32 * WAVE_ROWS) * _F32
+    return warps * (3 * k_b * wave_chunk_steps(k_b) * 4
+                    + 32 * WAVE_ROWS) * _F32
 
 
 def mxu_width(w: int) -> int:

@@ -3,11 +3,14 @@
 Counterpart of ``repro.kernels.rotseq.kernel.rotseq_wave_pallas``.  On a
 CPU tensor it runs the plain version; on a CUDA tensor it launches the
 kernel or raises, and never falls back.  ``LAUNCHES`` counts launches,
-``DTYPE_LAUNCHES`` the same launches by the operand's dtype, and with
+``DTYPE_LAUNCHES`` the same launches by the operand's dtype,
+``BAND_LAUNCHES`` by the band they ran at, and with
 :mod:`repro_torch.obs` on each launch also bumps
 ``kernels.rotseq.launches`` at the same line.  The kernel takes float32,
 bfloat16 and float16, one entry of the library each, as the reference's
-Pallas kernel takes the operand's dtype; float64 has no entry.
+Pallas kernel takes the operand's dtype; float64 has no entry.  It is
+compiled for the bands ``WAVE_BANDS`` (the reference's kernel takes any
+``k_b``): 16 waves, and 4 for few waves.
 """
 from __future__ import annotations
 
@@ -18,15 +21,16 @@ import torch
 
 from repro_torch import obs
 from repro_torch.kernels import _build
-from repro_torch.kernels.limits import WAVE_KB, WAVE_WARPS
+from repro_torch.kernels.limits import WAVE_BANDS, WAVE_KB, WAVE_WARPS
 
 from .ref import rotseq_wave_ref
 
-__all__ = ["rotseq_wave", "traffic_bytes", "LAUNCHES", "DTYPE_LAUNCHES",
-           "ENTRY"]
+__all__ = ["rotseq_wave", "traffic_bytes", "passes", "check_band",
+           "LAUNCHES", "DTYPE_LAUNCHES", "BAND_LAUNCHES", "ENTRY"]
 
 LAUNCHES = 0
 DTYPE_LAUNCHES = {"float32": 0, "bfloat16": 0, "float16": 0}
+BAND_LAUNCHES = {kb: 0 for kb in WAVE_BANDS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,14 +40,33 @@ ENTRY = {torch.float32: "rotseq_wave_f32", torch.bfloat16: "rotseq_wave_bf16",
 _FN = {}
 
 
-def traffic_bytes(n: int, M: int, K: int, itemsize: int = 4) -> int:
-    """Bytes one launch moves through memory: the packed operand read
-    and written once a pass (a pass runs ``WAVE_WARPS`` bands of
-    ``WAVE_KB`` waves, so ``K <= 192`` is one pass) and the three ``(K,
-    n-1)`` panels read once.  Not the reference's ``2·m·n·bands``: the
-    Pallas kernel makes a trip through memory a band."""
-    passes = math.ceil(math.ceil(K / WAVE_KB) / WAVE_WARPS)
-    return (2 * n * M * passes + 3 * K * max(n - 1, 0)) * itemsize
+def passes(K: int, k_b: int = WAVE_KB) -> int:
+    """Passes of one launch through the packed operand: each runs
+    ``WAVE_WARPS`` bands of ``k_b`` waves (``K <= 192`` is one pass at
+    ``k_b = 16``, ``K <= 48`` at 4)."""
+    return math.ceil(math.ceil(K / k_b) / WAVE_WARPS)
+
+
+def traffic_bytes(n: int, M: int, K: int, itemsize: int = 4,
+                  k_b: int = WAVE_KB) -> int:
+    """Bytes one launch at bands of ``k_b`` waves moves through memory:
+    the packed operand read and written once a pass (:func:`passes`) and
+    the three ``(K, n-1)`` panels read once.  Not the reference's
+    ``2·m·n·bands``: the Pallas kernel makes a trip through memory a
+    band."""
+    return (2 * n * M * passes(K, k_b) + 3 * K * max(n - 1, 0)) * itemsize
+
+
+def check_band(k_b: int, n_b=None) -> None:
+    """Raise ``ValueError`` unless the kernel is compiled for bands of
+    ``k_b`` waves and ``n_b`` is ``None`` (it streams whole rows and has
+    no column tiles)."""
+    if k_b not in WAVE_BANDS:
+        raise ValueError(f"the wavefront kernel is compiled for k_b in "
+                         f"{WAVE_BANDS}, not {k_b}")
+    if n_b is not None:
+        raise ValueError("the wavefront kernel has no column tiles: n_b "
+                         "is for its plain version only")
 
 
 def _entry(dtype):
@@ -55,7 +78,7 @@ def _entry(dtype):
     fn = _FN.get(dtype)
     if fn is None:
         fn = getattr(_build.load(), ENTRY[dtype])
-        fn.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+        fn.argtypes = [_P] * 5 + [_I] * 4 + [_P]
         fn.restype = _I
         _FN[dtype] = fn
     return fn
@@ -69,7 +92,10 @@ def rotseq_wave(AT, Cw, Sw, Gw, *, k_b: int = WAVE_KB, n_b=None):
         bfloat16 or float16 on the card.
       Cw, Sw, Gw: ``(K, n - 1)`` wave-major panels of cosines, sines and
         per-entry signs (``Cw[p, j] = C[j, p]``), in ``AT``'s dtype.
-      k_b: waves a band.  The kernel is compiled for ``WAVE_KB`` only.
+      k_b: waves a band.  The kernel is compiled for ``WAVE_BANDS``
+        only (:func:`check_band`).  On finite nonzero values its result
+        does not depend on it; the sign of a zero and where inf or NaN
+        spread can, through the pad planes of the last band.
       n_b: tile width of the plain version (the CPU path; its result does
         not depend on it).  The kernel streams whole rows and has no
         tiles, so on a CUDA tensor it must be ``None``.
@@ -86,12 +112,7 @@ def rotseq_wave(AT, Cw, Sw, Gw, *, k_b: int = WAVE_KB, n_b=None):
         return rotseq_wave_ref(AT, Cw, Sw, Gw, k_b=k_b, n_b=n_b)
     if dev.type != "cuda":
         raise ValueError(f"rotseq_wave runs on cuda or cpu, not {dev}")
-    if k_b != WAVE_KB:
-        raise ValueError(f"the wavefront kernel is compiled for k_b = "
-                         f"{WAVE_KB}, not {k_b}")
-    if n_b is not None:
-        raise ValueError("the wavefront kernel has no column tiles: n_b "
-                         "is for its plain version only")
+    check_band(k_b, n_b)
     n, M = AT.shape
     K = Cw.shape[0]
     for name, x, shape in (("AT", AT, (n, M)), ("Cw", Cw, (K, n - 1)),
@@ -112,10 +133,11 @@ def rotseq_wave(AT, Cw, Sw, Gw, *, k_b: int = WAVE_KB, n_b=None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(AT.data_ptr(), Cw.data_ptr(), Sw.data_ptr(), Gw.data_ptr(),
-                out.data_ptr(), n, M, K, stream)
+                out.data_ptr(), n, M, K, k_b, stream)
     if rc != 0:
         raise RuntimeError(f"rotseq_wave launch failed: CUDA error {rc}")
     LAUNCHES += 1
     DTYPE_LAUNCHES[str(AT.dtype).replace("torch.", "")] += 1
+    BAND_LAUNCHES[k_b] += 1
     obs.inc("kernels.rotseq.launches")
     return out

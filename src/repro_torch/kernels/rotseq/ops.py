@@ -22,8 +22,11 @@ def rot_sequence_wave(A, C, S, *, n_b=None, k_b: int = WAVE_KB,
     """Apply the rotation sequence ``(C, S)`` to ``A`` from the right.
 
     On a CUDA tensor this is one launch of the wavefront kernel, which
-    takes ``k_b = WAVE_KB`` and no ``n_b``; on a CPU tensor the plain
-    version runs the blocked sweep band by band at any ``k_b``, ``n_b``.
+    takes a ``k_b`` of ``WAVE_BANDS`` and no ``n_b``; on a CPU tensor the
+    plain version runs the blocked sweep band by band at any ``k_b``,
+    ``n_b``.  On finite nonzero values the result does not depend on
+    ``k_b``; the sign of a zero and where inf or NaN spread can, through
+    the pad planes of the last band.
 
     With :mod:`repro_torch.obs` on, a call counts its planes and the
     bytes the kernel moves for it (:func:`~.kernel.traffic_bytes`); the
@@ -42,5 +45,5 @@ def rot_sequence_wave(A, C, S, *, n_b=None, k_b: int = WAVE_KB,
             obs.inc("kernels.rotseq.launches")
         obs.inc("kernels.rotseq.planes_applied", J * k)
         obs.inc("kernels.rotseq.bytes_moved",
-                traffic_bytes(n, m, k, A.element_size()))
+                traffic_bytes(n, m, k, A.element_size(), k_b))
     return out.t().contiguous()

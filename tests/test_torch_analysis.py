@@ -442,7 +442,8 @@ def test_dropped_paired_rounding_is_caught_in_the_real_source(tmp_path,
 
 
 @pytest.mark.parametrize("src_name,const,value", [
-    ("rotseq_wave.cu", "kBand", 16), ("rotseq_wave.cu", "kWarps", 12),
+    ("rotseq_wave.cu", "kBand", 16), ("rotseq_wave.cu", "kSmallBand", 4),
+    ("rotseq_wave.cu", "kWarps", 12),
     ("rotseq_mxu.cu", "kRows", 32), ("rotseq_mxu.cu", "kSlab", 32),
     ("rotseq_mxu_half.cu", "kRows", 64),
     ("rotseq_mxu_half.cu", "kChunk", 64),
@@ -470,6 +471,7 @@ def test_mirror_table_is_the_six_pairs_the_tests_assert():
              RA405CudaConstantsMirrorLimits.MIRRORS.items() for c, n in ps}
     assert pairs == {
         ("rotseq_wave", "kBand", "WAVE_KB"),
+        ("rotseq_wave", "kSmallBand", "WAVE_SMALL_KB"),
         ("rotseq_wave", "kWarps", "WAVE_WARPS"),
         ("rotseq_mxu", "kRows", "MXU_ROWS"),
         ("rotseq_mxu", "kSlab", "MXU_SLAB"),

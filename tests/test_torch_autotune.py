@@ -265,13 +265,22 @@ def test_interpolation_transfers_within_the_per_request_class():
 
 def test_interpolation_respects_liveness_class():
     """A measured plane-skipping plan keyed with live planes does not
-    transfer to the dense grid of the same shape; nearby live-annotated
-    problems borrow it (``tests/test_rotseq_batched.py``)."""
+    transfer to the dense grid of the same shape: the dense problem gets
+    the model's own plan, at the model's price (here also
+    ``cuda_batched``: the wavefront kernel's 7 bands of 96 columns walk
+    46 chunk iterations, 30 of them its pipeline's fill); nearby
+    live-annotated problems borrow it (``tests/test_rotseq_batched.py``)."""
     registry._PLAN_CACHE[_key(m=4096, n=96, k=102, platform="cuda",
                               live_planes=95 * 8)] = Plan(
         "cuda_batched", est_seconds=1e-5, source="measured")
+    model = registry._modeled_plans(
+        Problem(m=4096, n=96, k=102, platform="cuda"))[0]
     dense = select_plan(4096, 96, 102, platform="cuda")
-    assert dense.method != "cuda_batched" and dense.source == "model"
+    assert dense.source == "model"
+    assert (dense.method, dense.n_b, dense.k_b) == (model.method, model.n_b,
+                                                    model.k_b)
+    assert dense.est_seconds == pytest.approx(model.est_seconds)
+    assert dense.est_seconds != 1e-5
     near = select_plan(4096, 96, 102, platform="cuda", live_planes=95 * 10)
     assert near.method == "cuda_batched"
     assert near.source == "interpolated"

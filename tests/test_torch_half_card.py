@@ -63,21 +63,23 @@ def _packed(A, C, S, G):
             *(x.t().contiguous() for x in (C, S, sign_grid(C, False, G))))
 
 
+@pytest.mark.parametrize("k_b", [16, 4])
 @pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("m,n,k,signs", [(3000, 1000, 37, True),
                                          (40, 64, 7, True),
                                          (512, 700, 200, False)])
-def test_wave_half_bitwise_on_the_card(dtype, m, n, k, signs):
+def test_wave_half_bitwise_on_the_card(dtype, m, n, k, signs, k_b):
+    """At each compiled band (16; 4, a second pass past 48 waves)."""
     dev = _cuda()
     A, C, S, G = _problem(m, n, k, m + n + k, dtype, dev, signs)
     args = _packed(A, C, S, G)
     before = wave_k.LAUNCHES
-    out = wave_k.rotseq_wave(*args)
+    out = wave_k.rotseq_wave(*args, k_b=k_b)
     assert wave_k.LAUNCHES == before + 1
     assert out.dtype == dtype
-    assert torch.equal(out, rotseq_wave_ref(*args))
-    assert torch.equal(rot_sequence_wave(A, C, S, G=G),
-                       rot_sequence_blocked(A, C, S, G=G))
+    assert torch.equal(out, rotseq_wave_ref(*args, k_b=k_b))
+    assert torch.equal(rot_sequence_wave(A, C, S, G=G, k_b=k_b),
+                       rot_sequence_blocked(A, C, S, G=G, k_b=k_b))
 
 
 @pytest.mark.parametrize("dtype", HALF)

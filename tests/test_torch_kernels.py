@@ -139,20 +139,22 @@ def test_wrappers_take_plain_version_only_on_cpu():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k_b", limits.WAVE_BANDS)
 @pytest.mark.parametrize("signs", [False, True])
-@pytest.mark.parametrize("m,n,k", [(300, 257, 37), (129, 40, 5)])
-def test_wave_kernel_equals_plain_on_card(m, n, k, signs):
-    """One launch applies every band, at the band the kernel is built
-    for, bit for bit with the blocked plain version."""
+@pytest.mark.parametrize("m,n,k", [(300, 257, 37), (129, 40, 5),
+                                   (1024, 1024, 32), (200, 300, 49)])
+def test_wave_kernel_equals_plain_on_card(m, n, k, signs, k_b):
+    """One launch applies every band, at each band the kernel is built
+    for, bit for bit with the blocked plain version at that band."""
     dev = _cuda()
     A, C, S, G = _inputs(m, n, k, m + k, signs)
     before = wave_k.LAUNCHES
     out = rot_sequence_wave(_t(A, dev), _t(C, dev), _t(S, dev),
-                            G=_t(G, dev))
+                            G=_t(G, dev), k_b=k_b)
     torch.cuda.synchronize()
     assert wave_k.LAUNCHES - before == 1
     plain = rot_sequence_blocked(_t(A, dev), _t(C, dev), _t(S, dev),
-                                 k_b=limits.WAVE_KB, G=_t(G, dev))
+                                 k_b=k_b, G=_t(G, dev))
     assert torch.equal(out, plain)
 
 
@@ -184,9 +186,9 @@ def test_kernels_refuse_what_they_cannot_run():
     with pytest.raises(TypeError, match="float32"):
         rot_sequence_mxu(_t(A, dev).double(), _t(C, dev).double(),
                          _t(S, dev).double())
-    # the wavefront kernel takes the band it is built for and no tiles
+    # the wavefront kernel takes the bands it is built for and no tiles
     with pytest.raises(ValueError, match="compiled for"):
-        rot_sequence_wave(_t(A, dev), _t(C, dev), _t(S, dev), k_b=4)
+        rot_sequence_wave(_t(A, dev), _t(C, dev), _t(S, dev), k_b=8)
     with pytest.raises(ValueError, match="no column tiles"):
         rot_sequence_wave(_t(A, dev), _t(C, dev), _t(S, dev), n_b=64)
     A, C, S, _ = _inputs(16, 300, 4, 3)

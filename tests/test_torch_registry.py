@@ -189,6 +189,12 @@ def test_eligibility():
         dtype="float64")
     tiles = treg.cuda_mxu_tiles(treg.Problem(m=3840, n=3840, k=180))
     assert all(p.n_b + p.k_b <= limits.MXU_MAX_W for p in tiles)
+    # the wavefront kernel: one plan a compiled band, no column tiles
+    for prob in (treg.Problem(m=3840, n=3840, k=180),
+                 treg.Problem(m=1024, n=1024, k=32)):
+        waves = treg.cuda_wave_tiles(prob)
+        assert [p.k_b for p in waves] == list(limits.WAVE_BANDS)
+        assert all(p.n_b is None for p in waves)
     # a kernel plan names its tiles only; rows per block are the kernel's
     assert all(set(p.kwargs()) == {"n_b", "k_b"} for p in tiles)
 
@@ -299,24 +305,138 @@ def test_half_mxu_picks_follow_the_card():
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 def test_half_wave_priced_at_its_dtype_rate(dtype, monkeypatch):
-    """A half target's ``cuda_wave`` price reads its own dtype's plane
-    rate, not float32's, and a float32 target's does not: the measured
-    half rates (the paper shape's launch of the paired half body) are
-    slower than float32's, and float32's is still the main path's
-    1.66 ms."""
-    rates = treg._WAVE_PLANE_SECONDS
-    assert rates[dtype] > rates["float32"] == 1.66e-3 / treg._WAVE_CHAIN
+    """A half target's ``cuda_wave`` price reads its own dtype's fitted
+    constants at its plan's band, and a float32 target's does not: the
+    measured half launches (the paired half body) are slower than
+    float32's, and each dtype's fit holds the launches it was fitted to
+    (within 8%, but the ragged problem's at the default band, which it
+    prices short)."""
+    consts = treg._WAVE_STEP_SECONDS
+    assert set(consts) == set(treg._WAVE_LAUNCHES) == {
+        "float32", "bfloat16", "float16"}
     half = treg.Problem(m=3840, n=3840, k=180, dtype=dtype, platform="cuda")
     f32 = dataclasses.replace(half, dtype="float32")
-    plan = treg.Plan("cuda_wave", k_b=16)
-    costs = {}
-    for rate in (1e-6, 2e-6):
-        monkeypatch.setitem(rates, dtype, rate)
-        costs[rate] = (treg.cost_cuda_wave(half, plan),
-                       treg.cost_cuda_wave(f32, plan))
-    assert costs[2e-6][0] > costs[1e-6][0]
-    assert costs[2e-6][1] == costs[1e-6][1]
-    # the row chain the model prices at the paper shape: 12 bands on 12
-    # warps a row group, the rate times one warp's share of a row's planes
-    chain = treg._row_chain_seconds(3839 * 192 / 12, 3840 * 12, 1.0)
-    assert chain == pytest.approx(treg._WAVE_CHAIN)
+    fitted = consts[dtype]
+    for kb in limits.WAVE_BANDS:
+        plan = treg.Plan("cuda_wave", k_b=kb)
+        assert treg._wave_launch_seconds(3840, 3840, 180, kb, dtype) > \
+            treg._wave_launch_seconds(3840, 3840, 180, kb, "float32")
+        costs = {}
+        for scale in (1.0, 2.0):
+            monkeypatch.setitem(consts, dtype, tuple(scale * x
+                                                     for x in fitted))
+            costs[scale] = (treg.cost_cuda_wave(half, plan),
+                            treg.cost_cuda_wave(f32, plan))
+        assert costs[2.0][0] > costs[1.0][0]
+        assert costs[2.0][1] == costs[1.0][1]
+        monkeypatch.setitem(consts, dtype, fitted)
+    for (m, n, k, kb), ms in treg._WAVE_LAUNCHES[dtype].items():
+        got = treg._wave_launch_seconds(m, n, k, kb, dtype) * 1e3
+        if (n, kb) == (1000, limits.WAVE_KB):
+            assert 0.75 * ms < got < ms
+        else:
+            assert got == pytest.approx(ms, rel=0.08)
+    # the walk the model prices at the paper shape: 12 bands on 12 warps
+    # a row group, three a scheduler, 484 chunks of 8 steps and a lag of
+    # 5 chunks a warp; 120 row groups, no queue
+    assert treg._wave_walk(3840, 3840, 180, limits.WAVE_KB) == (
+        484 + 5 * 11, 16 * 8 * 3)
+
+
+# the planner's points and the serving bucket (chip_smoke.py's autotune
+# points besides the eig flush), with the model's pick at each: the
+# small band changes none of them
+PICKS = [(dict(m=3840, n=3840, k=180), "cuda_mxu"),
+         (dict(m=1024, n=1024, k=41), "cuda_wave"),
+         (dict(m=3840, n=3840, k=180, batch=8), "cuda_mxu"),
+         (dict(m=1024, n=1024, k=64, batch=16, shared_sequence=False,
+               live_planes=1023 * 48), "cuda_batched")]
+
+
+def test_small_band_wins_the_eig_flush():
+    """At an eigensolver's flush ``(1024, 1024, 32)`` the model picks the
+    wavefront kernel at the small band, the default band next by about
+    the ratio measured on the card (NVIDIA H100 80GB HBM3 at 700.00 W,
+    chip_smoke.py's rotseq_wave_flush line: 0.2206 against 0.1633 ms a
+    launch, 1.35 times), and every other kernel plan at 1.5 times it or
+    more.  The default band is slow there for its walk, not its planes:
+    2 warps through 137 chunk iterations of 128 planes, against 8 warps
+    through 143 of 32, and each iteration's fixed part is the larger
+    share.  At the paper shape (45 bands of 4, four passes of the walk)
+    the small band never wins, and ``auto`` stays ``cuda_mxu``."""
+    treg.clear_plan_cache()
+    small = treg.Plan("cuda_wave", k_b=limits.WAVE_SMALL_KB)
+    default = treg.Plan("cuda_wave", k_b=limits.WAVE_KB)
+    pick = treg.select_plan(1024, 1024, 32, dtype="float32",
+                            platform="cuda")
+    assert (pick.method, pick.n_b, pick.k_b) == ("cuda_wave", None,
+                                                 limits.WAVE_SMALL_KB)
+    eig = treg.Problem(m=1024, n=1024, k=32, platform="cuda")
+    plans = treg._modeled_plans(eig)
+    assert [(p.method, p.k_b) for p in plans[:2]] == [("cuda_wave", 4),
+                                                      ("cuda_wave", 16)]
+    assert 1.2 < plans[1].est_seconds / plans[0].est_seconds < 1.5
+    assert all(p.est_seconds >= 1.5 * plans[0].est_seconds
+               for p in plans if p.method != "cuda_wave")
+    # the two walks: 132 and 129 chunks of 8 steps, lags of 5 and 2
+    # chunks a warp, one and two warps a scheduler
+    assert treg._wave_walk(1024, 1024, 32, 16) == (132 + 5 * 1, 128)
+    assert treg._wave_walk(1024, 1024, 32, 4) == (129 + 2 * 7, 32 * 2)
+    assert treg.cost_cuda_wave(eig, small) == pytest.approx(
+        0.7 * treg._blocked_seconds(eig, default)
+        + treg._wave_launch_seconds(1024, 1024, 32, 4, "float32"))
+    # the float32 fit holds every launch it was fitted to within 7%
+    for (m, n, k, kb), ms in treg._WAVE_LAUNCHES["float32"].items():
+        assert treg._wave_launch_seconds(m, n, k, kb, "float32") * 1e3 == \
+            pytest.approx(ms, rel=0.07)
+    paper = treg.Problem(m=3840, n=3840, k=180, platform="cuda")
+    assert treg.cost_cuda_wave(paper, small) > treg.cost_cuda_wave(
+        paper, default)
+    # four passes, each walking the row again
+    assert treg._wave_walk(3840, 3840, 180, 4)[0] == 4 * (481 + 2 * 11)
+    treg.clear_plan_cache()
+
+
+@pytest.mark.parametrize("prob,method", PICKS)
+def test_small_band_leaves_the_other_picks(prob, method):
+    """The planner's three points and the serving bucket plan what they
+    planned before the small band (``auto`` at the paper shape stays
+    ``cuda_mxu``); the small band takes only what is ``cuda_wave``'s
+    already, where fewer bands than warps leave a row group idle."""
+    treg.clear_plan_cache()
+    pick = treg.select_plan(**prob, platform="cuda")
+    assert pick.method == method
+    if method == "cuda_wave":
+        assert pick.k_b == limits.WAVE_SMALL_KB   # 11 bands, not 3
+    treg.clear_plan_cache()
+
+
+@pytest.mark.parametrize("k_b", [4, 16])
+def test_a_persisted_band_loads_and_runs(k_b, tmp_path, monkeypatch):
+    """A measured ``cuda_wave`` plan at either band goes through the
+    store and back (a store written before the small band holds ``k_b =
+    16``), is taken as is, and its application runs at that band: on
+    the CPU the plain version, equal to the blocked sweep."""
+    import torch
+    from repro_torch import random_sequence
+    from repro_torch.core.blocked import rot_sequence_blocked
+    monkeypatch.setenv("REPRO_PLAN_CACHE", str(tmp_path / "plans.json"))
+    treg.clear_plan_cache()
+    prob = treg.Problem(m=24, n=40, k=32, platform="cpu")
+    key = treg._plan_key(prob)
+    treg._PLAN_CACHE[key] = treg.Plan("cuda_wave", k_b=k_b, est_seconds=1e-4,
+                                      source="measured")
+    assert treg.save_plan_cache() == str(tmp_path / "plans.json")
+    treg.clear_plan_cache()
+    assert treg.load_plan_cache() == 1
+    plan = treg.select_plan(24, 40, 32, platform="cpu", autotune=True)
+    assert (plan.source, plan.method, plan.k_b) == ("persisted", "cuda_wave",
+                                                    k_b)
+    gen = torch.Generator().manual_seed(k_b)
+    seq = random_sequence(40, 32, generator=gen, device="cpu")
+    A = torch.randn((24, 40), generator=gen)
+    sp = seq.plan(like=A)
+    assert sp.plan == plan and dict(sp.kwargs) == {"k_b": k_b}
+    assert torch.equal(sp.apply(A), rot_sequence_blocked(
+        A, seq.cos, seq.sin, k_b=k_b))
+    treg.clear_plan_cache()

@@ -56,18 +56,25 @@ def _shape(kb):
 
 
 class RingError(AssertionError):
-    """A ring or staging slot did not hold what its reader expects."""
+    """A ring or staging slot did not hold what its reader expects, or
+    was written while a reader might still read it (no barrier between
+    the read and the write)."""
 
 
 def _emulate_pipeline(AT, Cw, Sw, Gw, kb, warps, lag=None, ring=32,
-                      half=None, pair=plane_pair_native):
+                      half=None, pair=plane_pair_native, slots=3):
     """``rotseq_wave_kernel<kb, warps>`` over all rows at once.
 
     One pass a group of ``warps`` bands; in the pass's iteration ``s``
     warp ``w`` runs its chunk ``s - lag * w`` after staging the next
-    one's plane values (and, warp 0, its columns) in phase A; a barrier
-    separates phase A from phase B and one iteration from the next, so
-    ring writes of phase B become visible at the end of the iteration.
+    one's plane values (and, warp 0, its columns) in phase A, into one of
+    ``slots`` panel slots; a barrier separates phase A from phase B and
+    one iteration from the next, so ring writes of phase B become
+    visible at the end of the iteration.  A write to a ring or panel slot
+    must come a barrier after the slot's last read: in phase A two
+    iterations after it (phase A of ``s`` and phase B of ``s - 1`` have
+    no barrier between them), in phase B or after it one iteration
+    after.  ``ring``: the columns of a warp's input ring.
 
     ``half`` (``BF16``, ``F16``): the half body on bit arrays (``uint16``
     operand and panels, the result likewise); the panel values land in
@@ -81,6 +88,7 @@ def _emulate_pipeline(AT, Cw, Sw, Gw, kb, warps, lag=None, ring=32,
     W, CS, L = _shape(kb)
     L = L if lag is None else lag
     R = ring
+    NS = slots
     bands = -(-K // kb)
     NC = -(-(n + W - 2) // CS)
     zero = np.zeros(m, np.float32)
@@ -108,8 +116,17 @@ def _emulate_pipeline(AT, Cw, Sw, Gw, kb, warps, lag=None, ring=32,
         last = min(warps, bands - q0) - 1
         frm = AT if pss == 0 else out
         rings = [[None] * R for _ in range(warps)]
-        panels = [[None] * 3 for _ in range(warps)]
+        panels = [[None] * NS for _ in range(warps)]
         wins = [None] * warps
+        # the iteration of each slot's last read (phase B)
+        ring_read = [[-10 ** 9] * R for _ in range(warps)]
+        panel_read = [[-10 ** 9] * NS for _ in range(warps)]
+
+        def write(reads, w, slot, s, phase_a):
+            if reads[w][slot] > s - (2 if phase_a else 1):
+                raise RingError(f"warp {w}'s slot {slot}, read at iteration "
+                                f"{reads[w][slot]}, written at iteration {s} "
+                                f"with no barrier between")
 
         def take(w, col, band, s):
             slot = rings[w][col % R]
@@ -117,6 +134,7 @@ def _emulate_pipeline(AT, Cw, Sw, Gw, kb, warps, lag=None, ring=32,
             if slot is None or slot[:2] != want or slot[2] >= s:
                 raise RingError(f"warp {w} at iteration {s} wants column "
                                 f"{col} of {want[0]}, slot holds {slot}")
+            ring_read[w][col % R] = s
             return widen(slot[3])
 
         for s in range(-1, NC + L * last):
@@ -130,7 +148,8 @@ def _emulate_pipeline(AT, Cw, Sw, Gw, kb, warps, lag=None, ring=32,
                 vals = {(i, u): plane(i, band * kb + i, tc + u - 2 * i)
                         for i in range(kb) for u in range(CS)}
                 if half is None:
-                    panels[w][kn % 3] = (kn, s - 0.5, vals)
+                    write(panel_read, w, kn % NS, s, True)
+                    panels[w][kn % NS] = (kn, s - 0.5, vals)
                 else:
                     puts.append((w, kn, vals))
                 if w == 0:
@@ -140,6 +159,7 @@ def _emulate_pipeline(AT, Cw, Sw, Gw, kb, warps, lag=None, ring=32,
                             raise RingError(f"pass {pss} reads column {col} "
                                             f"of pass {written[col]}")
                         # phase A precedes phase B of the same iteration
+                        write(ring_read, 0, col % R, s, True)
                         rings[0][col % R] = (("mem", pss), col, s - 0.5,
                                              frm[col].copy())
             # barrier; phase B: run chunk kw
@@ -149,7 +169,8 @@ def _emulate_pipeline(AT, Cw, Sw, Gw, kb, warps, lag=None, ring=32,
                 if not 0 <= kw < NC:
                     continue
                 tc, band = kw * CS, q0 + w
-                tag, at, vals = panels[w][kw % 3]
+                tag, at, vals = panels[w][kw % NS]
+                panel_read[w][kw % NS] = s
                 if tag != kw or at >= s:
                     raise RingError(f"warp {w} at iteration {s} wants the "
                                     f"panel of chunk {kw}, slot holds chunk "
@@ -185,10 +206,12 @@ def _emulate_pipeline(AT, Cw, Sw, Gw, kb, warps, lag=None, ring=32,
                                         narrow(win[(u + 2) % W])))
                 wins[w] = [win[(q + CS) % W] for q in range(W)]
             for w1, co, band, f in pending:
+                write(ring_read, w1, co % R, s, False)
                 rings[w1][co % R] = (("band", band), co, s, f)
             # half precision: put, after the chunk's planes
             for w, kn, vals in puts:
-                panels[w][kn % 3] = (kn, s, vals)
+                write(panel_read, w, kn % NS, s, False)
+                panels[w][kn % NS] = (kn, s, vals)
     assert (written == (bands - 1) // warps).all()
     return out
 
@@ -252,6 +275,93 @@ def test_pipeline_emulation_fails_with_a_lag_one_chunk_short(kb):
         _emulate_pipeline(*args, kb, 4, lag=L - 1)
 
 
+@pytest.mark.parametrize("name", [None, *sorted(HALF)])
+@pytest.mark.parametrize("k,passes,padded", [(32, 1, False), (37, 1, True),
+                                             (49, 2, True)])
+def test_small_band_pipeline_at_the_kernels_warps(k, passes, padded, name):
+    """The small band (``WAVE_SMALL_KB``) on the kernel's ``WAVE_WARPS``
+    warps, in float32 and the half body: 32 waves are one pass of whole
+    bands (an eigensolver's flush), 37 pad the last band, 49 take a
+    second pass that reads ``out`` back; bit for bit, signs included."""
+    kb, warps = limits.WAVE_SMALL_KB, limits.WAVE_WARPS
+    bands = -(-k // kb)
+    assert -(-bands // warps) == passes and (k % kb != 0) == padded
+    assert wave_k.passes(k, kb) == passes
+    args = _case(9, 45, k, 300 + k, signs=True)
+    if name is None:
+        got = _emulate_pipeline(*args, kb, warps)
+        want = _plain(args, kb)
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    else:
+        half = HALF[name]
+        hargs = _to_half(args, half)
+        got = _emulate_pipeline(*hargs, kb, warps, half=half)
+        made = _assert_half_bits(got, _plain_half(hargs, kb, half), half)
+        assert not made.any()
+
+
+@pytest.mark.parametrize("name", [None, *sorted(HALF)])
+@pytest.mark.parametrize("kb", [2, 4, 8, 16])
+@pytest.mark.parametrize("m,n,k,zeros", [(7, 45, 37, False), (5, 12, 5, False),
+                                         (6, 40, 49, False),
+                                         (6, 12, 5, True)])
+def test_plain_version_does_not_depend_on_the_band(m, n, k, zeros, kb, name):
+    """The plain version at every compiled band and at 2 and 8 gives the
+    default band's result, so a plan's band changes no value: every bit
+    on finite nonzero targets under signed waves, in float32, bfloat16
+    and float16.  Signed zeros are equal as values only: the identity
+    planes that pad the last band (``c = 1, s = 0, g = -1``) map ``y =
+    +0`` to ``-(0 * x - 0)``, whose sign follows ``x``'s, and the bands
+    pad different numbers of waves (this case: 5 waves, so 11 pad waves
+    at 16, 3 at 4, 1 at 2; it flips some zero at each band)."""
+    args = _case(m, n, k, 100 * m + k, signs=True, zeros=zeros)
+    if name is None:
+        got, want = _plain(args, kb), _plain(args, limits.WAVE_KB)
+    else:
+        half = HALF[name]
+        hargs = _to_half(args, half)
+        got, want = (half.f(_plain_half(hargs, b, half))
+                     for b in (kb, limits.WAVE_KB))
+    assert np.array_equal(got, want)
+    same_bits = np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert same_bits == (not zeros or kb == limits.WAVE_KB)
+
+
+@pytest.mark.parametrize("name", sorted(HALF))
+def test_pad_planes_spread_special_values_by_band(name):
+    """Where a row holds an inf or a NaN the band shows: a pad plane's
+    ``0 * inf`` or ``0 * NaN`` is a NaN in its other column, and the
+    default band pads more waves than the small one.  So the small
+    band's launch is held to its own plain version on special values,
+    never to another band's."""
+    half = HALF[name]
+    hargs = _special_case(name, half, k=7)
+    with np.errstate(all="ignore"):
+        small = _plain_half(hargs, limits.WAVE_SMALL_KB, half)
+        default = _plain_half(hargs, limits.WAVE_KB, half)
+    diff = small != default
+    assert diff.any()
+    assert half.nan(default)[diff].all() and not half.nan(small)[diff].any()
+
+
+@pytest.mark.parametrize("kb", [4, 16])
+def test_staging_fails_with_fewer_slots_or_a_three_chunk_ring(kb):
+    """With two panel slots a chunk's values land in a slot while the
+    warp may still read the chunk before (no barrier between), and a
+    ring of three chunks' columns takes column ``3 CS`` into column 0's
+    slot one iteration after chunk 0 read it: the kernel's three slots
+    and ``R >= 4 CS`` (32 columns at both bands) are the least that
+    work."""
+    args = _case(6, 80, 20, 12)
+    _, CS, _ = _shape(kb)
+    assert 4 * CS == 32
+    _emulate_pipeline(*args, kb, 4)
+    with pytest.raises(RingError, match="no barrier between"):
+        _emulate_pipeline(*args, kb, 4, slots=2)
+    with pytest.raises(RingError, match="no barrier between"):
+        _emulate_pipeline(*args, kb, 4, ring=3 * CS)
+
+
 def test_pipeline_emulation_fails_with_a_short_ring():
     """Half the kernel's ring lets warp 0's staging and the hand-offs
     overwrite columns before they are taken in."""
@@ -261,17 +371,64 @@ def test_pipeline_emulation_fails_with_a_short_ring():
 
 
 def test_source_constants_match_limits():
-    """The compiled band, warps a block and ring are the ones the
-    wrapper, the registry and this emulation assume, and the budget in
-    ``limits`` is what the launcher asks for."""
+    """The compiled bands, warps a block and ring are the ones the
+    wrapper, the registry and this emulation assume, the launcher
+    dispatches on every band and refuses others, and the budget, chunk
+    and lag in ``limits`` are what the launcher asks for and the kernel
+    walks at each band."""
     for line in (f"constexpr int kBand = {limits.WAVE_KB};",
+                 f"constexpr int kSmallBand = {limits.WAVE_SMALL_KB};",
                  f"constexpr int kWarps = {limits.WAVE_WARPS};",
                  "constexpr int kRing = 32;"):
         assert line in CU, line
+    assert limits.WAVE_BANDS == (limits.WAVE_KB, limits.WAVE_SMALL_KB)
+    for const in ("kBand", "kSmallBand"):
+        assert f"if (kb == {const})" in CU, const
+        assert f"launch_band<{const}>" in CU, const
+    assert "return (int)cudaErrorInvalidValue;" in CU
     assert limits.WAVE_ROWS == limits.WARP
-    # the launcher's kWarps * (3 * kBand * CS * 16 + kRing * 32 * 4)
-    assert limits.wave_smem_bytes() == limits.WAVE_WARPS * (
-        3 * limits.WAVE_KB * 8 * 16 + 32 * 32 * 4)
+    # the launcher's kWarps * (3 * KB * CS * 16 + kRing * 32 * 4), a
+    # chunk of CS = min(2 KB, 128 / KB) = 8 steps at both bands
+    for kb, smem in ((16, 122_880), (4, 67_584)):
+        assert _shape(kb)[1] == 8
+        # the chunk and lag the registry prices a launch's walk by
+        assert (limits.wave_chunk_steps(kb), limits.wave_lag(kb)) == \
+            _shape(kb)[1:]
+        assert limits.wave_smem_bytes(k_b=kb) == smem == limits.WAVE_WARPS * (
+            3 * kb * 8 * 16 + 32 * 32 * 4)
+    assert limits.wave_smem_bytes() == limits.wave_smem_bytes(
+        k_b=limits.WAVE_KB)
+    assert all(limits.SMEM_STATIC < limits.wave_smem_bytes(k_b=kb)
+               <= limits.SMEM_PER_BLOCK for kb in limits.WAVE_BANDS)
+
+
+def test_wrapper_refuses_a_band_it_is_not_compiled_for():
+    """The wrapper's argument check, which runs before any launch on the
+    card: every compiled band passes, any other band and any ``n_b``
+    raise ``ValueError`` (on the CPU the plain version takes them)."""
+    for kb in limits.WAVE_BANDS:
+        wave_k.check_band(kb)
+    for kb in (1, 2, 8, 32):
+        with pytest.raises(ValueError, match="compiled for"):
+            wave_k.check_band(kb)
+    with pytest.raises(ValueError, match="no column tiles"):
+        wave_k.check_band(limits.WAVE_KB, n_b=64)
+
+
+@pytest.mark.parametrize("k_b,K,passes", [(16, 180, 1), (16, 193, 2),
+                                          (4, 32, 1), (4, 48, 1), (4, 49, 2),
+                                          (4, 180, 4)])
+def test_traffic_bytes_by_band(k_b, K, passes):
+    """A launch reads and writes the operand once a pass of
+    ``WAVE_WARPS`` bands: 192 waves a pass at 16, 48 at 4; the panels
+    once whatever the band."""
+    n, M = 1024, 1000
+    assert wave_k.passes(K, k_b) == passes
+    for itemsize in (4, 2):
+        assert wave_k.traffic_bytes(n, M, K, itemsize, k_b) == (
+            2 * n * M * passes + 3 * K * (n - 1)) * itemsize
+    assert wave_k.traffic_bytes(n, M, K) == wave_k.traffic_bytes(
+        n, M, K, 4, limits.WAVE_KB)
 
 
 def test_both_band_kernels_share_one_store():

@@ -2,6 +2,7 @@
 // half type; an unrounded product, difference or result breaks it.
 // repro-torch-lint: fixture-as=src/repro_torch/csrc/rotseq_wave.cu
 constexpr int kBand = 16;
+constexpr int kSmallBand = 4;
 constexpr int kWarps = 12;
 
 template <typename T>

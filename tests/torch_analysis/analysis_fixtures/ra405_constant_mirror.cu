@@ -1,6 +1,7 @@
 // RA405 fixture: the wavefront kernel compiled for another band than limits says.
 // repro-torch-lint: fixture-as=src/repro_torch/csrc/rotseq_wave.cu
 constexpr int kBand = 8;  // expect: RA405
+constexpr int kSmallBand = 4;
 constexpr int kWarps = 12;
 
 __device__ void plane(float4 c, float& x, float& y) {

@@ -2,6 +2,7 @@
 """RA405 fixture: limits retuned without the kernel's source."""
 WARP = 32
 WAVE_KB = 16
+WAVE_SMALL_KB = 4
 WAVE_WARPS = 8  # expect: RA405
 MXU_ROWS = 32
 MXU_SLAB = 32

@@ -1,6 +1,7 @@
 // A CUDA source with its findings silenced: must produce no violation.
 // repro-torch-lint: fixture-as=src/repro_torch/csrc/rotseq_wave.cu
 constexpr int kBand = 16;
+constexpr int kSmallBand = 4;
 constexpr int kWarps = 12;
 
 __device__ void plane(float4 c, float& x, float& y) {

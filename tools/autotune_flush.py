@@ -9,12 +9,15 @@ another commit's tree unpacked with ``git archive`` works too) and
 ``chip_smoke.py`` from this checkout, and runs ``chip_smoke.py``'s
 autotune point for the eig flush (32 seeded random waves on a ``1024²``
 identity, every kernel plan a candidate) ``N`` times in one process,
-each on a cleared plan cache.  For each trial it prints autotune's own
-``cuda_mxu`` 64/32 over ``cuda_wave`` ratio (its measurement: 20 ms of
-turns a candidate through the backend), the pick, the same ratio timed
-alone through ``plan.apply`` just after (1 s of turns, the check's
-timing), the seconds autotune took, and whether the point's checks
-held; then the card's name and power limit.  ``--samples FILE`` also
+each on a cleared plan cache.  For each trial it prints every
+candidate's time in autotune's own measurement (20 ms of turns a
+candidate through the backend; ``cuda_wave`` at each compiled band),
+the pick and its margin there (the next-best candidate over the pick,
+and ``cuda_mxu`` 64/32 over the pick), the margin timed alone through
+``plan.apply`` just after (1 s of turns, the check's timing: the
+fastest other kernel over the pick), the seconds autotune took, and
+whether the point's checks held; then the card's name and power
+limit.  ``--samples FILE`` also
 writes every timed call of each trial (autotune's rounds and the check's)
 to a JSON file.  Exits non-zero without a CUDA device.
 """
@@ -106,14 +109,23 @@ def main() -> int:
             with cs.measured_candidates() as seen:
                 row = cs.autotune_point("eig flush", seq, X, None, model,
                                         kernels, seen)
-            tuned = {(c["method"], c["tiles"].get("n_b")): c["ms"]
+            tuned = {(c["method"], c["tiles"].get("n_b"),
+                      c["tiles"].get("k_b")): c["ms"]
                      for c in row["candidates"]}
+            pick = (row["pick"]["method"], row["pick"]["tiles"].get("n_b"),
+                    row["pick"]["tiles"].get("k_b"))
             alone = row["apply_ms_alone"]
+            others = [ms for key, ms in tuned.items() if key != pick]
             trials.append(dict(
-                tune_mxu_over_wave=tuned[("cuda_mxu", 64)]
-                / tuned[("cuda_wave", None)],
-                pick=row["pick"]["method"],
-                alone_mxu_over_wave=alone["cuda_mxu"] / alone["cuda_wave"],
+                candidates={"/".join(map(str, key)): ms
+                            for key, ms in tuned.items()},
+                pick=row["pick"]["method"], pick_tiles=row["pick"]["tiles"],
+                tune_next_over_pick=min(others) / tuned[pick],
+                tune_mxu_over_pick=tuned[("cuda_mxu", 64, 32)] / tuned[pick],
+                alone_next_over_pick=min(
+                    ms for name, ms in alone.items()
+                    if name in cs.KERNEL_OF and name != pick[0])
+                / alone["pick"],
                 pick_vs_fastest_kernel=row["pick_vs_fastest_kernel"],
                 autotune_s=row["autotune_s"],
                 checks_held=len(failed) == before))

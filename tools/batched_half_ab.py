@@ -94,16 +94,28 @@ print(json.dumps(row))
 '''
 
 
-# a band kernel's instantiation in a mangled name: (kernel, storage type)
-_INSTANCE = re.compile(r"(rotseq_(?:wave|batched))_kernelILi\d+ELi\d+E"
+# a band kernel's instantiation in a mangled name: (kernel, band, storage
+# type)
+_INSTANCE = re.compile(r"(rotseq_(?:wave|batched))_kernelILi(\d+)ELi\d+E"
                        r"(f|13__nv_bfloat16|6__half)")
+
+
+def _instance(name: str):
+    """``(kernel, type)`` of a band kernel's instantiation in ``name``,
+    the type tagged ``kb<band>/`` past the default band of 16 (the
+    wavefront kernel's small band), or ``None``."""
+    t = _INSTANCE.search(name)
+    if t is None:
+        return None
+    kernel, band, typ = t.groups()
+    return kernel, typ if band == "16" else f"kb{band}/{typ}"
 
 
 def build(tag: str, sources, lib: Path):
     """``nvcc`` the ``sources`` into ``lib`` with the flags of
     ``kernels/_build.py``: ``(tag, lib, returncode, output, registers)``,
     ``registers`` the ptxas registers and spill bytes of every band
-    kernel instantiation, by ``(kernel, mangled type)``."""
+    kernel instantiation, by ``(kernel, type)`` (:func:`_instance`)."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build as kb
     proc = subprocess.run([kb._nvcc(), *kb.FLAGS, "-o", str(lib),
@@ -113,32 +125,32 @@ def build(tag: str, sources, lib: Path):
     regs = {}
     for m in re.finditer(r"Compiling entry function '(\w+)'((?:(?!Compiling)"
                          r".)*)", log, re.S):
-        t = _INSTANCE.search(m.group(1))
+        t = _instance(m.group(1))
         used = re.search(r"Used (\d+) registers", m.group(2))
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill",
                           m.group(2))
         if t and used:
-            regs[t.groups()] = dict(registers=int(used.group(1)),
+            regs[t] = dict(registers=int(used.group(1)),
                                     spill_bytes=sum(map(int, spill.groups()))
                                     if spill else 0)
     return tag, lib, proc.returncode, log, regs
 
 
 def sass(lib: Path) -> dict:
-    """``{(kernel, mangled type): (opcode counts, normalised listing)}``
+    """``{(kernel, type): (opcode counts, normalised listing)}``
     of the band kernels' instantiations in ``lib``: the listing with
     whitespace and the anonymous namespace's hash taken out."""
     sys.path.insert(0, str(ROOT / "tools"))
     import sass_ops
     out = {}
     for name, body in sass_ops.listing(lib).items():
-        t = _INSTANCE.search(name)
+        t = _instance(name)
         if t:
             ops = collections.Counter(sass_ops._INSN.findall(body))
             text = [re.sub(r"_GLOBAL__N__\w+?_", "_GLOBAL__N__",
                            re.sub(r"\s+", " ", ln).strip())
                     for ln in body.splitlines() if ln.strip()]
-            out[t.groups()] = (dict(instructions=sum(ops.values()),
+            out[t] = (dict(instructions=sum(ops.values()),
                                     **sass_ops.conversions(ops)), text)
     return out
 

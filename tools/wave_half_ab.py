@@ -13,10 +13,10 @@ helpers of ``tools/batched_half_ab.py``) and prints, one JSON line each:
 - ``build``: each source's ptxas registers and spill bytes by
   instantiation of both band kernels;
 - ``sass``: each wavefront instantiation's conversions, paired half ops
-  and widenings (``tools/sass_ops.py``), and which instantiations' SASS
-  equals the first source's (whitespace and the anonymous namespace's
-  hash aside): the float32 wavefront kernel's and the fused kernel's in
-  every dtype;
+  and widenings (``tools/sass_ops.py``; the small band's tagged
+  ``kb4/``), and which instantiations' SASS equals the first source's
+  (whitespace and the anonymous namespace's hash aside): the float32
+  wavefront kernel's and the fused kernel's in every dtype;
 - ``time``: in turns (the sources in order, then reversed), each in a
   fresh process with this tree's wrapper bound to that library: one
   launch at the paper shape of ``chip_smoke.py`` (``3840²``, ``k = 180``)
@@ -25,6 +25,8 @@ helpers of ``tools/batched_half_ab.py``) and prints, one JSON line each:
   (``3000 x 1000``, 37 waves) and, in half precision, the special-value
   case of ``chip_smoke.py`` held to the plain version as bit views; and
   at a source's first turn the paper shape held to the plain version.
+  A source from before the band argument (``int kb``) is called at the
+  default band through a shim.
 
 Needs a card and the CUDA toolkit.
 """
@@ -56,9 +58,12 @@ cs.timing = timing
 lib = ctypes.CDLL({lib!r})
 for dt, entry in wk.ENTRY.items():
     fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * ({banded} + 3) + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    wk._FN[dt] = fn
+    # a source from before the band argument: one band, the default
+    wk._FN[dt] = fn if {banded} else (
+        lambda *a, fn=fn: fn(*a[:8], a[9]) if a[8] == 16 else -1)
 dev = torch.device("cuda")
 gen = torch.Generator().manual_seed(cs.SEED)
 A0 = torch.randn((cs.M, cs.N), generator=gen).to(dev)
@@ -134,8 +139,10 @@ def main() -> int:
     env = {**os.environ, "REPRO_PLAN_CACHE": "off"}
     seen = set()
     for tag in list(libs) + list(reversed(list(libs))):
+        banded = "int K, int kb, void* stream" in (
+            Path(variants[tag]) / "rotseq_wave.cu").read_text()
         code = CHILD.format(root=str(ROOT), lib=str(libs[tag]),
-                            check=tag not in seen)
+                            check=tag not in seen, banded=int(banded))
         seen.add(tag)
         proc = subprocess.run([sys.executable, "-c", code],
                               capture_output=True, text=True, timeout=900,
