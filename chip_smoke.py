@@ -421,10 +421,25 @@ _MANGLED_TYPE = r"(f|13__nv_bfloat16|6__half)"
 _TYPE_TAG = {"f": "", "13__nv_bfloat16": "/bf16", "6__half": "/f16"}
 
 
+def wave_key(kb: int, tag: str = "") -> str:
+    """The wavefront kernel's instantiation at bands of ``kb`` waves, as
+    :func:`wave_instances` names it (``tag``: ``""``, ``"/bf16"``,
+    ``"/f16"``): the band pipeline's ``kb16/w12``, the small band's
+    kernel's ``kb4/r4x8`` (rows by bands a warp)."""
+    from repro_torch.kernels.limits import (WAVE_SMALL_BANDS, WAVE_SMALL_KB,
+                                            WAVE_SMALL_ROWS, WAVE_WARPS)
+    if kb == WAVE_SMALL_KB:
+        return f"kb{kb}/r{WAVE_SMALL_ROWS}x{WAVE_SMALL_BANDS}{tag}"
+    return f"kb{kb}/w{WAVE_WARPS}{tag}"
+
+
 def wave_instances(ptxas: dict) -> dict:
-    """``{"kb16/w12": report, "kb16/w12/bf16": ...}``: the wavefront
-    kernel's instantiations in the ptxas report, by waves a band, warps
-    a block and (for the half ones) the storage type."""
+    """``{"kb16/w12": report, "kb16/w12/bf16": ..., "kb4/r4x8": ...}``:
+    the wavefront kernel's instantiations in the ptxas report, by waves a
+    band and warps a block (the band pipeline) or rows by bands a warp
+    (the small band's kernel), and (for the half ones) the storage
+    type."""
+    from repro_torch.kernels.limits import WAVE_SMALL_KB
     found = {}
     for name, rep in ptxas.items():
         m = re.search(r"rotseq_wave_kernelILi(\d+)ELi(\d+)E" + _MANGLED_TYPE,
@@ -432,6 +447,9 @@ def wave_instances(ptxas: dict) -> dict:
         if m:
             found[f"kb{m.group(1)}/w{m.group(2)}"
                   f"{_TYPE_TAG[m.group(3)]}"] = rep
+        m = re.search(r"rotseq_wave_small_kernelI" + _MANGLED_TYPE, name)
+        if m:
+            found[wave_key(WAVE_SMALL_KB, _TYPE_TAG[m.group(1)])] = rep
     return found
 
 
@@ -544,7 +562,7 @@ def wave_phase(ctx, ptxas: dict) -> dict:
     regs = wave_instances(ptxas)
     no_spills(regs, "rotseq_wave")
     for kb in (WAVE_KB, WAVE_SMALL_KB):
-        check(f"kb{kb}/w{WAVE_WARPS}" in regs,
+        check(wave_key(kb) in regs,
               f"no k_b={kb} instantiation of rotseq_wave in the ptxas "
               f"report")
     emit(phase="rotseq_wave", m=M, n=N, k=K, kb=WAVE_KB, warps=WAVE_WARPS,
@@ -600,7 +618,8 @@ def wave_flush_phase(ctx, ptxas: dict) -> dict:
     from repro_torch import random_sequence
     from repro_torch.core import registry
     from repro_torch.kernels.limits import (WAVE_BANDS, WAVE_SMALL_KB,
-                                            WAVE_WARPS)
+                                            WAVE_WARPS, wave_small_geometry,
+                                            wave_small_steps)
     from repro_torch.kernels.rotseq import kernel as wave_k
     from repro_torch.kernels.rotseq.ref import rotseq_wave_ref
     dev = ctx["A"].device
@@ -627,7 +646,7 @@ def wave_flush_phase(ctx, ptxas: dict) -> dict:
         pl = seq.plan(like=A, method="cuda_wave", k_b=kb)
         check(torch.equal(pl.apply(A), o_p.t()),
               f"cuda_wave k_b={kb} plan.apply != plain version")
-        rep = regs[f"kb{kb}/w{WAVE_WARPS}"]
+        rep = regs[wave_key(kb)]
         bands[kb] = dict(
             ms=held_ms(lambda: wave_k.rotseq_wave(*args, k_b=kb)),
             ms_back_to_back=time_ms(lambda: wave_k.rotseq_wave(
@@ -644,7 +663,15 @@ def wave_flush_phase(ctx, ptxas: dict) -> dict:
     matmul_ms = time_ms(lambda: torch.matmul(A, B), 20)
     ranked = registry._modeled_plans(registry.Problem(m=n, n=n, k=k))
     small, default = bands[WAVE_SMALL_KB], bands[16]
+    # the small band's kernel at the flush: a warp of rows by bands, its
+    # blocks on the card's SMs (one block an SM while they last), the
+    # steps of its one pass
+    geo = wave_small_geometry(n)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     emit(phase="rotseq_wave_flush", m=n, n=n, k=k, warps=WAVE_WARPS,
+         small_band_kernel=dict(geo, sms=sms,
+                                sms_used=min(geo["blocks"], sms),
+                                steps_a_pass=wave_small_steps(n, k)),
          bands={f"kb{kb}": row for kb, row in bands.items()},
          bound_ms=b_ms, bound_by=b_by,
          cuda_mxu_64_32_apply_ms=mxu_ms,
@@ -1125,7 +1152,7 @@ def wave_half_phase(hctx, ptxas: dict) -> dict:
     no_spills(regs, "rotseq_wave")
     for tag in HALF:
         for kb in (WAVE_KB, WAVE_SMALL_KB):
-            check(f"kb{kb}/w{WAVE_WARPS}/{tag}" in regs,
+            check(wave_key(kb, f"/{tag}") in regs,
                   f"no {tag} k_b={kb} instantiation of rotseq_wave in the "
                   f"ptxas report")
     emit(phase="rotseq_wave_half", m=M, n=N, k=K, kb=WAVE_KB,
@@ -1149,8 +1176,9 @@ def same_bits(a, b) -> bool:
 HALF_SPECIAL = {"bf16": (0x7FC1, 3.0e38, 3.0e-39),
                 "f16": (0x7E01, 6.0e4, 3.0e-5)}
 # the wave's special-value case: rows no multiple of 8, two passes, the
-# last band padded; by band (200 waves are five passes at the small band,
-# four times the plain version's steps: 50 are two)
+# last band padded; by band (200 waves would be seven passes of the
+# small band's 8 bands, four times the plain version's steps: 50 are two,
+# the second of 5 bands)
 WAVE_SPECIAL = {16: (1021, 1000, 200), 4: (1021, 1000, 50)}
 # planes j < SPECIAL_EDGE and j >= n - 1 - SPECIAL_EDGE are the identity
 # in every wave of the special-value case: those columns lie outside
@@ -1221,8 +1249,10 @@ def batched_special_case(A, seqs, tag: str) -> dict:
 
 def wave_special_case(tag: str, dtype, dev, k_b: int = 16) -> dict:
     """``rotseq_wave`` at ``WAVE_SPECIAL[k_b]`` (rows no multiple of 8:
-    warp 0's columns by plain loads; two passes of 12 bands, the last
-    padded) on targets with NaN (with a payload), +-inf, -0.0,
+    at the default band warp 0's columns by plain loads, two passes of
+    12 bands; at the small band a ragged last warp, two passes of 8 and 5
+    bands; the last band padded) on targets with NaN (with a payload),
+    +-inf, -0.0,
     overflowing and subnormal-making values, the edge planes the
     identity in every wave, at bands of ``k_b`` waves: kernel and plain
     version at that band equal as bit views."""
@@ -1260,24 +1290,35 @@ def wave_special_case(tag: str, dtype, dev, k_b: int = 16) -> dict:
 def sass_half(kernel: str) -> dict:
     """Opcode counts of ``kernel``'s instantiations (``rotseq_wave``,
     ``rotseq_batched``; ``tools/sass_ops.py``; the wavefront kernel's
-    small band tagged ``kb4/``): conversions, paired half ops and
-    widenings in all and a plane (the unrolled chunk holds ``kChunkPlanes``
-    = 128 planes at a band of 16, 32 at 4; the whole function's count
-    over those bounds what a plane issues from above); fail past 4
-    conversions a plane or on bfloat16's ``F2F``."""
+    small band, its own kernel, tagged ``kb4/``): conversions, paired
+    half ops and widenings in all and a plane (the unrolled chunk holds
+    ``kChunkPlanes`` = 128 planes at a band of 16; the small band's
+    kernel a lane's 16 steps of 4 planes twice, its steady and edge
+    bodies; the whole function's count over those bounds what a plane
+    issues from above); fail past 4 conversions a plane or on bfloat16's
+    ``F2F``."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "sass_ops", ROOT / "tools" / "sass_ops.py")
     sass = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sass)
+    from repro_torch.kernels.limits import WAVE_SMALL_CHUNK, WAVE_SMALL_KB
     out = {}
-    for name, ops in sass.functions(rf"{kernel}_kernel").items():
+    for name, ops in sass.functions(rf"{kernel}_(small_)?kernel").items():
         m = re.search(rf"{kernel}_kernelILi(\d+)ELi\d+E" + _MANGLED_TYPE,
                       name)
-        band = int(m.group(1))
-        # the unrolled chunk's planes: band x min(2 band, 128 / band)
-        planes = band * min(2 * band, 128 // band)
-        tag = _TYPE_TAG[m.group(2)][1:] or "f32"
+        if m:
+            band, typ = int(m.group(1)), m.group(2)
+            # the unrolled chunk's planes: band x min(2 band, 128 / band)
+            planes = band * min(2 * band, 128 // band)
+        else:
+            # the small band's kernel: its chunk's planes a lane, in the
+            # steady body and the edge one
+            typ = re.search(r"small_kernelI" + _MANGLED_TYPE,
+                            name).group(1)
+            band = WAVE_SMALL_KB
+            planes = 2 * WAVE_SMALL_CHUNK * band
+        tag = _TYPE_TAG[typ][1:] or "f32"
         if band != 16:   # the wavefront kernel's small band
             tag = f"kb{band}/{tag}"
         conv = sass.conversions(ops)
@@ -4133,12 +4174,14 @@ def soap_phase(dev, kernels) -> None:
     (Jacobi, ``apply_method="auto"``).  At each refresh the rotation
     kernels launch; every basis is orthogonal within ``SOAP_ORTH_TOL``
     and equals its recording applied through the pick's plain version on
-    the card (bit for bit for ``cuda_wave``, ``MXU_TOL`` for
+    the card (bit for bit for ``cuda_wave``, at the default band whatever
+    the pick's, as :func:`plain_replay` does; ``MXU_TOL`` for
     ``cuda_mxu``).  Then one ``solver="qr"`` refresh of the embedding's
     covariances."""
     import torch
     import repro_torch.optim.soap_givens as soap_mod
     from repro_torch.configs import get_config
+    from repro_torch.kernels.limits import WAVE_KB
     from repro_torch.optim import SoapGivens, warmup_cosine
     from repro_torch.tree import map_tree
     cfg = get_config(LM_ARCH).reduced()
@@ -4197,8 +4240,13 @@ def soap_phase(dev, kernels) -> None:
         check(plan.method in KERNEL_OF, f"auto planned {plan.method} at "
               f"side {n}")
         plain = plain_of(plan.method)
-        want = soap_mod.jacobi_apply_basis(res, method=plain,
-                                           **dict(plan.kwargs))
+        tiles = dict(plan.kwargs)
+        if plan.method == "cuda_wave":
+            # as plain_replay: the blocked plain version's values are
+            # every band's, and at the small band it walks four times
+            # the steps
+            tiles["k_b"] = WAVE_KB
+        want = soap_mod.jacobi_apply_basis(res, method=plain, **tiles)
         err = same_family(V, want, [plan.method],
                           f"SOAP basis side {n}: {plan.method} vs {plain}")
         orth = float((V.double().T @ V.double() - torch.eye(
@@ -4206,7 +4254,8 @@ def soap_phase(dev, kernels) -> None:
         check(orth <= SOAP_ORTH_TOL, f"SOAP basis side {n}: orth {orth}")
         picks.setdefault(n, dict(method=plan.method,
                                  tiles=dict(plan.kwargs), plain=plain,
-                                 err_vs_plain=[], orth_err=[]))
+                                 plain_tiles=tiles, err_vs_plain=[],
+                                 orth_err=[]))
         picks[n]["err_vs_plain"].append(err)
         picks[n]["orth_err"].append(orth)
     st = loop.opt_state["per"]["embed"]["e"]

@@ -1520,7 +1520,10 @@ class RA405CudaConstantsMirrorLimits(Rule):
     # source under csrc/ -> (its constexpr int, the limits name) pairs
     MIRRORS: Dict[str, Tuple[Tuple[str, str], ...]] = {
         "rotseq_wave": (("kBand", "WAVE_KB"), ("kSmallBand", "WAVE_SMALL_KB"),
-                        ("kWarps", "WAVE_WARPS")),
+                        ("kWarps", "WAVE_WARPS"),
+                        ("kSmallRows", "WAVE_SMALL_ROWS"),
+                        ("kSmallBands", "WAVE_SMALL_BANDS"),
+                        ("kSmallWarps", "WAVE_SMALL_WARPS")),
         "rotseq_mxu": (("kRows", "MXU_ROWS"), ("kSlab", "MXU_SLAB")),
         "rotseq_mxu_half": (("kRows", "MXU_HALF_ROWS"),
                             ("kChunk", "MXU_HALF_CHUNK"),

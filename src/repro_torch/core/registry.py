@@ -33,7 +33,9 @@ the time of one, for as many rows as the card runs at once
 (:data:`repro_torch.hw.RESIDENT_ROWS`).  ``cuda_wave`` splits a row's
 bands over the warps of its band pipeline, which walk them in chunks: a
 launch takes its chunk iterations, each a fixed part and its planes
-(:data:`_WAVE_STEP_SECONDS`, fitted at both of its bands).
+(:data:`_WAVE_STEP_SECONDS`); at the small band, a kernel of its own, a
+launch takes a warp's steps, each at a pace set by the warps that share
+a scheduler (:data:`_WAVE_SMALL_STEP_SECONDS`).
 
 Measured autotune (``select_plan(..., autotune=True)``) times the top
 modeled plans on the problem's own platform (CUDA events on the card) and
@@ -74,8 +76,10 @@ from repro_torch.hw import PLATFORMS, RESIDENT_ROWS, Hardware
 from repro_torch.kernels.limits import (MXU_HALF_CHUNK, MXU_HALF_CLUSTER,
                                         MXU_HALF_ROWS, MXU_ROWS, MXU_SLAB,
                                         WAVE_BANDS, WAVE_KB, WAVE_ROWS,
-                                        WAVE_WARPS, mxu_width,
-                                        wave_chunk_steps, wave_lag)
+                                        WAVE_SMALL_KB, WAVE_SMALL_ROWS,
+                                        WAVE_SMALL_WARPS, WAVE_WARPS,
+                                        mxu_width, wave_chunk_steps,
+                                        wave_lag, wave_small_steps)
 
 __all__ = [
     "Hardware", "PLATFORMS", "Problem", "Plan", "Capability", "BackendSpec",
@@ -140,48 +144,66 @@ _BATCHED_PLANE_SECONDS = {"float32": 6.62e-3 / (3839 * 180),
                           "float16": 14.345e-3 / (3839 * 180)}
 
 # One launch of the wavefront kernel on the card (csrc/rotseq_wave.cu).
-# A block is a row group of WAVE_ROWS rows; its min(WAVE_WARPS, bands)
-# busy warps each walk one band of k_b waves a pass, in chunks of
-# wave_chunk_steps(k_b) steps, wave_lag(k_b) chunks behind the warp
-# before, so a pass is ceil((n + 2 k_b - 2) / steps) + lag * (warps - 1)
-# chunk iterations, each closed by the block's barrier.  An iteration
-# costs a fixed part c (staging the next chunk, the barrier, the
-# hand-offs: latency, whatever its planes) and s a plane for its k_b *
-# steps planes times the busy warps that share one of an SM's
-# _SCHEDULERS schedulers (a warp alone waits on its chain; three take
-# turns); row groups past one an SM queue.  At few bands the fixed part
-# rules: at k = 32 the default band runs 2 warps through 137 iterations
-# of 128 planes, the small band 8 warps through 143 of 32.
-# (c, s) by dtype are fitted to the launches of _WAVE_LAUNCHES, in ms by
-# (M, n, K, k_b): the paper shape, the ragged problem and (float32) an
-# eigensolver's flush at both bands, timed by chip_smoke.py's rotseq_wave,
-# rotseq_wave_flush and rotseq_wave_half lines, the middle of five whole
-# runs on an NVIDIA H100 80GB HBM3 at 700.00 W; through the paper shape's
-# launch at the default band exactly, least squares in relative error at
-# the others.  The fit holds every float32 launch within 7% (the flush
-# at the two bands 0.214 and 0.169 ms, against 0.221 and 0.163) and the
-# half ones within 8%, but the ragged problem's at the default band,
-# which it prices short: 0.237 against 0.271 ms in bfloat16, 0.310
-# against 0.402 in float16.
+# At the default band a block is a row group of WAVE_ROWS rows; its
+# min(WAVE_WARPS, bands) busy warps each walk one band of k_b waves a
+# pass, in chunks of wave_chunk_steps(k_b) steps, wave_lag(k_b) chunks
+# behind the warp before, so a pass is ceil((n + 2 k_b - 2) / steps) +
+# lag * (warps - 1) chunk iterations, each closed by the block's barrier.
+# An iteration costs a fixed part c (staging the next chunk, the barrier,
+# the hand-offs: latency, whatever its planes) and s a plane for its k_b *
+# steps planes times the busy warps that share one of an SM's _SCHEDULERS
+# schedulers (a warp alone waits on its chain; three take turns); row
+# groups past one an SM queue.  (c, s) by dtype are fitted to that band's
+# launches in _WAVE_LAUNCHES: through the paper shape's launch exactly,
+# least squares in relative error at the others.
+# The small band (WAVE_SMALL_KB) runs a kernel of its own: a warp of
+# WAVE_SMALL_ROWS rows by WAVE_SMALL_BANDS bands walks every pass in
+# n + W - 1 + W (bands - 1) steps (W = 2 k_b; wave_small_steps), each
+# lane k_b planes a step, blocks of WAVE_SMALL_WARPS warps spread over
+# _SMS SMs.  A step of a warp alone on its scheduler takes t1 (its
+# chain's latency and issue); each further plane a step on its scheduler
+# (warps past one a scheduler, as a share: 6 warps an SM are 1.5 a
+# scheduler) adds a.  (t1, a) by dtype are fitted to the small band's
+# launches in _WAVE_LAUNCHES: through the eig flush (the path it is for)
+# exactly, least squares in relative error at the others.
+# _WAVE_LAUNCHES, in ms by (M, n, K, k_b): the paper shape, the ragged
+# problem and an eigensolver's flush, timed on an NVIDIA H100 80GB HBM3
+# at 700.00 W by chip_smoke.py's rotseq_wave, rotseq_wave_flush and
+# rotseq_wave_half lines (the default band's the middle of five whole
+# runs, the small band's from a whole run) and, for the small band's
+# half flushes, tools/wave_small_ab.py (the middle of four turns).
 # cost_cuda_wave's roofline term (0.30 ms at the paper shape) stands for
 # the transposes around the launch (plan.apply measured 1.95 ms there).
 _SCHEDULERS = 4
 _WAVE_LAUNCHES = {
-    "float32": {(1024, 1024, 32, 16): 0.2206, (1024, 1024, 32, 4): 0.1633,
-                (3840, 3840, 180, 16): 1.658, (3840, 3840, 180, 4): 2.757,
-                (3000, 1000, 37, 16): 0.2327, (3000, 1000, 37, 4): 0.1915},
-    "bfloat16": {(3840, 3840, 180, 16): 1.700, (3840, 3840, 180, 4): 2.930,
-                 (3000, 1000, 37, 16): 0.2710, (3000, 1000, 37, 4): 0.2106},
-    "float16": {(3840, 3840, 180, 16): 2.046, (3840, 3840, 180, 4): 3.860,
-                (3000, 1000, 37, 16): 0.4020, (3000, 1000, 37, 4): 0.2727}}
+    "float32": {(1024, 1024, 32, 16): 0.2206, (1024, 1024, 32, 4): 0.0788,
+                (3840, 3840, 180, 16): 1.658, (3840, 3840, 180, 4): 5.710,
+                (3000, 1000, 37, 16): 0.2327, (3000, 1000, 37, 4): 0.3309},
+    "bfloat16": {(3840, 3840, 180, 16): 1.700, (3840, 3840, 180, 4): 5.556,
+                 (3000, 1000, 37, 16): 0.2710, (3000, 1000, 37, 4): 0.3353,
+                 (1024, 1024, 32, 4): 0.0914},
+    "float16": {(3840, 3840, 180, 16): 2.046, (3840, 3840, 180, 4): 5.748,
+                (3000, 1000, 37, 16): 0.4020, (3000, 1000, 37, 4): 0.4493,
+                (1024, 1024, 32, 4): 0.1739}}
 _WAVE_ANCHOR = (3840, 3840, 180, WAVE_KB)
+_WAVE_SMALL_ANCHOR = (1024, 1024, 32, WAVE_SMALL_KB)
 
 
-def _wave_walk(m: float, n: int, k: int, k_b: int) -> Tuple[float, int]:
-    """One wavefront launch over ``m`` rows at bands of ``k_b`` waves:
-    the chunk iterations of a row group's walk, times the queue of row
-    groups past one an SM, and the planes an iteration issues on one
-    scheduler."""
+def _wave_walk(m: float, n: int, k: int, k_b: int) -> Tuple[float, float]:
+    """One wavefront launch over ``m`` rows at bands of ``k_b`` waves.
+
+    ``(iterations, planes an iteration on one scheduler)``.  The default
+    band: the chunk iterations of a row group's walk, times the queue of
+    row groups past one an SM, and the planes an iteration issues on one
+    scheduler.  The small band: the steps of a warp's walk, and ``k_b``
+    planes a warp-step times the warps an SM shares among its schedulers
+    (at least one)."""
+    if k_b == WAVE_SMALL_KB:
+        warps = math.ceil(m / WAVE_SMALL_ROWS)
+        blocks = math.ceil(warps / WAVE_SMALL_WARPS)
+        per_sm = math.ceil(blocks / _SMS) * WAVE_SMALL_WARPS
+        return (wave_small_steps(n, k),
+                k_b * max(1.0, per_sm / _SCHEDULERS))
     steps = wave_chunk_steps(k_b)
     bands = math.ceil(k / k_b)
     warps = max(1, min(WAVE_WARPS, bands))
@@ -192,35 +214,41 @@ def _wave_walk(m: float, n: int, k: int, k_b: int) -> Tuple[float, int]:
     return iters * queue, k_b * steps * math.ceil(warps / _SCHEDULERS)
 
 
-def _fit_wave_steps(launches: dict) -> Tuple[float, float]:
-    """``(c, s)`` of :func:`_wave_launch_seconds` fitted to ``launches``
-    (ms by ``(M, n, K, k_b)``): through the paper shape's launch at the
-    default band (the main path's) exactly, least squares in relative
-    error at the others."""
-    it0, pl0 = _wave_walk(*_WAVE_ANCHOR)
-    t0 = launches[_WAVE_ANCHOR] * 1e-3 / it0     # c + s * pl0
+def _fit_wave_steps(launches: dict, anchor) -> Tuple[float, float]:
+    """``(c, s)`` of :func:`_wave_launch_seconds` at ``anchor``'s band,
+    fitted to ``launches`` (ms by ``(M, n, K, k_b)``) at that band:
+    through ``anchor`` exactly, least squares in relative error at the
+    others (for the small band ``c + k_b s`` is its ``t1`` and ``s`` its
+    ``a``; ``s = 0`` with no other launch at the band)."""
+    it0, pl0 = _wave_walk(*anchor)
+    t0 = launches[anchor] * 1e-3 / it0          # c + s * pl0
     a, b = [], []
     for key, ms in launches.items():
-        if key != _WAVE_ANCHOR:
+        if key != anchor and key[3] == anchor[3]:
             iters, planes = _wave_walk(*key)
             a.append(iters * (planes - pl0) / (ms * 1e-3))
             b.append(1.0 - iters * t0 / (ms * 1e-3))
     a, b = np.array(a), np.array(b)
-    s = float(a @ b / (a @ a))
+    s = float(a @ b / (a @ a)) if len(a) and a @ a > 0 else 0.0
     return t0 - pl0 * s, s
 
 
-_WAVE_STEP_SECONDS = {dtype: _fit_wave_steps(launches)
+_WAVE_STEP_SECONDS = {dtype: _fit_wave_steps(launches, _WAVE_ANCHOR)
                       for dtype, launches in _WAVE_LAUNCHES.items()}
+_WAVE_SMALL_STEP_SECONDS = {
+    dtype: _fit_wave_steps(launches, _WAVE_SMALL_ANCHOR)
+    for dtype, launches in _WAVE_LAUNCHES.items()
+    if _WAVE_SMALL_ANCHOR in launches}
 
 
 def _wave_launch_seconds(m: float, n: int, k: int, k_b: int,
                          dtype: str) -> float:
     """Seconds of one wavefront launch on the card over ``m`` rows at
     bands of ``k_b`` waves, targets of ``dtype``
-    (:data:`_WAVE_STEP_SECONDS`)."""
+    (:data:`_WAVE_STEP_SECONDS`, :data:`_WAVE_SMALL_STEP_SECONDS`)."""
     iters, planes = _wave_walk(m, n, k, k_b)
-    c, s = _plane_seconds(_WAVE_STEP_SECONDS, dtype)
+    c, s = _plane_seconds(_WAVE_SMALL_STEP_SECONDS if k_b == WAVE_SMALL_KB
+                          else _WAVE_STEP_SECONDS, dtype)
     return iters * (c + s * planes)
 
 
@@ -598,9 +626,11 @@ def cost_cuda_wave(p: Problem, plan: Plan) -> float:
     ``supports_vmap=False``: a per-request batch runs as separate
     launches, so the latency floor multiplies by the sequence count.  On
     the card each launch also costs its walk at its band ``plan.k_b``
-    (:func:`_wave_launch_seconds`): chunk iterations of a fixed part and
-    the planes each of an SM's schedulers issues, every pass of
-    ``WAVE_WARPS`` bands walked again.  The roofline term, at the default
+    (:func:`_wave_launch_seconds`): at the default band chunk iterations
+    of a fixed part and the planes each of an SM's schedulers issues,
+    every pass of ``WAVE_WARPS`` bands walked again; at the small band
+    its kernel's warp steps, every pass of ``WAVE_SMALL_BANDS`` bands,
+    at the pace of the warps that share a scheduler.  The roofline term, at the default
     band's traffic whatever the band (it stands for the transposes around
     the launch), still orders the tiles.  A shard runs ``1/D`` of the
     rows; the communication seconds add outside the kernel's constants.

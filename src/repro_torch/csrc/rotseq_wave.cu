@@ -29,8 +29,8 @@
 // 1. The register window (as in rotseq_batched.cu).  One lane owns one
 //    row.  A warp walks one band in steps; step t touches columns
 //    t-W+2 .. t+1, W = 2*KB, held in registers.  Steps run in chunks of
-//    CS = min(W, 128/KB) steps (128 planes at KB = 16, 32 at KB = 4),
-//    aligned to multiples of CS,
+//    CS = min(W, 128/KB) steps (128 planes at KB = 16), aligned to
+//    multiples of CS,
 //    with the chunk body unrolled: at the start of chunk tc, column c
 //    sits in slot (c - tc) mod W, so every slot index is a compile-time
 //    constant, and the window rotates by CS slots at the end of a chunk.
@@ -58,6 +58,12 @@
 //    Warps past the last band of a pass only keep the barriers.
 //    tests/test_torch_wave.py walks this schedule on the CPU, ring tags
 //    and all, and holds it to the plain version bit for bit.
+//
+// 3. The small band.  At few waves (k_b = kSmallBand) the bands of a
+//    pass would leave most warps of a row group idle, so they run as a
+//    chain inside one warp instead, a (row, band) pair a lane, on every
+//    SM: rotseq_wave_small_kernel below, walked on the CPU by the same
+//    tests.
 //
 // Planes outside the grid, chosen so that the result equals the blocked
 // plain version bit for bit (signed zeros included):
@@ -117,17 +123,24 @@ namespace {
 // (tools/wave_sweep.py).
 constexpr int kBand = 16;
 constexpr int kWarps = 12;
-// the small band (limits.WAVE_SMALL_KB): at few waves kBand leaves most
-// warps of a row group idle (k = 32, an eigensolver's flush, is 2 bands
-// of 16 on 2 of 12 warps, each walking the whole row); bands of 4 put 8
-// warps on it, each with a quarter of the chain.  A chunk then holds 32
-// planes, and its staging, barrier and hand-offs weigh four times as
-// much a plane: at k = 32, n = M = 1024 it ran in 0.16 ms against 0.22
-// at kBand, whatever the warps (8, 12 or 16) or the chunks staged ahead
-// (1 to 4), on an H100 (tools/wave_sweep.py).  On finite nonzero values
-// the result does not depend on the band; signed zeros and inf or NaN
-// can, through the pad planes of the last band (tests/test_torch_wave.py).
+// The small band (limits.WAVE_SMALL_KB), for few waves, is a kernel of its
+// own, rotseq_wave_small_kernel below.  At k = 32 (an eigensolver's
+// flush) kBand leaves 10 of a row group's 12 warps idle, and the band
+// pipeline above run at bands of 4 paid a block barrier, staging and ring
+// hand-offs every 32 planes on 32 of 132 SMs: 0.163 ms at k = 32,
+// n = M = 1024 on an H100, 54 times its bound.
+// On finite nonzero values the result does not depend on the band;
+// signed zeros and inf or NaN can, through the pad planes of the last
+// band (tests/test_torch_wave.py).
 constexpr int kSmallBand = 4;
+// the small band's warp: kSmallRows rows of A by kSmallBands bands, one
+// (row, band) pair a lane (limits.WAVE_SMALL_ROWS, WAVE_SMALL_BANDS);
+// kSmallWarps independent warps a block (limits.WAVE_SMALL_WARPS); plane
+// values staged a chunk of kSmallChunk steps ahead
+constexpr int kSmallRows = 4;
+constexpr int kSmallBands = 8;
+constexpr int kSmallWarps = 2;
+constexpr int kSmallChunk = 16;
 // planes in the unrolled body of one chunk
 constexpr int kChunkPlanes = 128;
 // columns in each warp's input ring
@@ -392,11 +405,261 @@ rotseq_wave_kernel(const T* at, const T* __restrict__ cw,
   }
 }
 
+// raw bits of a staged plane value in a float (float32: the value)
+template <typename T>
+__device__ __forceinline__ float raw_bits(T v) {
+  if constexpr (std::is_same<T, float>::value) {
+    return v;
+  } else {
+    return __uint_as_float(*reinterpret_cast<const unsigned short*>(&v));
+  }
+}
+
+// The small band: a band chain inside a warp.  Lane (r, b) = (lane / NB,
+// lane % NB) applies the KB waves of band b of the pass to row r of the
+// warp's R rows in a register window of W = 2 KB columns, the step
+// rule of rotseq_wave_kernel: at its step t it takes column t+1 in,
+// applies plane t - 2i of band wave i, and finishes column t - W + 2.
+// Band b runs W steps behind band b - 1: at the warp's step s the lane's
+// step is t = s - 1 - W b, so band b - 1 finishes column c at step
+// c + W - 1 + W (b - 1) and band b takes it in at c + W b, the next
+// step.  One __shfl_up_sync a step hands the finished column on, and one
+// register (h) holds it for that step; column c sits in window slot
+// c mod W in every lane (the lag is a multiple of W), so every slot index
+// is a compile-time constant of the step's place in its chunk.  Band 0
+// takes column s from a per-warp ring in shared memory (staged from
+// memory, AT in the first pass and `out` after); the pass's last band
+// stores the column it finishes.  A pass runs NB bands over the rows in
+// S = n + W - 1 + W last steps; the next pass reads the rows back from
+// `out` after a __syncwarp (no other warp touches them).
+//
+// Plane values: each lane needs its band's KB planes a step, NB * KB
+// distinct planes a warp-step.  A chunk of CS = 2 W steps stages them one
+// chunk ahead into a per-warp ring of two slots of {c, s, g, -}, laid
+// [step][wave i][band b ^ 2i] (the XOR puts a staging store's eight
+// lanes on eight banks; a step's reads of wave i stay 128 contiguous
+// bytes): lane w loads wave w of the pass at the chunk's CS steps, CS
+// consecutive planes of its panel row, into registers before the chunk
+// runs and writes them to the slot after, a __syncwarp a chunk; a step
+// reads its plane values one step ahead.  Where every plane of a chunk
+// lies inside the grid the loads take no test; elsewhere the identity
+// planes outside the grid are written as rotseq_wave_kernel stages them,
+// so the result is the blocked plain version's bit for bit at this band,
+// signed zeros included.  Steps where a lane is outside its band (before
+// t = 0 or past column n-1's take-in) run in chunks of their own that
+// mask the take-in: before its first step a lane's window holds +0 and
+// takes +0 in, and its planes there are (1, 0, +1), which keep +0;
+// column 0 comes in after the planes of step t = -1.
+//
+// Grid: kSmallWarps warps a block, R rows a warp, no block barrier: at
+// M = 1024, 256 warps in 128 blocks, one a scheduler, on 128 SMs.
+//
+// At k = 32, n = M = 1024 in float32 a launch took 0.079 ms on an H100
+// at 700 W (tools/wave_small_ab.py).  A warp alone on its scheduler sets
+// the pace, so the staging that issues fewest instructions won: chunks
+// of 8 steps 0.084 ms, and at 8 steps, 8 lanes a wave (fewer cache lines
+// a load, more address arithmetic) 0.106 or cp.async into the slots
+// 0.087; 32-step chunks loaded a panel row a load instruction, 4 steps a
+// shared-memory read, 0.097.  With no plane values staged past the first
+// chunks (a wrong result, timed as a bound) 0.051.
+template <typename T>
+__global__ void __launch_bounds__(kSmallWarps * 32)
+rotseq_wave_small_kernel(const T* at, const T* __restrict__ cw,
+                         const T* __restrict__ sw,
+                         const T* __restrict__ gw, T* out, int n, int M,
+                         int K) {
+  using St = Store<T>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int KB = kSmallBand;
+  constexpr int R = kSmallRows;
+  constexpr int NB = kSmallBands;
+  constexpr int W = 2 * KB;                     // window; lag between bands
+  constexpr int CS = kSmallChunk;               // steps a chunk
+  constexpr int WP = NB * KB;                   // waves a pass
+  constexpr int QC = CS * R / 32;               // column elements a lane
+  static_assert(R * NB == 32 && CS % W == 0, "a lane a (row, band) pair");
+  static_assert(WP == 32 && CS * R % 32 == 0, "a lane a wave's staging");
+  static_assert((NB & (NB - 1)) == 0 && 2 * (KB - 1) < NB,
+                "the slots' swizzle");
+  static_assert(kF32 || KB % 2 == 0, "half planes rounded in pairs");
+  __shared__ float4 panel[kSmallWarps][2][CS][KB][NB];
+  __shared__ alignas(16) unsigned char cols[kSmallWarps * 2 * CS * R *
+                                            sizeof(T)];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int g = blockIdx.x * kSmallWarps + wid;  // the warp's row group
+  if (g * R >= M) return;
+  const int r = lane / NB;
+  const int b = lane % NB;
+  const int row = g * R + r;
+  const bool live = row < M;
+  // staging roles: a lane stages one wave of the pass, wave iw of band
+  // bw, at every step of a chunk, into the slot's entry [step][iw][bw ^
+  // 2 iw]; and column element e, step cu + e * 32 / R of row cr
+  const int iw = lane % KB;
+  const int bw = lane / KB;
+  const int cu = lane / R;
+  const int cr = lane % R;
+  const int crow = g * R + cr;
+  const bool clive = crow < M;
+  const int J = n - 1;
+  const int bands = (K + KB - 1) / KB;
+  const size_t ld = (size_t)M;                  // column stride of a row
+  float4(*pring)[CS][KB][NB] = panel[wid];
+  T(*cring)[CS][R] = reinterpret_cast<T(*)[CS][R]>(cols) + 2 * wid;
+  T hc[CS], hs[CS], hg[CS], hcol[QC];           // staged, a chunk ahead
+  float win[W];                                 // T-exact values
+
+  for (int q0 = 0; q0 < bands; q0 += NB) {      // passes
+    const int last = min(NB, bands - q0) - 1;   // the pass's last band
+    const bool to_out = live && b == last;
+    const T* from = q0 == 0 ? at : out;
+    const int S = n + W - 1 + W * last;         // steps of the pass
+    const int NC = (S + CS - 1) / CS;
+    const int p = q0 * KB + lane;               // the wave a lane stages
+    const bool whole = q0 * KB + WP <= K;       // every wave of the pass
+    const int base = p * J - 1 - 2 * lane;      // + s: its plane at step s
+    // load chunk kn's plane values and band 0's columns into registers;
+    // every plane of the chunk inside the grid: no test a plane
+    auto fetch = [&](int kn) {
+      const int s0 = kn * CS;
+      if (whole && s0 >= 2 * WP - 1 && s0 + CS <= n) {
+#pragma unroll
+        for (int u = 0; u < CS; ++u) {
+          hc[u] = cw[base + s0 + u];
+          hs[u] = sw[base + s0 + u];
+          hg[u] = gw[base + s0 + u];
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < CS; ++u) {
+          const int j = s0 + u - 1 - 2 * lane;
+          if (p < K && j >= 0 && j < J) {
+            hc[u] = cw[base + s0 + u];
+            hs[u] = sw[base + s0 + u];
+            hg[u] = gw[base + s0 + u];
+          } else {
+            hc[u] = St::n(1.f);
+            hs[u] = St::n(0.f);
+            hg[u] = St::n(j < -iw ? 1.f : -1.f);
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < QC; ++e) {
+        const int col = s0 + cu + e * (32 / R);
+        hcol[e] = clive && col < n ? from[col * ld + crow] : St::n(0.f);
+      }
+    };
+    // write them to chunk kn's slot
+    auto put = [&](int kn) {
+      float4(*pb)[KB][NB] = pring[kn & 1];
+#pragma unroll
+      for (int u = 0; u < CS; ++u) {
+        pb[u][iw][bw ^ (2 * iw)] =
+            make_float4(raw_bits(hc[u]), raw_bits(hs[u]), raw_bits(hg[u]),
+                        0.f);
+      }
+#pragma unroll
+      for (int e = 0; e < QC; ++e) {
+        cring[kn & 1][cu + e * (32 / R)][cr] = hcol[e];
+      }
+    };
+#pragma unroll
+    for (int q = 0; q < W; ++q) win[q] = 0.f;
+    float h = 0.f;                              // the column handed on
+    fetch(0);
+    put(0);
+    for (int k = 0; k < NC; ++k) {
+      if (k + 1 < NC) fetch(k + 1);
+      __syncwarp();
+      const int s0 = k * CS;
+      const float4(*pb)[KB][NB] = pring[k & 1];
+      const T(*cb)[R] = cring[k & 1];
+      // column s0 - W + 1 - W b, finished at the chunk's first step
+      T* sp = out + (long long)(s0 - 1 - W * b - (W - 2)) * M + row;
+      // a step's plane values and column are read a step ahead
+      float4 pc[KB];
+#pragma unroll
+      for (int i = 0; i < KB; ++i) pc[i] = pb[0][i][b ^ (2 * i)];
+      T cc = cb[0][r];
+      // edge: some lane is outside its band at a step of the chunk
+      auto chunk = [&](auto edge) {
+        constexpr bool kEdge = decltype(edge)::value;
+#pragma unroll
+        for (int u = 0; u < CS; ++u, sp += ld) {
+          float4 pn[KB];
+          T cn = cc;
+          if (u + 1 < CS) {
+#pragma unroll
+            for (int i = 0; i < KB; ++i) pn[i] = pb[u + 1][i][b ^ (2 * i)];
+            cn = cb[u + 1][r];
+          }
+          const int t = s0 + u - 1 - W * b;     // the lane's step
+          float v = b == 0 ? St::w(cc) : h;     // column t + 1
+          const bool first = kEdge && t == -1;
+          if (kEdge && (t + 1 < 0 || t + 1 >= n)) v = 0.f;
+          if (!first) win[u % W] = v;
+          if constexpr (kF32) {
+#pragma unroll
+            for (int i = 0; i < KB; ++i) {
+              const float4 pl = pc[i];          // plane t - 2i, wave i
+              float& x = win[(u - 1 - 2 * i + 2 * W) % W];
+              float& y = win[(u - 2 * i + 2 * W) % W];
+              const float xn =
+                  __fadd_rn(__fmul_rn(pl.x, x), __fmul_rn(pl.y, y));
+              const float yn = __fmul_rn(
+                  pl.z, __fsub_rn(__fmul_rn(pl.y, x), __fmul_rn(pl.x, y)));
+              x = xn;
+              y = yn;
+            }
+          } else {
+            // planes i and i+1 of the step touch disjoint columns:
+            // rounded together (half_store.cuh)
+#pragma unroll
+            for (int i = 0; i < KB; i += 2) {
+              float& x0 = win[(u - 1 - 2 * i + 2 * W) % W];
+              float& y0 = win[(u - 2 * i + 2 * W) % W];
+              float& x1 = win[(u - 3 - 2 * i + 2 * W) % W];
+              float& y1 = win[(u - 2 - 2 * i + 2 * W) % W];
+              float2 xn, yn;
+              plane_pair_native<T>(pc[i], pc[i + 1], x0, y0, x1, y1, xn,
+                                   yn);
+              x0 = xn.x;
+              y0 = yn.x;
+              x1 = xn.y;
+              y1 = yn.y;
+            }
+          }
+          if (first) win[u % W] = v;            // column 0, after the planes
+          const float f = win[(u + 1) % W];     // column t - W + 2
+          h = __shfl_up_sync(0xffffffffu, f, 1, NB);
+          const int co = t - (W - 2);
+          if (to_out && co >= 0 && co < n) *sp = St::n(f);
+          if (u + 1 < CS) {
+#pragma unroll
+            for (int i = 0; i < KB; ++i) pc[i] = pn[i];
+            cc = cn;
+          }
+        }
+      };
+      if (s0 > W * (NB - 1) && s0 + CS <= n) {
+        chunk(std::false_type());
+      } else {
+        chunk(std::true_type());
+      }
+      if (k + 1 < NC) put(k + 1);
+    }
+    __syncwarp();  // the pass's stores land before the next pass reads
+  }
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes.  Applies all K waves of the panels to
 // the packed operand `at` (n, M) into `out` (n, M) in one launch on
-// `stream`, in bands of `kb` waves (kBand or kSmallBand); does not
+// `stream`, in bands of `kb` waves (kBand, or kSmallBand on the small
+// band's kernel); does not
 // synchronise and allocates nothing; returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a band that is not compiled.  The caller
 // handles K == 0 and n < 2 (no planes).  One entry a storage type: every
@@ -418,13 +681,26 @@ int launch_band(const T* at, const T* cw, const T* sw, const T* gw, T* out,
   return (int)cudaGetLastError();
 }
 
+// the small band: kSmallRows rows a warp, kSmallWarps warps a block,
+// static shared memory (limits.wave_smem_bytes at WAVE_SMALL_KB)
+template <typename T>
+int launch_small(const T* at, const T* cw, const T* sw, const T* gw, T* out,
+                 int n, int M, int K, void* stream) {
+  const int groups = (M + kSmallRows - 1) / kSmallRows;
+  const int blocks = (groups + kSmallWarps - 1) / kSmallWarps;
+  rotseq_wave_small_kernel<T><<<blocks, kSmallWarps * 32, 0,
+                                (cudaStream_t)stream>>>(at, cw, sw, gw, out,
+                                                        n, M, K);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_wave(const T* at, const T* cw, const T* sw, const T* gw, T* out,
                 int n, int M, int K, int kb, void* stream) {
   if (kb == kBand)
     return launch_band<kBand>(at, cw, sw, gw, out, n, M, K, stream);
   if (kb == kSmallBand)
-    return launch_band<kSmallBand>(at, cw, sw, gw, out, n, M, K, stream);
+    return launch_small(at, cw, sw, gw, out, n, M, K, stream);
   return (int)cudaErrorInvalidValue;
 }
 

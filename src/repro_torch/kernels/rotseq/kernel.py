@@ -21,7 +21,8 @@ import torch
 
 from repro_torch import obs
 from repro_torch.kernels import _build
-from repro_torch.kernels.limits import WAVE_BANDS, WAVE_KB, WAVE_WARPS
+from repro_torch.kernels.limits import (WAVE_BANDS, WAVE_KB, WAVE_SMALL_BANDS,
+                                        WAVE_SMALL_KB, WAVE_WARPS)
 
 from .ref import rotseq_wave_ref
 
@@ -42,9 +43,12 @@ _FN = {}
 
 def passes(K: int, k_b: int = WAVE_KB) -> int:
     """Passes of one launch through the packed operand: each runs
-    ``WAVE_WARPS`` bands of ``k_b`` waves (``K <= 192`` is one pass at
-    ``k_b = 16``, ``K <= 48`` at 4)."""
-    return math.ceil(math.ceil(K / k_b) / WAVE_WARPS)
+    ``WAVE_WARPS`` bands of ``k_b`` waves, one a warp of a row group
+    (``K <= 192`` is one pass at ``k_b = 16``), or at the small band
+    ``WAVE_SMALL_BANDS`` bands, one a lane of a warp's row (``K <= 32``
+    at 4)."""
+    per_pass = WAVE_SMALL_BANDS if k_b == WAVE_SMALL_KB else WAVE_WARPS
+    return math.ceil(math.ceil(K / k_b) / per_pass)
 
 
 def traffic_bytes(n: int, M: int, K: int, itemsize: int = 4,
@@ -102,7 +106,9 @@ def rotseq_wave(AT, Cw, Sw, Gw, *, k_b: int = WAVE_KB, n_b=None):
 
     On the card one launch applies every band: a block is a group of 32
     rows of ``A`` whose bands run on several warps at once, each a fixed
-    lag behind the one before (``csrc/rotseq_wave.cu``).
+    lag behind the one before; at the small band a warp is 4 rows by 8
+    bands, one (row, band) pair a lane, each band a window behind the one
+    before, its columns handed on by shuffles (``csrc/rotseq_wave.cu``).
 
     Returns ``(n, m)``: the packed result, ``A_final`` transposed.
     """

@@ -443,7 +443,8 @@ def test_dropped_paired_rounding_is_caught_in_the_real_source(tmp_path,
 
 @pytest.mark.parametrize("src_name,const,value", [
     ("rotseq_wave.cu", "kBand", 16), ("rotseq_wave.cu", "kSmallBand", 4),
-    ("rotseq_wave.cu", "kWarps", 12),
+    ("rotseq_wave.cu", "kWarps", 12), ("rotseq_wave.cu", "kSmallRows", 4),
+    ("rotseq_wave.cu", "kSmallBands", 8), ("rotseq_wave.cu", "kSmallWarps", 2),
     ("rotseq_mxu.cu", "kRows", 32), ("rotseq_mxu.cu", "kSlab", 32),
     ("rotseq_mxu_half.cu", "kRows", 64),
     ("rotseq_mxu_half.cu", "kChunk", 64),
@@ -473,6 +474,9 @@ def test_mirror_table_is_the_six_pairs_the_tests_assert():
         ("rotseq_wave", "kBand", "WAVE_KB"),
         ("rotseq_wave", "kSmallBand", "WAVE_SMALL_KB"),
         ("rotseq_wave", "kWarps", "WAVE_WARPS"),
+        ("rotseq_wave", "kSmallRows", "WAVE_SMALL_ROWS"),
+        ("rotseq_wave", "kSmallBands", "WAVE_SMALL_BANDS"),
+        ("rotseq_wave", "kSmallWarps", "WAVE_SMALL_WARPS"),
         ("rotseq_mxu", "kRows", "MXU_ROWS"),
         ("rotseq_mxu", "kSlab", "MXU_SLAB"),
         ("rotseq_mxu_half", "kRows", "MXU_HALF_ROWS"),

@@ -306,21 +306,25 @@ def test_half_mxu_picks_follow_the_card():
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 def test_half_wave_priced_at_its_dtype_rate(dtype, monkeypatch):
     """A half target's ``cuda_wave`` price reads its own dtype's fitted
-    constants at its plan's band, and a float32 target's does not: the
-    measured half launches (the paired half body) are slower than
-    float32's, and each dtype's fit holds the launches it was fitted to
-    (within 8%, but the ragged problem's at the default band, which it
-    prices short)."""
-    consts = treg._WAVE_STEP_SECONDS
-    assert set(consts) == set(treg._WAVE_LAUNCHES) == {
-        "float32", "bfloat16", "float16"}
+    constants at its plan's band (the default band's walk, or the small
+    band's kernel's), and a float32 target's does not: the measured half
+    launches (the paired half body) are slower than float32's at the
+    default band's paper shape and the small band's eig flush (at the
+    paper shape the small band's bfloat16 launch, which stages half the
+    bytes, ran faster), and each dtype's fits hold the launches they
+    were fitted to within 8%."""
     half = treg.Problem(m=3840, n=3840, k=180, dtype=dtype, platform="cuda")
     f32 = dataclasses.replace(half, dtype="float32")
-    fitted = consts[dtype]
-    for kb in limits.WAVE_BANDS:
+    for kb, consts, shape in (
+            (limits.WAVE_KB, treg._WAVE_STEP_SECONDS, (3840, 3840, 180)),
+            (limits.WAVE_SMALL_KB, treg._WAVE_SMALL_STEP_SECONDS,
+             (1024, 1024, 32))):
+        assert set(consts) == set(treg._WAVE_LAUNCHES) == {
+            "float32", "bfloat16", "float16"}
+        fitted = consts[dtype]
         plan = treg.Plan("cuda_wave", k_b=kb)
-        assert treg._wave_launch_seconds(3840, 3840, 180, kb, dtype) > \
-            treg._wave_launch_seconds(3840, 3840, 180, kb, "float32")
+        assert treg._wave_launch_seconds(*shape, kb, dtype) > \
+            treg._wave_launch_seconds(*shape, kb, "float32")
         costs = {}
         for scale in (1.0, 2.0):
             monkeypatch.setitem(consts, dtype, tuple(scale * x
@@ -332,10 +336,7 @@ def test_half_wave_priced_at_its_dtype_rate(dtype, monkeypatch):
         monkeypatch.setitem(consts, dtype, fitted)
     for (m, n, k, kb), ms in treg._WAVE_LAUNCHES[dtype].items():
         got = treg._wave_launch_seconds(m, n, k, kb, dtype) * 1e3
-        if (n, kb) == (1000, limits.WAVE_KB):
-            assert 0.75 * ms < got < ms
-        else:
-            assert got == pytest.approx(ms, rel=0.08)
+        assert got == pytest.approx(ms, rel=0.08)
     # the walk the model prices at the paper shape: 12 bands on 12 warps
     # a row group, three a scheduler, 484 chunks of 8 steps and a lag of
     # 5 chunks a warp; 120 row groups, no queue
@@ -357,13 +358,14 @@ def test_small_band_wins_the_eig_flush():
     """At an eigensolver's flush ``(1024, 1024, 32)`` the model picks the
     wavefront kernel at the small band, the default band next by about
     the ratio measured on the card (NVIDIA H100 80GB HBM3 at 700.00 W,
-    chip_smoke.py's rotseq_wave_flush line: 0.2206 against 0.1633 ms a
-    launch, 1.35 times), and every other kernel plan at 1.5 times it or
-    more.  The default band is slow there for its walk, not its planes:
-    2 warps through 137 chunk iterations of 128 planes, against 8 warps
-    through 143 of 32, and each iteration's fixed part is the larger
-    share.  At the paper shape (45 bands of 4, four passes of the walk)
-    the small band never wins, and ``auto`` stays ``cuda_mxu``."""
+    chip_smoke.py's rotseq_wave_flush line), and every other kernel plan
+    at 1.5 times it or more.  The default band is slow there for its
+    walk: 2 warps of a row group's 12 through 137 chunk iterations of 128
+    planes, each closed by a block barrier; the small band's kernel runs
+    a warp of 4 rows by 8 bands through 1087 steps, one warp a scheduler
+    on 128 SMs.  At the paper shape (45 bands of 4, six passes, two warps
+    a scheduler) the small band never wins, and ``auto`` stays
+    ``cuda_mxu``."""
     treg.clear_plan_cache()
     small = treg.Plan("cuda_wave", k_b=limits.WAVE_SMALL_KB)
     default = treg.Plan("cuda_wave", k_b=limits.WAVE_KB)
@@ -375,26 +377,52 @@ def test_small_band_wins_the_eig_flush():
     plans = treg._modeled_plans(eig)
     assert [(p.method, p.k_b) for p in plans[:2]] == [("cuda_wave", 4),
                                                       ("cuda_wave", 16)]
-    assert 1.2 < plans[1].est_seconds / plans[0].est_seconds < 1.5
+    launches = treg._WAVE_LAUNCHES["float32"]
+    measured = launches[1024, 1024, 32, 16] / launches[1024, 1024, 32, 4]
+    assert plans[1].est_seconds / plans[0].est_seconds == pytest.approx(
+        measured, rel=0.15)
     assert all(p.est_seconds >= 1.5 * plans[0].est_seconds
                for p in plans if p.method != "cuda_wave")
-    # the two walks: 132 and 129 chunks of 8 steps, lags of 5 and 2
-    # chunks a warp, one and two warps a scheduler
+    # the two walks: 132 chunks of 8 steps and a lag of 5 chunks a warp,
+    # one warp a scheduler; 1024 + 7 + 7 * 8 steps of a warp alone on its
+    # scheduler (256 warps in 128 blocks of 2, one block an SM)
     assert treg._wave_walk(1024, 1024, 32, 16) == (132 + 5 * 1, 128)
-    assert treg._wave_walk(1024, 1024, 32, 4) == (129 + 2 * 7, 32 * 2)
+    assert treg._wave_walk(1024, 1024, 32, 4) == (1024 + 7 + 7 * 8, 4.0)
     assert treg.cost_cuda_wave(eig, small) == pytest.approx(
         0.7 * treg._blocked_seconds(eig, default)
         + treg._wave_launch_seconds(1024, 1024, 32, 4, "float32"))
-    # the float32 fit holds every launch it was fitted to within 7%
-    for (m, n, k, kb), ms in treg._WAVE_LAUNCHES["float32"].items():
+    # the float32 fits hold every launch they were fitted to within 7%
+    for (m, n, k, kb), ms in launches.items():
         assert treg._wave_launch_seconds(m, n, k, kb, "float32") * 1e3 == \
             pytest.approx(ms, rel=0.07)
     paper = treg.Problem(m=3840, n=3840, k=180, platform="cuda")
     assert treg.cost_cuda_wave(paper, small) > treg.cost_cuda_wave(
         paper, default)
-    # four passes, each walking the row again
-    assert treg._wave_walk(3840, 3840, 180, 4)[0] == 4 * (481 + 2 * 11)
+    # six passes of 8 bands (the last of 5), each walking the row again;
+    # 960 warps in 480 blocks, four blocks an SM: two warps a scheduler
+    assert treg._wave_walk(3840, 3840, 180, 4) == (
+        5 * (3840 + 7 + 7 * 8) + (3840 + 7 + 4 * 8), 8.0)
     treg.clear_plan_cache()
+
+
+@pytest.mark.parametrize("m,n,k,steps,load", [
+    (1024, 1024, 32, 1024 + 7 + 7 * 8, 4.0),
+    (3000, 1000, 37, (1000 + 7 + 7 * 8) + (1000 + 7 + 1 * 8), 6.0),
+    (64, 200, 13, 200 + 7 + 3 * 8, 4.0),
+    (40000, 100, 8, 100 + 7 + 1 * 8, 76.0)])
+def test_small_band_walk(m, n, k, steps, load):
+    """The small band's price walks its kernel's schedule: a warp's steps
+    over every pass (``n + 7 + 8 (bands - 1)``, 8 bands a pass) and
+    ``k_b = 4`` planes a warp-step times the warps an SM shares among
+    its 4 schedulers, at least one: at the flush 128 blocks of two warps,
+    one an SM; 750 warps in 375 blocks, three an SM; 10000 warps in 5000
+    blocks, 38 an SM."""
+    assert treg._wave_walk(m, n, k, limits.WAVE_SMALL_KB) == (steps, load)
+    assert steps == limits.wave_small_steps(n, k)
+    c, s = treg._WAVE_SMALL_STEP_SECONDS["float32"]
+    assert treg._wave_launch_seconds(m, n, k, limits.WAVE_SMALL_KB,
+                                     "float32") == pytest.approx(
+        steps * (c + s * load))
 
 
 @pytest.mark.parametrize("prob,method", PICKS)

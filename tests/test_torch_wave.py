@@ -28,6 +28,7 @@ the plain version's.  On the card the kernel is held to its plain
 version with every bit (``tests/test_torch_half_card.py``).
 """
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -239,6 +240,199 @@ def _plain(args, kb):
                            k_b=kb).numpy()
 
 
+def _small_const(name):
+    """A ``constexpr int`` of the small band's kernel, read from the
+    source."""
+    m = re.search(rf"^constexpr int {name} = (\d+);", CU, re.M)
+    return int(m.group(1))
+
+
+def _emulate_lanes(AT, Cw, Sw, Gw, lag=None, slots=2, half=None,
+                   pair=plane_pair_native):
+    """``rotseq_wave_small_kernel`` over all rows at once.
+
+    Every warp runs the same schedule on its ``R`` rows (the rows padded
+    to a multiple of ``R``; a padded row stages +0 and never stores), so
+    each lane ``(r, b)`` is walked as band ``b``'s vector over all rows.
+    At the warp's step ``s`` lane ``b`` is at its step ``t = s - 1 - lag
+    * b`` (the kernel's lag is ``W``): it takes column ``t + 1`` in (band
+    0 from the column ring, every other band the value handed on at the
+    step before, through ``h``), applies its ``KB`` planes at the window
+    slots the kernel names by ``s`` alone, and hands column ``t - W + 2``
+    on (the pass's last band stores it).  In chunks the kernel runs as
+    steady (no lane outside its band) nothing is masked, so a wrong
+    steady rule shows.  Every window slot, the hand-off and every staged
+    plane carries what it holds (band and column, or chunk, wave and
+    plane), and each read checks it: a take-in of the wrong column
+    raises :class:`RingError` ("wants column").  A chunk's plane values,
+    loaded into registers while the chunk before it runs, land after it
+    in one of ``slots`` slots at the kernel's entry ``[step][wave i][band
+    ^ 2i]``; a store must come a ``__syncwarp`` (one a chunk, at its
+    start) after the slot's last read, and a read after the store.
+    Before its first step a lane's window must hold +0 only.
+
+    ``half`` (``BF16``, ``F16``): the half body on bit arrays, planes in
+    pairs by ``pair`` (``plane_pair_native``); the window is float32, the
+    column handed on too, narrowed where it is stored.
+    """
+    n, m = AT.shape
+    K, J = Cw.shape
+    KB = limits.WAVE_SMALL_KB
+    R, NB = limits.WAVE_SMALL_ROWS, limits.WAVE_SMALL_BANDS
+    W = 2 * KB
+    CS = _small_const("kSmallChunk")
+    WP = NB * KB
+    lag = W if lag is None else lag
+    mp = -(-m // R) * R
+    live = np.arange(mp) < m
+    bands = -(-K // KB)
+    if half is None:
+        widen = narrow = (lambda v: v)
+        out = np.full((n, mp), np.nan, np.float32)
+        src = np.zeros((n, mp), np.float32)
+        zero_t = np.float32(0)
+    else:
+        widen, narrow = half.w, half.n
+        out = np.full((n, mp), 0x7BCD, np.uint16)
+        src = np.zeros((n, mp), np.uint16)
+        zero_t = np.uint16(0)
+    src[:, :m] = AT
+    zero = np.zeros(mp, np.float32)
+    written = np.full(n, -1)
+
+    def plane(i, p, j):
+        """A staged plane {c, s, g}; the identity outside the grid."""
+        if p < K and 0 <= j < J:
+            return Cw[p, j], Sw[p, j], Gw[p, j]
+        if half is None:
+            return (np.float32(1), np.float32(0),
+                    np.float32(1 if j < -i else -1))
+        return (np.uint16(half.ONE), np.uint16(0),
+                np.uint16(half.ONE | (0 if j < -i else 0x8000)))
+
+    for pss, q0 in enumerate(range(0, bands, NB)):
+        last = min(NB, bands - q0) - 1
+        frm = src if pss == 0 else out
+        S = n + W - 1 + W * last
+        NC = -(-S // CS)
+        pring = [None] * slots
+        cring = [None] * slots
+        read_at = [-10 ** 9] * slots         # the chunk of a slot's last read
+        win = [[zero] * W for _ in range(NB)]
+        tags = [[None] * W for _ in range(NB)]
+        h = [(None, zero)] * NB               # (band, column), value
+
+        def fetch(kn):
+            """Chunk ``kn``'s plane values (lane ``wv`` loads wave ``wv``
+            at every step) and band 0's columns, as loaded."""
+            s0 = kn * CS
+            planes = {}
+            # the kernel loads without a test a plane where every wave of
+            # the pass is in the grid and s0 >= 2 * 32 - 1, s0 + CS <= n
+            fast = (q0 * KB + WP <= K and s0 >= 2 * WP - 1
+                    and s0 + CS <= n)
+            for wv in range(WP):
+                for u in range(CS):
+                    # the kernel's s0 + u - 1 - 2 wv at its lag W
+                    j = s0 + u - 1 - lag * (wv // KB) - 2 * (wv % KB)
+                    assert not fast or (q0 * KB + wv < K and 0 <= j < J)
+                    planes[u, wv % KB, wv // KB ^ 2 * (wv % KB)] = (
+                        (kn, wv, j), plane(wv % KB, q0 * KB + wv, j))
+            cols = {}
+            for u in range(CS):
+                col = s0 + u
+                if col < n:
+                    if written[col] != pss - 1:
+                        raise RingError(f"pass {pss} reads column {col} of "
+                                        f"pass {written[col]}")
+                    vals = np.where(live, frm[col], zero_t)
+                else:
+                    vals = np.full(mp, zero_t)
+                cols[u] = ((kn, col), vals)
+            return planes, cols
+
+        def put(kn, staged, k):
+            slot = kn % slots
+            if read_at[slot] >= k:
+                raise RingError(f"slot {slot}, read at chunk "
+                                f"{read_at[slot]}, written at chunk {k} "
+                                f"with no __syncwarp between")
+            pring[slot], cring[slot] = (k, staged[0]), (k, staged[1])
+
+        put(0, fetch(0), -1)
+        for k in range(NC):
+            staged = fetch(k + 1) if k + 1 < NC else None
+            s0 = k * CS
+            slot = k % slots
+            (pk, pb), (_, cb) = pring[slot], cring[slot]
+            if pk >= k or cb[0][0][0] != k:
+                raise RingError(f"chunk {k} reads slot {slot} of chunk "
+                                f"{cb[0][0][0]} staged at chunk {pk}")
+            read_at[slot] = k
+            edge = not (s0 > W * (NB - 1) and s0 + CS <= n)
+            for u in range(CS):
+                s = s0 + u
+                fin = []
+                for b in range(NB):
+                    t = s - 1 - lag * b
+                    if b == 0:
+                        (_, col), vals = cb[u]
+                        tag, v = (("mem", col), widen(vals))
+                    else:
+                        tag, v = h[b]
+                    first = edge and t == -1
+                    if edge and not 0 <= t + 1 < n:
+                        tag, v = None, zero
+                    elif tag != (("mem", t + 1) if b == 0 else
+                                 (q0 + b - 1, t + 1)):
+                        raise RingError(f"band {b} at step {t} wants column "
+                                        f"{t + 1}, holds {tag}")
+                    w_, tg = win[b], tags[b]
+                    if t < 0:
+                        assert all(not np.signbit(x).any() and
+                                   not x.any() for x in w_), (b, t)
+                    if not first:
+                        w_[u % W], tg[u % W] = v, t + 1
+                    quads = []
+                    for i in range(KB):
+                        (ck, wv, j), vals = pb[u, i, b ^ 2 * i]
+                        if (ck, wv, j) != (k, KB * b + i, t - 2 * i):
+                            raise RingError(f"band {b} wave {i} at step "
+                                            f"{t} read plane {(ck, wv, j)}")
+                        xi, yi = (u - 1 - 2 * i) % W, (u - 2 * i) % W
+                        for sl_, col in ((xi, t - 2 * i),
+                                         (yi, t - 2 * i + 1)):
+                            # a column left of 0 may never have come in
+                            assert t < 0 or tg[sl_] == col or (
+                                col < 0 and tg[sl_] is None), (b, t, i)
+                        quads.append((xi, yi, vals))
+                    if half is None:
+                        for xi, yi, vals in quads:
+                            w_[xi], w_[yi] = plane_update(w_[xi], w_[yi],
+                                                          *vals)
+                    else:
+                        for (x0, y0, v0), (x1, y1, v1) in zip(quads[::2],
+                                                               quads[1::2]):
+                            xn, yn = pair(v0, v1, w_[x0], w_[y0], w_[x1],
+                                          w_[y1], half)
+                            w_[x0], w_[y0] = xn[0], yn[0]
+                            w_[x1], w_[y1] = xn[1], yn[1]
+                    if first:
+                        w_[u % W], tg[u % W] = v, t + 1
+                    f = w_[(u + 1) % W]
+                    co = t - (W - 2)
+                    fin.append(((q0 + b, co), f))
+                    if b == last and 0 <= co < n:
+                        out[co] = np.where(live, narrow(f), out[co])
+                        written[co] = pss
+                # the shuffle: band b takes band b - 1's column next step
+                h = [(None, zero)] + fin[:-1]
+            if staged is not None:
+                put(k + 1, staged, k)
+    assert (written == (bands - 1) // NB).all()
+    return out[:, :m]
+
+
 @pytest.mark.parametrize("kb", [4, 16])
 @pytest.mark.parametrize("warps", [1, 2, 4, 12])
 @pytest.mark.parametrize("m,n,k,signs,zeros", [(5, 12, 37, False, False),
@@ -276,28 +470,111 @@ def test_pipeline_emulation_fails_with_a_lag_one_chunk_short(kb):
 
 
 @pytest.mark.parametrize("name", [None, *sorted(HALF)])
-@pytest.mark.parametrize("k,passes,padded", [(32, 1, False), (37, 1, True),
-                                             (49, 2, True)])
-def test_small_band_pipeline_at_the_kernels_warps(k, passes, padded, name):
-    """The small band (``WAVE_SMALL_KB``) on the kernel's ``WAVE_WARPS``
-    warps, in float32 and the half body: 32 waves are one pass of whole
-    bands (an eigensolver's flush), 37 pad the last band, 49 take a
-    second pass that reads ``out`` back; bit for bit, signs included."""
-    kb, warps = limits.WAVE_SMALL_KB, limits.WAVE_WARPS
+@pytest.mark.parametrize("m,n,k,passes,last", [(9, 90, 32, 1, 7),
+                                               (7, 90, 37, 2, 1),
+                                               (6, 45, 49, 2, 4),
+                                               (5, 90, 180, 6, 4),
+                                               (10, 90, 13, 1, 3),
+                                               (3, 12, 5, 1, 1)])
+def test_small_band_lanes_equal_plain_version(m, n, k, passes, last, name):
+    """The small band's kernel walked lane by lane, in float32 and the
+    half body, bit for bit to the plain version at ``k_b = 4`` with
+    signed waves, a zero's sign included: 32 waves are one whole pass of
+    8 bands (an eigensolver's flush), 37 pad the last band and take a
+    second pass of two, 49 and 180 several passes through ``out``, 13 and
+    5 one partial pass; rows no multiple of 4; ``n = 90`` runs steady
+    chunks, ``n = 45`` and 12 edge chunks only."""
+    kb = limits.WAVE_SMALL_KB
+    nb = limits.WAVE_SMALL_BANDS
     bands = -(-k // kb)
-    assert -(-bands // warps) == passes and (k % kb != 0) == padded
-    assert wave_k.passes(k, kb) == passes
-    args = _case(9, 45, k, 300 + k, signs=True)
+    assert (-(-bands // nb), (bands - 1) % nb) == (passes, last)
+    assert wave_k.passes(k, kb) == passes and m % limits.WAVE_SMALL_ROWS
+    args = _case(m, n, k, 300 + k, signs=True)
     if name is None:
-        got = _emulate_pipeline(*args, kb, warps)
+        got = _emulate_lanes(*args)
         want = _plain(args, kb)
         assert np.array_equal(got.view(np.int32), want.view(np.int32))
     else:
         half = HALF[name]
         hargs = _to_half(args, half)
-        got = _emulate_pipeline(*hargs, kb, warps, half=half)
+        got = _emulate_lanes(*hargs, half=half)
         made = _assert_half_bits(got, _plain_half(hargs, kb, half), half)
         assert not made.any()
+
+
+@pytest.mark.parametrize("name", [None, *sorted(HALF)])
+def test_small_band_lanes_keep_signed_zeros_and_pad_planes(name):
+    """On a target of signed zeros under ``c = 1, s = 0`` planes with
+    random signs the bits follow every plane's zero signs, the pad
+    planes' at both edges and the last band's too (a few waves: more
+    wash the signs out): the walk equals the plain version at the small
+    band bit for bit, with steady chunks and with edge chunks only."""
+    kb = limits.WAVE_SMALL_KB
+    for m, n, k in ((6, 80, 5), (6, 40, 2)):
+        args = _case(m, n, k, 17 + k, signs=True, zeros=True)
+        if name is None:
+            got = _emulate_lanes(*args)
+            want = _plain(args, kb)
+            assert np.array_equal(got.view(np.int32), want.view(np.int32))
+            assert np.signbit(want).any() and (~np.signbit(want)).any()
+        else:
+            half = HALF[name]
+            hargs = _to_half(args, half)
+            got = _emulate_lanes(*hargs, half=half)
+            _assert_half_bits(got, _plain_half(hargs, kb, half), half)
+
+
+@pytest.mark.parametrize("name", sorted(HALF))
+def test_small_band_lanes_special_values(name):
+    """NaN with payloads, +-inf, -0.0, results that overflow the type and
+    products that land in its subnormals, through the small band's lanes
+    in one partial pass and in two passes: every bit the plain
+    version's at its band, the card's NaN where arithmetic made one."""
+    half = HALF[name]
+    for k in (7, 37):
+        hargs = _special_case(name, half, k=k)
+        with np.errstate(all="ignore"):
+            got = _emulate_lanes(*hargs, half=half)
+            want = _plain_half(hargs, limits.WAVE_SMALL_KB, half)
+        assert _assert_half_bits(got, want, half).any()
+
+
+def test_small_band_lanes_fail_with_a_lag_one_step_short():
+    """The lag between bands is the window, ``W = 8`` steps, the least
+    that hands a column on the step after it is finished: one step less
+    and band 1 takes in a column band 0 has not finished (the hand-off's
+    tag catches it), whatever the chunk."""
+    args = _case(6, 90, 32, 9, signs=True)
+    _emulate_lanes(*args, lag=2 * limits.WAVE_SMALL_KB)
+    with pytest.raises(RingError, match="wants column"):
+        _emulate_lanes(*args, lag=2 * limits.WAVE_SMALL_KB - 1)
+
+
+@pytest.mark.parametrize("name", [None, *sorted(HALF)])
+def test_small_band_lanes_fail_with_one_staging_slot(name):
+    """Two staging slots a warp are the least: with one, the next chunk's
+    plane values land in the slot the chunk's own steps read, with no
+    ``__syncwarp`` between."""
+    args = _case(5, 40, 32, 10)
+    half = None if name is None else HALF[name]
+    if half is not None:
+        args = _to_half(args, half)
+    _emulate_lanes(*args, slots=2, half=half)
+    with pytest.raises(RingError, match="no __syncwarp between"):
+        _emulate_lanes(*args, slots=1, half=half)
+
+
+def test_small_band_fills_the_card_at_the_flush():
+    """At an eigensolver's flush (``M = 1024``) the small band's kernel
+    runs 256 warps of 4 rows in 128 blocks of two, at least 128 of the
+    card's 132 SMs, one warp a scheduler, and a pass of its 8 bands is
+    ``1030 + 7 * 8`` steps of 4 planes a lane; the default band's block
+    is one row group of 32 rows (32 blocks)."""
+    geo = limits.wave_small_geometry(1024)
+    assert geo == {"rows_a_warp": 4, "bands_a_warp": 8, "warps": 256,
+                   "blocks": 128, "warps_a_block": 2}
+    assert limits.wave_small_steps(1024, 32) == 1030 + 7 * 8 + 1
+    assert -(-1024 // limits.WAVE_ROWS) == 32
 
 
 @pytest.mark.parametrize("name", [None, *sorted(HALF)])
@@ -373,33 +650,46 @@ def test_pipeline_emulation_fails_with_a_short_ring():
 def test_source_constants_match_limits():
     """The compiled bands, warps a block and ring are the ones the
     wrapper, the registry and this emulation assume, the launcher
-    dispatches on every band and refuses others, and the budget, chunk
-    and lag in ``limits`` are what the launcher asks for and the kernel
-    walks at each band."""
+    dispatches on every band (the small one to its own kernel, the old
+    pipeline kept for the default band alone) and refuses others, and
+    the budget, chunk and lag in ``limits`` are what the launchers ask
+    for and the kernels walk at each band."""
     for line in (f"constexpr int kBand = {limits.WAVE_KB};",
                  f"constexpr int kSmallBand = {limits.WAVE_SMALL_KB};",
                  f"constexpr int kWarps = {limits.WAVE_WARPS};",
+                 f"constexpr int kSmallRows = {limits.WAVE_SMALL_ROWS};",
+                 f"constexpr int kSmallBands = {limits.WAVE_SMALL_BANDS};",
+                 f"constexpr int kSmallWarps = {limits.WAVE_SMALL_WARPS};",
+                 f"constexpr int kSmallChunk = {limits.WAVE_SMALL_CHUNK};",
                  "constexpr int kRing = 32;"):
         assert line in CU, line
     assert limits.WAVE_BANDS == (limits.WAVE_KB, limits.WAVE_SMALL_KB)
     for const in ("kBand", "kSmallBand"):
         assert f"if (kb == {const})" in CU, const
-        assert f"launch_band<{const}>" in CU, const
+    assert "launch_band<kBand>" in CU and "launch_band<kSmallBand>" not in CU
+    assert "return launch_small(" in CU
+    assert "rotseq_wave_small_kernel<T><<<" in CU
+    assert "__syncthreads" not in CU[CU.index("rotseq_wave_small_kernel("):]
     assert "return (int)cudaErrorInvalidValue;" in CU
     assert limits.WAVE_ROWS == limits.WARP
-    # the launcher's kWarps * (3 * KB * CS * 16 + kRing * 32 * 4), a
-    # chunk of CS = min(2 KB, 128 / KB) = 8 steps at both bands
-    for kb, smem in ((16, 122_880), (4, 67_584)):
-        assert _shape(kb)[1] == 8
-        # the chunk and lag the registry prices a launch's walk by
-        assert (limits.wave_chunk_steps(kb), limits.wave_lag(kb)) == \
-            _shape(kb)[1:]
-        assert limits.wave_smem_bytes(k_b=kb) == smem == limits.WAVE_WARPS * (
-            3 * kb * 8 * 16 + 32 * 32 * 4)
+    assert limits.WAVE_SMALL_ROWS * limits.WAVE_SMALL_BANDS == limits.WARP
+    # the default band's launcher: kWarps * (3 * KB * CS * 16 + kRing *
+    # 32 * 4), a chunk of CS = min(2 KB, 128 / KB) = 8 steps
+    assert _shape(16)[1] == 8
+    # the chunk and lag the registry prices a launch's walk by
+    assert (limits.wave_chunk_steps(16), limits.wave_lag(16)) == \
+        _shape(16)[1:]
+    assert limits.wave_smem_bytes(k_b=16) == 122_880 == limits.WAVE_WARPS * (
+        3 * 16 * 8 * 16 + 32 * 32 * 4)
     assert limits.wave_smem_bytes() == limits.wave_smem_bytes(
         k_b=limits.WAVE_KB)
-    assert all(limits.SMEM_STATIC < limits.wave_smem_bytes(k_b=kb)
-               <= limits.SMEM_PER_BLOCK for kb in limits.WAVE_BANDS)
+    assert limits.SMEM_STATIC < limits.wave_smem_bytes() \
+        <= limits.SMEM_PER_BLOCK
+    # the small band's static shared memory: a warp's two slots of 16
+    # steps of 4 x 8 planes (a float4 each) and of 16 x 4 columns
+    assert limits.wave_smem_bytes(k_b=4) == 33_792 == \
+        limits.WAVE_SMALL_WARPS * 2 * 16 * (4 * 8 * 16 + 4 * 4)
+    assert limits.wave_smem_bytes(k_b=4) <= limits.SMEM_STATIC
 
 
 def test_wrapper_refuses_a_band_it_is_not_compiled_for():
@@ -416,12 +706,12 @@ def test_wrapper_refuses_a_band_it_is_not_compiled_for():
 
 
 @pytest.mark.parametrize("k_b,K,passes", [(16, 180, 1), (16, 193, 2),
-                                          (4, 32, 1), (4, 48, 1), (4, 49, 2),
-                                          (4, 180, 4)])
+                                          (4, 32, 1), (4, 48, 2), (4, 49, 2),
+                                          (4, 180, 6)])
 def test_traffic_bytes_by_band(k_b, K, passes):
-    """A launch reads and writes the operand once a pass of
-    ``WAVE_WARPS`` bands: 192 waves a pass at 16, 48 at 4; the panels
-    once whatever the band."""
+    """A launch reads and writes the operand once a pass: of
+    ``WAVE_WARPS`` bands at 16 (192 waves), of ``WAVE_SMALL_BANDS`` at 4
+    (32 waves); the panels once whatever the band."""
     n, M = 1024, 1000
     assert wave_k.passes(K, k_b) == passes
     for itemsize in (4, 2):

@@ -4,6 +4,9 @@
 constexpr int kBand = 16;
 constexpr int kSmallBand = 4;
 constexpr int kWarps = 12;
+constexpr int kSmallRows = 4;
+constexpr int kSmallBands = 8;
+constexpr int kSmallWarps = 2;
 
 template <typename T>
 __device__ void good(float4 c, T& x, T& y) {

@@ -4,6 +4,9 @@ WARP = 32
 WAVE_KB = 16
 WAVE_SMALL_KB = 4
 WAVE_WARPS = 8  # expect: RA405
+WAVE_SMALL_ROWS = 4
+WAVE_SMALL_BANDS = 8
+WAVE_SMALL_WARPS = 2
 MXU_ROWS = 32
 MXU_SLAB = 32
 MXU_HALF_ROWS = 64

@@ -3,6 +3,9 @@
 constexpr int kBand = 16;
 constexpr int kSmallBand = 8;  // expect: RA405
 constexpr int kWarps = 12;
+constexpr int kSmallRows = 4;
+constexpr int kSmallBands = 8;
+constexpr int kSmallWarps = 2;
 
 __device__ void plane(float4 c, float& x, float& y) {
   const float xn = __fadd_rn(__fmul_rn(c.x, x), __fmul_rn(c.y, y));

@@ -95,15 +95,20 @@ print(json.dumps(row))
 
 
 # a band kernel's instantiation in a mangled name: (kernel, band, storage
-# type)
+# type); the wavefront kernel's small band is a kernel of its own,
+# templated on the type alone
 _INSTANCE = re.compile(r"(rotseq_(?:wave|batched))_kernelILi(\d+)ELi\d+E"
                        r"(f|13__nv_bfloat16|6__half)")
+_SMALL = re.compile(r"rotseq_wave_small_kernelI(f|13__nv_bfloat16|6__half)")
 
 
 def _instance(name: str):
     """``(kernel, type)`` of a band kernel's instantiation in ``name``,
     the type tagged ``kb<band>/`` past the default band of 16 (the
-    wavefront kernel's small band), or ``None``."""
+    wavefront kernel's small band, ``kb4/``), or ``None``."""
+    t = _SMALL.search(name)
+    if t is not None:
+        return "rotseq_wave", f"kb4/{t.group(1)}"
     t = _INSTANCE.search(name)
     if t is None:
         return None

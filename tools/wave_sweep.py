@@ -5,13 +5,16 @@ NVIDIA card.
     python3 tools/wave_sweep.py 4,12,128,32 8,12,128,64 16,12,128,32
 
 Each argument is ``band,warps,chunk_planes,ring``: the waves a band the
-variant launches at, and the kernel's ``kWarps``, ``kChunkPlanes`` and
-``kRing``.  For each, a copy of ``src/repro_torch/csrc/rotseq_wave.cu``
-with those constants is built with ``nvcc`` (all copies at once) into
-``build/wave_sweep/``; a band other than ``kBand`` (16) is compiled as
-the copy's ``kSmallBand``.  A band the kernel's static asserts refuse
-(2: a chunk of 8 planes is less than one a lane; 8 with a ring of 32)
-reports ``nvcc``'s error.  Each built variant is loaded with ``ctypes``,
+variant launches at, and the band pipeline's ``kWarps``,
+``kChunkPlanes`` and ``kRing``.  For each, a copy of
+``src/repro_torch/csrc/rotseq_wave.cu`` with those constants is built
+with ``nvcc`` (all copies at once) into ``build/wave_sweep/``; a band
+other than ``kBand`` (16) is compiled as the copy's ``kSmallBand``, which
+the small band's own kernel runs (the three constants apply to the band
+pipeline alone; ``tools/wave_small_ab.py`` compares that kernel's
+sources).  A band a kernel's static asserts refuse (above 4 for the
+small band's kernel: its swizzle needs ``2 (band - 1) < 8``) reports
+``nvcc``'s error.  Each built variant is loaded with ``ctypes``,
 held bit for bit against the blocked plain version at its band and
 timed by CUDA events at the eig flush ``(1024, 1024, 32)`` and the
 other shapes in ``SHAPES`` (``--shapes eig`` for the flush alone).
